@@ -1,0 +1,176 @@
+"""CLI driver — the reference's `test_lanczos.cu` main on PyTorch/CUDA.
+
+    python -m lanczos_tpu_torch --operator pallas -N 160 -m 6 --block --n-col 4
+    python -m lanczos_tpu_torch --operator pallas -N 10 -m 6 --device cpu
+
+Builds the 3-D Maxwell fixture as the folded-plane stencil operator, runs
+block Lanczos, propagates the matrix exponential to the receiver index,
+and validates against the forward-Euler FDTD oracle (reference
+`test_lanczos.cu:21-305`).  Same flags as `python -m lanczos_tpu`, plus
+`--device` (default cuda; a device that is not there is an error).  The
+paths not ported yet raise NotImplementedError naming their ROADMAP item:
+`--operator stencil|ell`, `--vector`, `--devices > 1`, `--reorth` other
+than none, `--normalize qr`, `--replace-dead`, `--compensated` and
+`--profile`.  The default `--operator` stays `stencil`, as in the JAX CLI,
+so pass `--operator pallas`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import random
+import time
+
+from lanczos_tpu_torch.config import LanczosConfig
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(
+        prog="lanczos_tpu_torch",
+        description="PyTorch/CUDA single/block Lanczos expm-action driver",
+    )
+    ap.add_argument("-N", "--n-grid", type=int, default=10)
+    ap.add_argument("-m", "--iterations", type=int, default=5)
+    g = ap.add_mutually_exclusive_group()
+    g.add_argument("--block", action="store_true", default=True)
+    g.add_argument("--vector", dest="block", action="store_false")
+    ap.add_argument("--n-col", type=int, default=4)
+    ap.add_argument("--t-end", type=float, default=1.0)
+    ap.add_argument("--fdtd-steps", type=int, default=1_000_000)
+    ap.add_argument("--lc", type=int, default=None)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", default="float32",
+                    choices=["float32", "float64"])
+    ap.add_argument("--reorth", default="none",
+                    choices=["none", "full", "selective", "periodic"])
+    ap.add_argument("--eig-backend", default="jacobi",
+                    choices=["jacobi", "lax", "newton"])
+    ap.add_argument("--normalize", default="sqrtm", choices=["sqrtm", "qr"])
+    ap.add_argument("--breakdown-eps", type=float, default=0.0,
+                    help="rank-revealing deflation threshold (relative "
+                         "eigenvalue cutoff)")
+    ap.add_argument("--replace-dead", action="store_true")
+    ap.add_argument("--breakdown-tol", type=float, default=0.0,
+                    help="freeze the recurrence once the beta-block rcond "
+                         "estimate falls below this; 0 disables")
+    ap.add_argument("--operator", default="stencil",
+                    choices=["stencil", "pallas", "ell"])
+    ap.add_argument("--no-fused", dest="fused", action="store_false",
+                    default=None,
+                    help="force the materialized (reference-semantics) "
+                         "recurrence instead of the traffic-minimal fused "
+                         "path")
+    ap.add_argument("--compensated", action="store_true")
+    ap.add_argument("--devices", type=int, default=1)
+    ap.add_argument("--no-validate", dest="validate", action="store_false")
+    ap.add_argument("--profile", dest="profile_dir", metavar="DIR",
+                    default=None)
+    ap.add_argument("--device", default="cuda",
+                    help="torch device for the operator and states")
+    return ap
+
+
+def config_from_args(args) -> LanczosConfig:
+    return LanczosConfig(
+        n_grid=args.n_grid, m=args.iterations, block=args.block,
+        n_col=args.n_col, t_end=args.t_end, fdtd_steps=args.fdtd_steps,
+        lc=args.lc, seed=args.seed, dtype=args.dtype, reorth=args.reorth,
+        eig_backend=args.eig_backend,
+        breakdown_tol=args.breakdown_tol, normalize=args.normalize,
+        breakdown_eps=args.breakdown_eps, replace_dead=args.replace_dead,
+        fused=args.fused, compensated=args.compensated,
+        operator=args.operator,
+        devices=args.devices, validate=args.validate,
+        profile_dir=args.profile_dir, device=args.device,
+    )
+
+
+def _check_ported(cfg: LanczosConfig) -> None:
+    missing = [
+        (cfg.operator == "stencil",
+         "--operator stencil (MaxwellOperator)", "Queue 1 item 2"),
+        (cfg.operator == "ell",
+         "--operator ell (maxwell_ell_operator)", "Queue 1 items 2 and 10"),
+        (not cfg.block, "--vector (single-vector Lanczos)", "Queue 1 item 9"),
+        (cfg.devices > 1, "--devices > 1 (multi-device operators)",
+         "Queue 1 item 12"),
+        (cfg.reorth != "none", f"--reorth {cfg.reorth}", "Queue 1 item 9"),
+        (cfg.compensated, "--compensated (block_grams_compensated, K7)",
+         "Queue 2 item K7"),
+        (cfg.profile_dir is not None, "--profile (torch.profiler)",
+         "Queue 1 item 7"),
+    ]
+    for hit, what, item in missing:
+        if hit:
+            raise NotImplementedError(
+                f"{what} is not ported to lanczos_tpu_torch yet "
+                f"(ROADMAP {item})"
+            )
+
+
+def run(cfg: LanczosConfig) -> dict:
+    import numpy as np
+    import torch
+
+    from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.models.rhs import gaussian_matrix_B
+
+    _check_ported(cfg)
+    device = torch.device(cfg.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"--device {cfg.device}: CUDA is not available")
+    dtype = getattr(torch, cfg.dtype)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    n_grid = cfg.n_grid
+    op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
+                                      device=device)
+    n = op.n
+    rng = random.Random(cfg.seed)
+    lc = cfg.lc if cfg.lc is not None else 1 + rng.randrange(100)
+    out = {"n": n, "lc": lc, "m": cfg.m, "block": cfg.block,
+           "operator": cfg.operator, "device": str(device)}
+
+    sync()
+    t0 = time.perf_counter()
+    b_np = np.asarray(gaussian_matrix_B(n_grid, n, cfg.n_col),
+                      np.dtype(cfg.dtype))
+    b = op.pack(torch.from_numpy(b_np).to(device))
+    del b_np
+    sol = block_lanczos_expm_action(
+        op, b, cfg.m, cfg.t_end, 0, trace_fn=op.trace_fn(lc),
+        eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
+        normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
+        replace_dead=cfg.replace_dead, fused=cfg.fused,
+        compensated=cfg.compensated,
+    )
+    sol = sol.cpu().numpy()  # waits for the device
+    out["lanczos_seconds"] = time.perf_counter() - t0
+    out["solution"] = sol.tolist()
+
+    if cfg.validate:
+        sync()
+        t0 = time.perf_counter()
+        u = fdtd_block(op, b, cfg.fdtd_steps, cfg.t_end)
+        ref = op.unpack(u)[:, lc].cpu().numpy()
+        rel = float(np.linalg.norm(sol - ref) / np.linalg.norm(ref))
+        out["fdtd_seconds"] = time.perf_counter() - t0
+        out["relative_error"] = rel
+    return out
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    out = run(config_from_args(args))
+    for k, v in out.items():
+        print(f"{k}: {v}")
+    return out
+
+
+if __name__ == "__main__":
+    main()

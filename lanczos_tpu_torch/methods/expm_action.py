@@ -1,0 +1,59 @@
+"""Matrix-exponential action via block Lanczos: row lc of expm(t*A) B.
+
+Port of `lanczos_tpu/methods/expm_action.py`, the end-to-end pipeline of
+the reference driver:
+  block:  solution = q_trace^T (expm(T_end*T)[:, :p] @ sqrtm(B^T B))
+          (test_lanczos.cu:270-287)
+where T is the block-tridiagonal Lanczos matrix and q_trace holds the
+receiver row of each Krylov block (the basis itself is never stored).
+The single-vector `lanczos_expm_action` waits for slice 2 (ROADMAP Queue 1
+item 9).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
+from lanczos_tpu_torch.ops.smalleig import expm_sym
+from lanczos_tpu_torch.ops.tridiag import assemble_block_tridiagonal
+
+
+def lanczos_expm_action(*args, **kwargs):
+    raise NotImplementedError(
+        "lanczos_expm_action (single-vector Lanczos) is not ported to "
+        "lanczos_tpu_torch yet (ROADMAP Queue 1 item 9)"
+    )
+
+
+def block_lanczos_expm_action(
+    a,
+    b: torch.Tensor,
+    m: int,
+    t_end: float,
+    lc: int,
+    *,
+    reorth: str = "none",
+    eig_backend: str = "jacobi",
+    breakdown_tol: float = 0.0,
+    trace_fn=None,
+    normalize: str = "sqrtm",
+    breakdown_eps: float = 0.0,
+    replace_dead: bool = False,
+    fused: bool | None = None,
+    compensated: bool = False,
+) -> torch.Tensor:
+    """Row lc (length p) of expm(t_end*A) B via m-step block Lanczos, on
+    b's device.  B is BLOCK-MAJOR (p, *state); for non-flat operator states
+    pass trace_fn.  The keyword options forward to `block_lanczos`."""
+    res = block_lanczos(a, b, m, lc, reorth=reorth, eig_backend=eig_backend,
+                        breakdown_tol=breakdown_tol, trace_fn=trace_fn,
+                        normalize=normalize, breakdown_eps=breakdown_eps,
+                        replace_dead=replace_dead, fused=fused,
+                        compensated=compensated)
+    p = b.shape[0]
+    t = assemble_block_tridiagonal(res.alphas, res.betas[1:])
+    e = expm_sym(t_end * t, backend="lax")
+    f1 = e[:, :p] @ res.betas[0]  # expm(T) E_1 sqrtm(B^T B)
+    return res.trace.reshape(-1) @ f1

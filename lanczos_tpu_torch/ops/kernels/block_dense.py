@@ -1,0 +1,141 @@
+"""K2 and K3: the block-dense algebra around the operator.
+
+Ports of `block_mix` and `block_grams` (lanczos_tpu/ops/pallas/
+block_dense.py:104 and :210).  Both are memory-bound passes over block
+operands (p_i, *state) that read every operand once:
+
+* ``block_mix(coeffs, xs)``  — out[j] = sum_k coeffs[k, j] * cat(xs)[k]
+  (the reference's tall x small ``mm_ts`` update, `mm_ts.hpp:110`);
+* ``block_grams(xs, z)``     — gram(cat(xs), z)[k, j] = <cat(xs)[k], z[j]>
+  over all state axes (the reference's ``mm_tt``/``mm_tt2``), f32
+  accumulation, with ``include_zz`` appending gram(z, z) from the same read
+  of z.
+
+On CUDA tensors they launch block_mix_kernel and block_grams_kernel of
+`csrc/lanczos_kernels.cu`; on CPU tensors they run the plain versions.
+The compensated Gram (`block_grams_compensated`, K7) is not ported yet
+(ROADMAP Queue 2).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
+from lanczos_tpu_torch.ops.kernels import build
+
+MAX_P_OUT = 32  # csrc block_mix instantiations
+MAX_OPERANDS = 3
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The accumulation type: f32, or the state's own if wider."""
+    return torch.promote_types(torch.float32, dtype)
+
+
+def block_mix_plain(coeffs: torch.Tensor, xs, inplace: bool = False):
+    """Plain torch version of `block_mix` (same contract)."""
+    xs = tuple(xs)
+    acc = acc_dtype(xs[0].dtype)
+    cat = torch.cat([x.reshape(x.shape[0], -1) for x in xs]).to(acc)
+    out = (coeffs.to(acc).T @ cat).to(xs[0].dtype)
+    out = out.reshape((coeffs.shape[1],) + tuple(xs[0].shape[1:]))
+    if inplace:
+        return xs[0].copy_(out)
+    return out
+
+
+def _mix_checks(coeffs, xs, inplace):
+    ps = [x.shape[0] for x in xs]
+    if not 1 <= len(xs) <= MAX_OPERANDS:
+        raise ValueError(f"block_mix takes 1..{MAX_OPERANDS} operands")
+    if coeffs.ndim != 2 or coeffs.shape[0] != sum(ps):
+        raise ValueError(f"coeffs {tuple(coeffs.shape)} vs operand rows {ps}")
+    state = xs[0].shape[1:]
+    if any(x.shape[1:] != state or x.dtype != xs[0].dtype for x in xs):
+        raise ValueError("operands must share state shape and dtype")
+    p_out = coeffs.shape[1]
+    if inplace and p_out != ps[0]:
+        raise ValueError(
+            f"inplace block_mix needs p_out == xs[0] rows ({p_out} != {ps[0]})"
+        )
+    return ps, p_out
+
+
+def block_mix(coeffs: torch.Tensor, xs, inplace: bool = False) -> torch.Tensor:
+    """out[j] = sum_k coeffs[k, j] * cat(xs, axis=0)[k].
+
+    coeffs: (K, p_out) with K = sum of the leading dims of xs; xs: 1..3
+    (p_i, *state) tensors sharing state shape and dtype.  inplace=True
+    writes the result onto xs[0] (needs p_out == xs[0].shape[0]) and
+    returns it; xs[0]'s old contents are gone."""
+    xs = tuple(xs)
+    ps, p_out = _mix_checks(coeffs, xs, inplace)
+    if xs[0].device.type == "cpu":
+        return block_mix_plain(coeffs, xs, inplace)
+    build.require_cuda("block_mix", *xs)
+    if p_out > MAX_P_OUT:
+        raise ValueError(f"CUDA block_mix takes p_out <= {MAX_P_OUT}")
+    # f32 and f64 states accumulate in their own type
+    cf = coeffs.to(device=xs[0].device, dtype=xs[0].dtype).contiguous()
+    out = xs[0] if inplace else torch.empty(
+        (p_out,) + tuple(xs[0].shape[1:]), dtype=xs[0].dtype,
+        device=xs[0].device,
+    )
+    ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_OPERANDS - len(xs))
+    rows = ps + [0] * (MAX_OPERANDS - len(xs))
+    S = xs[0][0].numel()
+    err = build.library().lt_block_mix(
+        build.dtype_code(xs[0]), ptrs[0], rows[0], ptrs[1], rows[1],
+        ptrs[2], rows[2], cf.data_ptr(), out.data_ptr(), p_out, S,
+        build.grid_blocks(S), build.stream_handle(out),
+    )
+    build.LAUNCHES["block_mix"] += 1
+    build.check(err, "block_mix")
+    return out
+
+
+def gram_plain(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """gram(x, z)[k, j] = <x[k], z[j]> over all state axes, accumulated
+    in `acc_dtype`."""
+    acc = acc_dtype(z.dtype)
+    return x.reshape(x.shape[0], -1).to(acc) @ z.reshape(z.shape[0], -1).to(acc).T
+
+
+def block_grams_plain(xs, z: torch.Tensor, include_zz: bool = False):
+    """Plain torch version of `block_grams` (same contract)."""
+    ops = list(xs) + ([z] if include_zz else [])
+    return torch.cat([gram_plain(x, z) for x in ops])
+
+
+def block_grams(xs, z: torch.Tensor, include_zz: bool = False) -> torch.Tensor:
+    """gram(cat(xs), z): (K, p) with K = sum p_i (+ p with include_zz,
+    which appends gram(z, z) as the trailing p rows).  xs: 0..3 operands
+    (p_i, *state) shaped like z; accumulates in f32 (f64 for f64 states).
+    The CUDA path sums across thread blocks in a fixed order, so the
+    result repeats bit for bit from run to run."""
+    xs = tuple(xs)
+    if len(xs) > MAX_OPERANDS or (not xs and not include_zz):
+        raise ValueError(f"block_grams takes 1..{MAX_OPERANDS} row operands")
+    if any(x.shape[1:] != z.shape[1:] or x.dtype != z.dtype for x in xs):
+        raise ValueError("operands must share z's state shape and dtype")
+    if z.device.type == "cpu":
+        return block_grams_plain(xs, z, include_zz)
+    build.require_cuda("block_grams", z, *xs)
+    p = z.shape[0]
+    ops = list(xs) + ([z] if include_zz else [])
+    ptrs = [x.data_ptr() for x in ops] + [None] * (4 - len(ops))
+    rows = [x.shape[0] for x in ops] + [0] * (4 - len(ops))
+    K = sum(rows)
+    S = z[0].numel()
+    nblocks = build.grid_blocks(S)
+    partial = torch.empty((nblocks, K, p), dtype=z.dtype, device=z.device)
+    out = torch.empty((K, p), dtype=z.dtype, device=z.device)
+    err = build.library().lt_block_grams(
+        build.dtype_code(z), ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2],
+        rows[2], ptrs[3], rows[3], z.data_ptr(), p, S, partial.data_ptr(),
+        nblocks, out.data_ptr(), build.stream_handle(z),
+    )
+    build.LAUNCHES["block_grams"] += 1
+    build.check(err, "block_grams")
+    return out

@@ -1,0 +1,161 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The kernels live in one CUDA C++ file, `lanczos_tpu_torch/csrc/
+lanczos_kernels.cu`, with a plain C interface.  At first use on a CUDA
+tensor, `library()` compiles it with nvcc for Hopper (sm_90a) into
+`lanczos_tpu_torch/_build/` and loads it with ctypes; the file name carries
+a hash of the source and flags, so an edit rebuilds and an unchanged tree
+reuses the library.  A failed build raises.  Nothing here runs at import:
+CPU-only installs import every module and never build.
+
+`LAUNCHES` counts kernel launches by wrapper name.  Each wrapper adds one
+right where it launches its kernel and nowhere else, so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+PACKAGE_DIR = Path(__file__).resolve().parents[2]
+SOURCE = PACKAGE_DIR / "csrc" / "lanczos_kernels.cu"
+BUILD_DIR = PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",  # per-kernel registers / spills into the build log
+)
+
+LAUNCHES = {
+    "apply_stencil_pair": 0,
+    "block_mix": 0,
+    "block_grams": 0,
+    "apply_stencil_pair_gram": 0,
+}
+
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)
+_SIGNATURES = {
+    "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
+    "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _P),
+    "lt_block_grams": (
+        _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
+    ),
+    "lt_stencil_pair_gram": (
+        _I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _I, _P, _P,
+    ),
+}
+
+_lib: ctypes.CDLL | None = None
+build_log = ""
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    candidates = [Path(home, "bin", "nvcc")] if home else []
+    found = shutil.which("nvcc")
+    if found:
+        candidates.append(Path(found))
+    candidates.append(Path("/usr/local/cuda/bin/nvcc"))
+    for c in candidates:
+        if c.is_file():
+            return str(c)
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels of "
+        "lanczos_tpu_torch are built from source at first use"
+    )
+
+
+def build() -> Path:
+    """Compile the kernel library if this source/flag combination has not
+    been built yet; returns its path.  The nvcc log (with `-Xptxas -v`'s
+    register and spill report) is kept in `build_log`."""
+    global build_log
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    out = BUILD_DIR / f"liblanczos_kernels-{tag}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # compile to a private name, then rename: concurrent builds never
+    # load a half-written library
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+        )
+    os.replace(tmp, out)
+    return out
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def check(err: int, name: str) -> None:
+    if err:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def stream_handle(t: torch.Tensor) -> int:
+    """PyTorch's current stream on t's device, as the kernels take it."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(
+            f"CUDA kernels take float32 or float64, got {t.dtype}"
+        ) from None
+
+
+def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """The checks every launch shares: CUDA, one device, one dtype,
+    contiguous."""
+    dev, dt = tensors[0].device, tensors[0].dtype
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{name}: all tensors must be on {dev}")
+        if t.dtype != dt:
+            raise TypeError(f"{name}: mixed dtypes {dt} and {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    dtype_code(tensors[0])
+
+
+def grid_blocks(n: int) -> int:
+    """Blocks of the grid-stride kernels (256 threads each, at most 1024
+    blocks).  A function of the size only, so the cross-block sums add in
+    the same order on every run."""
+    return max(1, min(-(-n // 256), 1024))

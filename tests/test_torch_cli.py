@@ -1,0 +1,177 @@
+"""The port's CLI slice (`python -m lanczos_tpu_torch`) against the JAX
+package's `lanczos_tpu.cli.run`, on the CPU: the same config through both,
+comparing `solution` and `relative_error`, with the fused recurrence auto
+(materialized at this size), forced (the mono step) and off (--no-fused).
+
+Tolerances, relative to the solution's scale:
+- f64, 1e-10: rounding in different operation orders.
+- f32 with the fixture's start block, 5e-4: its four Gaussian start
+  columns are nearly collinear, so B^T B has condition 7.5e7 at N=6
+  (eigenvalues 6.7e-6 .. 5.0e2), beyond f32's 1/eps.  Its smallest
+  eigen-direction is rounding noise in any f32 Gram (eps * ||B^T B|| =
+  3e-5), and two correct f32 implementations then agree only to ~1e-4: the
+  JAX package's own jacobi and lax eig backends differ by 8e-5 here, and
+  both packages sit 1e-5 .. 1.6e-4 from the f64 answer
+  (test_f32_noise_floor_of_the_fixture).
+- f32 with the fixture's columns orthonormalized in f64 (the same span,
+  condition 1), 1e-5: the whole slice, fixture to FDTD, at f32 precision
+  (the two packages agree to 2.1e-6 there, and each to 1.2e-6 of f64).
+
+The JAX runs are cached per process, and only the default run (fused=None,
+jacobi, the fixture's start block) validates against FDTD on the JAX side:
+the oracle does not depend on the recurrence (test_torch_lanczos_f64.py
+holds fdtd_block to JAX), and Pallas in interpret mode makes it the
+costliest part of a JAX run.  The port validates every run."""
+
+import contextlib
+import functools
+import os
+import random
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lanczos_tpu.models.rhs
+import lanczos_tpu_torch.models.rhs
+from lanczos_tpu.cli import run as jax_run
+from lanczos_tpu.config import LanczosConfig as JaxConfig
+from lanczos_tpu_torch.cli import build_parser, config_from_args, run
+from lanczos_tpu_torch.config import LanczosConfig
+
+F32_SOLUTION_RTOL = 5e-4
+F32_WELL_CONDITIONED_RTOL = 1e-5
+SLICE = dict(n_grid=6, m=6, n_col=4, operator="pallas", lc=20, fdtd_steps=200)
+
+
+def _orthonormal_columns(n_grid, n_rows, n_col,
+                         fixture=lanczos_tpu_torch.models.rhs.gaussian_matrix_B):
+    """The fixture's start block with its columns orthonormalized in f64."""
+    return np.linalg.qr(fixture(n_grid, n_rows, n_col).T)[0].T.copy()
+
+
+@contextlib.contextmanager
+def start_block(start):
+    """Both CLIs build their start block from this one (block-major)."""
+    with pytest.MonkeyPatch.context() as mp:
+        if start == "orthonormal":
+            for mod in (lanczos_tpu.models.rhs, lanczos_tpu_torch.models.rhs):
+                mp.setattr(mod, "gaussian_matrix_B", _orthonormal_columns)
+        yield
+
+
+@functools.lru_cache(maxsize=None)
+def jax_result(dtype, fused, eig_backend="jacobi", start="fixture"):
+    """The JAX CLI's run of SLICE, once per worker process."""
+    default = (fused, eig_backend, start) == (None, "jacobi", "fixture")
+    with start_block(start):
+        return jax_run(JaxConfig(**SLICE, dtype=dtype, fused=fused,
+                                 eig_backend=eig_backend, validate=default))
+
+
+def compare_with_jax(dtype, fused, rtol, start="fixture"):
+    want = jax_result(dtype, fused, start=start)
+    with start_block(start):
+        got = run(LanczosConfig(**SLICE, dtype=dtype, fused=fused,
+                                device="cpu"))
+    sj, st = np.asarray(want["solution"]), np.asarray(got["solution"])
+    assert st.shape == sj.shape == (4,)
+    assert np.abs(st - sj).max() <= rtol * np.abs(sj).max()
+    assert (got["n"], got["lc"]) == (want["n"], want["lc"])
+    # the FDTD oracle agrees too: the relative errors are both small and
+    # differ by no more than the solutions do
+    assert got["relative_error"] < 1e-3
+    if "relative_error" in want:
+        assert abs(got["relative_error"] - want["relative_error"]) <= 2 * rtol
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_cli_slice_matches_jax_f32(fused):
+    compare_with_jax("float32", fused, F32_SOLUTION_RTOL)
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_cli_slice_well_conditioned_matches_jax_f32(fused):
+    compare_with_jax("float32", fused, F32_WELL_CONDITIONED_RTOL,
+                     start="orthonormal")
+
+
+@pytest.mark.parametrize("fused", [None, True, False])
+def test_cli_slice_matches_jax_f64(fused):
+    compare_with_jax("float64", fused, 1e-10)
+
+
+def test_f32_noise_floor_of_the_fixture():
+    """Why the fixture's f32 comparison is not held to 1e-5: the JAX
+    package's own jacobi and lax eig backends disagree by more than that on
+    this config, and the port's f32 answer lies as close to the f64 answer
+    as JAX's do."""
+    exact = np.asarray(jax_result("float64", None)["solution"])
+    jax_f32 = [np.asarray(jax_result("float32", None, be)["solution"])
+               for be in ("jacobi", "lax")]
+    port = np.asarray(run(LanczosConfig(**SLICE, device="cpu"))["solution"])
+    scale = np.abs(exact).max()
+    assert np.abs(jax_f32[0] - jax_f32[1]).max() > 1e-5 * scale
+    jax_err = max(np.abs(s - exact).max() for s in jax_f32)
+    assert np.abs(port - exact).max() <= jax_err
+
+
+def test_cli_reference_anchor_n10():
+    """The JAX f32 run of this config gives solution ~ [0.96766, 0.95977,
+    0.89650, 0.78864] and relative_error 3.0e-5; the f64 answer is
+    [0.967674, 0.959794, 0.896525, 0.788665] (both measured on CPU)."""
+    out = run(LanczosConfig(n_grid=10, m=6, n_col=4, operator="pallas", lc=20,
+                            fused=True, fdtd_steps=1000, device="cpu"))
+    ref = np.array([0.96766, 0.95977, 0.89650, 0.78864])
+    assert np.abs(np.asarray(out["solution"]) - ref).max() <= F32_SOLUTION_RTOL
+    assert out["relative_error"] < 1e-3
+
+
+def test_parser_flags_and_lc_default():
+    args = build_parser().parse_args(
+        ["-N", "4", "-m", "3", "--operator", "pallas", "--no-fused", "--device", "cpu"]
+    )
+    cfg = config_from_args(args)
+    assert (cfg.n_grid, cfg.m, cfg.operator, cfg.fused, cfg.device) == (4, 3, "pallas", False, "cpu")
+    assert build_parser().parse_args([]).device == "cuda"
+    out = run(LanczosConfig(n_grid=3, m=2, operator="pallas", validate=False, device="cpu"))
+    # the JAX CLI's default receiver (lanczos_tpu/cli.py:145-146)
+    assert out["lc"] == 1 + random.Random(0).randrange(100)
+    assert "relative_error" not in out
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(operator="stencil"), "Queue 1 item 2"),
+    (dict(operator="ell"), "Queue 1 items 2 and 10"),
+    (dict(operator="pallas", block=False), "Queue 1 item 9"),
+    (dict(operator="pallas", devices=2), "Queue 1 item 12"),
+    (dict(operator="pallas", reorth="full"), "Queue 1 item 9"),
+    (dict(operator="pallas", compensated=True), "K7"),
+    (dict(operator="pallas", profile_dir="trace"), "Queue 1 item 7"),
+])
+def test_unported_flags_raise(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        run(LanczosConfig(n_grid=3, m=2, device="cpu", **kw))
+
+
+def test_device_cuda_without_a_card_is_an_error():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        run(LanczosConfig(n_grid=3, m=2, operator="pallas", device="cuda"))
+
+
+def test_port_never_imports_jax():
+    code = (
+        "import sys; sys.path.insert(0, sys.argv[1]);"
+        "import lanczos_tpu_torch, lanczos_tpu_torch.cli;"
+        "import lanczos_tpu_torch.methods.expm_action, lanczos_tpu_torch.methods.fdtd;"
+        "import lanczos_tpu_torch.models.maxwell_pallas, lanczos_tpu_torch.models.rhs;"
+        "import lanczos_tpu_torch.probes;"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+    )
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    # -I: no PYTHONPATH, user site or cwd, so only the package can pull jax in
+    subprocess.run([sys.executable, "-I", "-c", code, root], check=True)

@@ -1,0 +1,136 @@
+"""The port's Maxwell operator (lanczos_tpu_torch.models) against the JAX
+package's, on the CPU: weights, layout, packing, and A @ u (K1's plain
+version) against JAX's `apply_stencil_pair` (Pallas in interpret mode)
+and against the scipy oracle in f64."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from lanczos_tpu.models.maxwell_pallas import PallasMaxwellOperator as JaxOp
+from lanczos_tpu_torch.models.maxwell import assemble_maxwell_A
+from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+
+# f32 tolerance of A @ u against JAX: the same taps in the same order and
+# the same paired factoring, so only contraction of multiply-adds (FMA)
+# may differ — a few ulps of the largest output
+F32_STENCIL_RTOL = 1e-6
+
+
+def _pair(n, jdt=jnp.float32, tdt=torch.float32):
+    return JaxOp.create(n, n, n, dtype=jdt), PallasMaxwellOperator.create(
+        n, n, n, dtype=tdt
+    )
+
+
+@pytest.mark.parametrize("n", [3, 6, 10])
+def test_weights_and_specs_bit_identical(n):
+    jop, top = _pair(n)
+    assert np.array_equal(np.asarray(jop.wz_t), top.wz_t.numpy())
+    assert np.array_equal(np.asarray(jop.wplane_s), top.wplane_s.numpy())
+    for js, ts in ((jop.spec_e, top.spec_e), (jop.spec_h, top.spec_h)):
+        assert (ts.taps, ts.zc, ts.plane, ts.paired) == (
+            js.taps, js.zc, js.plane, js.paired
+        )
+    assert top.state_shape == jop.state_shape
+    assert top.n == jop.n
+
+
+def test_layout_at_reference_size():
+    """N=160: Zc = round_up(8 + 160 + 2, 16), P = round_up(163^2, 128)."""
+    from lanczos_tpu_torch.models.maxwell_pallas import _host_taps
+
+    (spec_e, _), wz_t, wplane_s = _host_taps(160, 160, 160, np.float32)
+    assert (spec_e.zc, spec_e.plane) == (176, 26624)
+    assert wz_t.shape == (2, 176, 12) and wplane_s.shape == (2, 12, 26624)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_from_arrays_takes_jax_weights(dtype):
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jop = JaxOp.create(6, 6, 6, dtype=jdt)
+    top = PallasMaxwellOperator.from_arrays(
+        6, 6, 6, np.asarray(jop.wz_t), np.asarray(jop.wplane_s), dtype=dtype
+    )
+    ref = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype)
+    assert torch.equal(top.wz_t, ref.wz_t)
+    assert torch.equal(top.wplane_s, ref.wplane_s)
+    with pytest.raises(ValueError, match="geometry"):
+        PallasMaxwellOperator.from_arrays(
+            6, 6, 14, np.asarray(jop.wz_t), np.asarray(jop.wplane_s)
+        )
+
+
+@pytest.mark.parametrize("n,p", [(3, 1), (6, 3), (10, 2)])
+def test_pack_unpack_match_jax(n, p, rng):
+    jop, top = _pair(n)
+    b = rng.standard_normal((p, jop.n)).astype(np.float32)
+    uj = np.asarray(jop.pack(jnp.asarray(b)))
+    ut = top.pack(torch.from_numpy(b))
+    assert np.array_equal(uj, ut.numpy())
+    assert np.array_equal(np.asarray(jop.pack(jnp.asarray(b[0]))), top.pack(torch.from_numpy(b[0])).numpy())
+    assert np.array_equal(top.unpack(ut).numpy(), b)
+    assert np.array_equal(top.unpack(ut[0]).numpy(), b[0])
+
+
+def test_state_index_and_trace_fn(rng):
+    jop, top = _pair(6)
+    for lc in (0, 20, 97, top.n // 2, top.n - 1):
+        assert top.state_index(lc) == jop.state_index(lc)
+    b = torch.from_numpy(rng.standard_normal((3, top.n)).astype(np.float32))
+    u = top.pack(b)
+    tr = top.trace_fn(20)(u)
+    assert torch.equal(tr, b[:, 20])
+    u.zero_()  # the trace is a copy: later in-place writes leave it alone
+    assert torch.equal(tr, b[:, 20])
+    with pytest.raises(IndexError):
+        top.state_index(top.n)
+
+
+@pytest.mark.parametrize("n", [3, 6, 10])
+@pytest.mark.parametrize("p", [1, 3])
+def test_stencil_plain_matches_jax(n, p, rng):
+    jop, top = _pair(n)
+    u = top.pack(torch.from_numpy(rng.standard_normal((p, top.n)).astype(np.float32)))
+    vj = np.asarray(jop.mm(jnp.asarray(u.numpy())))
+    vt = top.mm(u).numpy()
+    np.testing.assert_allclose(vt, vj, rtol=0, atol=F32_STENCIL_RTOL * np.abs(vj).max())
+    # pad positions stay exactly zero
+    assert np.array_equal(vt == 0, vj == 0)
+    # single-state mv agrees with the block product
+    np.testing.assert_array_equal(top.mv(u[0]).numpy(), vt[0])
+
+
+@pytest.mark.parametrize("n", [3, 6])
+def test_stencil_matches_scipy_f64(n, rng):
+    """A = D diag(w) assembled by scipy is the f64 oracle: the stencil
+    agrees to f64 rounding (1e-12 of the output scale)."""
+    top = PallasMaxwellOperator.create(n, n, n, dtype=torch.float64)
+    A = assemble_maxwell_A(n, n, n)
+    x = rng.standard_normal((2, top.n))
+    y = top.unpack(top.mm(top.pack(torch.from_numpy(x)))).numpy()
+    ref = (A @ x.T).T
+    np.testing.assert_allclose(y, ref, rtol=0, atol=1e-12 * np.abs(ref).max())
+
+
+def test_scaled_matches_jax_and_folds_into_z_weights(rng):
+    jop, top = _pair(6)
+    dt = np.float32(1.0 / 300)
+    js, ts = jop.scaled(jnp.asarray(dt)), top.scaled(torch.tensor(dt))
+    assert np.array_equal(np.asarray(js.wz_t), ts.wz_t.numpy())
+    assert ts.wplane_s is top.wplane_s  # plane weights shared, not copied
+    u = top.pack(torch.from_numpy(rng.standard_normal((2, top.n)).astype(np.float32)))
+    np.testing.assert_allclose(
+        ts.mm(u).numpy(), dt * top.mm(u).numpy(), rtol=1e-6,
+        atol=1e-6 * dt * np.abs(top.mm(u).numpy()).max(),
+    )
+
+
+def test_unported_paths_raise():
+    top = PallasMaxwellOperator.create(3, 3, 3)
+    assert top.supports_fdtd_inplace(2) is False
+    with pytest.raises(NotImplementedError, match="Queue 2"):
+        top.fdtd_step(torch.zeros((1,) + top.state_shape))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        PallasMaxwellOperator.create(3, 3, 3, dtype=torch.bfloat16)
