@@ -7,10 +7,11 @@ for the TPU as a kernel written by hand in CUDA C++ for Hopper
 package's, which stays in the repository as the reference.  This package
 never imports jax.
 
-Ported so far (slice 1, the reference driver's main path): the Maxwell
-folded-plane operator, bare block Lanczos (materialized and fused), the
-small eigensolvers, the block expm action, the FDTD oracle and the CLI
-(`python -m lanczos_tpu_torch --operator pallas ...`).
+Ported so far: the Maxwell folded-plane and flat-state operators,
+`MatrixOperator`, bare block Lanczos (materialized and fused, with
+compensated Grams), single-vector Lanczos (reorth none/full/selective),
+the small eigensolvers, both expm actions, the FDTD oracle and the CLI
+(`python -m lanczos_tpu_torch [--vector] [--operator pallas] ...`).
 """
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)

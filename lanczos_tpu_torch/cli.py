@@ -1,18 +1,21 @@
 """CLI driver — the reference's `test_lanczos.cu` main on PyTorch/CUDA.
 
     python -m lanczos_tpu_torch --operator pallas -N 160 -m 6 --block --n-col 4
-    python -m lanczos_tpu_torch --operator pallas -N 10 -m 6 --device cpu
+    python -m lanczos_tpu_torch --operator pallas -N 160 -m 8 --vector
+    python -m lanczos_tpu_torch -N 3 -m 8 --vector --reorth full --device cpu
 
-Builds the 3-D Maxwell fixture as the folded-plane stencil operator, runs
-block Lanczos, propagates the matrix exponential to the receiver index,
-and validates against the forward-Euler FDTD oracle (reference
-`test_lanczos.cu:21-305`).  Same flags as `python -m lanczos_tpu`, plus
-`--device` (default cuda; a device that is not there is an error).  The
-paths not ported yet raise NotImplementedError naming their ROADMAP item:
-`--operator stencil|ell`, `--vector`, `--devices > 1`, `--reorth` other
-than none, `--normalize qr`, `--replace-dead`, `--compensated` and
-`--profile`.  The default `--operator` stays `stencil`, as in the JAX CLI,
-so pass `--operator pallas`.
+Builds the 3-D Maxwell fixture, runs single-vector or block Lanczos,
+propagates the matrix exponential to the receiver index, and validates
+against the forward-Euler FDTD oracle (reference `test_lanczos.cu:21-305`).
+Same flags as `python -m lanczos_tpu`, plus `--device` (default cuda; a
+device that is not there is an error).  `--operator pallas` is the
+folded-plane stencil the CUDA kernels serve; `--operator stencil` (the
+default) the flat-state `MaxwellOperator` in plain torch.  The paths not
+ported yet raise NotImplementedError naming their ROADMAP item:
+`--operator ell`, `--devices > 1`, block `--reorth` other than none,
+`--normalize qr`, `--replace-dead` and `--profile`.  `--vector
+--compensated` is a ValueError: the compensated Gram is a block-path
+option.
 """
 
 from __future__ import annotations
@@ -86,17 +89,22 @@ def config_from_args(args) -> LanczosConfig:
 
 
 def _check_ported(cfg: LanczosConfig) -> None:
+    if not cfg.block and cfg.compensated:
+        raise ValueError(
+            "--compensated is a block-Lanczos option (the compensated Gram); "
+            "--vector has no Gram to compensate"
+        )
     missing = [
-        (cfg.operator == "stencil",
-         "--operator stencil (MaxwellOperator)", "Queue 1 item 2"),
         (cfg.operator == "ell",
          "--operator ell (maxwell_ell_operator)", "Queue 1 items 2 and 10"),
-        (not cfg.block, "--vector (single-vector Lanczos)", "Queue 1 item 9"),
         (cfg.devices > 1, "--devices > 1 (multi-device operators)",
          "Queue 1 item 12"),
-        (cfg.reorth != "none", f"--reorth {cfg.reorth}", "Queue 1 item 9"),
-        (cfg.compensated, "--compensated (block_grams_compensated, K7)",
-         "Queue 2 item K7"),
+        (cfg.block and cfg.reorth != "none",
+         f"block --reorth {cfg.reorth}", "Queue 1 item 9"),
+        (cfg.block and cfg.normalize == "qr", "--normalize qr (TSQR)",
+         "Queue 1 item 9"),
+        (cfg.block and cfg.replace_dead, "--replace-dead (adaptive restart)",
+         "Queue 1 item 9"),
         (cfg.profile_dir is not None, "--profile (torch.profiler)",
          "Queue 1 item 7"),
     ]
@@ -112,10 +120,14 @@ def run(cfg: LanczosConfig) -> dict:
     import numpy as np
     import torch
 
-    from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
-    from lanczos_tpu_torch.methods.fdtd import fdtd_block
+    from lanczos_tpu_torch.methods.expm_action import (
+        block_lanczos_expm_action,
+        lanczos_expm_action,
+    )
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
+    from lanczos_tpu_torch.models.maxwell import MaxwellOperator
     from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
-    from lanczos_tpu_torch.models.rhs import gaussian_matrix_B
+    from lanczos_tpu_torch.models.rhs import gaussian_matrix_B, gaussian_vector_b
 
     _check_ported(cfg)
     device = torch.device(cfg.device)
@@ -128,27 +140,47 @@ def run(cfg: LanczosConfig) -> dict:
             torch.cuda.synchronize(device)
 
     n_grid = cfg.n_grid
-    op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
-                                      device=device)
+    if cfg.operator == "pallas":
+        op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid,
+                                          dtype=dtype, device=device)
+        pack, unpack = op.pack, op.unpack
+    else:  # stencil: the flat state needs no packing and no trace_fn
+        op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
+                                    device=device)
+        pack = unpack = lambda x: x  # noqa: E731
     n = op.n
     rng = random.Random(cfg.seed)
     lc = cfg.lc if cfg.lc is not None else 1 + rng.randrange(100)
     out = {"n": n, "lc": lc, "m": cfg.m, "block": cfg.block,
            "operator": cfg.operator, "device": str(device)}
+    # the receiver: a trace_fn on the folded-plane state, index lc on the flat one
+    if cfg.operator == "pallas":
+        receiver = dict(lc=0, trace_fn=op.trace_fn(lc))
+    else:
+        receiver = dict(lc=lc)
 
     sync()
     t0 = time.perf_counter()
-    b_np = np.asarray(gaussian_matrix_B(n_grid, n, cfg.n_col),
-                      np.dtype(cfg.dtype))
-    b = op.pack(torch.from_numpy(b_np).to(device))
+    if cfg.block:
+        b_np = gaussian_matrix_B(n_grid, n, cfg.n_col)
+    else:
+        b_np = gaussian_vector_b(n_grid, n)
+    b = pack(torch.from_numpy(b_np.astype(cfg.dtype)).to(device))
     del b_np
-    sol = block_lanczos_expm_action(
-        op, b, cfg.m, cfg.t_end, 0, trace_fn=op.trace_fn(lc),
-        eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
-        normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
-        replace_dead=cfg.replace_dead, fused=cfg.fused,
-        compensated=cfg.compensated,
-    )
+    if cfg.block:
+        sol = block_lanczos_expm_action(
+            op, b, cfg.m, cfg.t_end, **receiver,
+            eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
+            normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
+            replace_dead=cfg.replace_dead, fused=cfg.fused,
+            compensated=cfg.compensated,
+        )
+    else:
+        sol = lanczos_expm_action(
+            op, b, cfg.m, cfg.t_end, **receiver,
+            reorth="none" if cfg.reorth == "periodic" else cfg.reorth,
+            breakdown_tol=cfg.breakdown_tol, fused=cfg.fused,
+        )
     sol = sol.cpu().numpy()  # waits for the device
     out["lanczos_seconds"] = time.perf_counter() - t0
     out["solution"] = sol.tolist()
@@ -156,8 +188,12 @@ def run(cfg: LanczosConfig) -> dict:
     if cfg.validate:
         sync()
         t0 = time.perf_counter()
-        u = fdtd_block(op, b, cfg.fdtd_steps, cfg.t_end)
-        ref = op.unpack(u)[:, lc].cpu().numpy()
+        if cfg.block:
+            u = fdtd_block(op, b, cfg.fdtd_steps, cfg.t_end)
+            ref = unpack(u)[:, lc].cpu().numpy()
+        else:
+            u = fdtd_vector(op, b, cfg.fdtd_steps, cfg.t_end)
+            ref = unpack(u)[lc].cpu().numpy()
         rel = float(np.linalg.norm(sol - ref) / np.linalg.norm(ref))
         out["fdtd_seconds"] = time.perf_counter() - t0
         out["relative_error"] = rel

@@ -1,4 +1,4 @@
-// Hand-written Hopper kernels of the block-Lanczos main path.
+// Hand-written Hopper kernels of the single- and block-Lanczos paths.
 //
 // Built by nvcc into a shared library with a plain C interface and loaded
 // with ctypes (lanczos_tpu_torch/ops/kernels/build.py):
@@ -10,9 +10,10 @@
 // void*, launches on that stream without synchronising, allocates nothing
 // (the Python wrapper hands in outputs and scratch from torch.empty) and
 // returns cudaGetLastError(), which the wrapper raises on.  dtype 0 is
-// float32, 1 is float64; both accumulate in their own type.
+// float32, 1 is float64; both accumulate in their own type, except K7,
+// which takes float32 and accumulates in float64.
 //
-// All four kernels stream the block state, (p, 6, Zc, P) per block, and do
+// All six kernels stream the block state, (p, 6, Zc, P) per block, and do
 // a handful of flops per element, so device memory bounds them all.  At
 // the main path's shape (Maxwell N=160, p=4: Zc=176, P=26624) one block
 // state is 449.8 MB; the bytes each moves per call are noted at each
@@ -20,7 +21,7 @@
 // across the block) per thread in a grid-stride loop, neighbouring threads
 // on neighbouring addresses, no shared-memory staging, no TMA or wgmma.
 //
-// Cross-block sums (K3, K4) are deterministic: each block writes its
+// Cross-block sums (K3, K4, K7) are deterministic: each block writes its
 // partial sums into scratch, then sum_partials_kernel adds them in block
 // order.  No float atomics, so the Lanczos coefficients repeat run to run.
 
@@ -100,7 +101,11 @@ __device__ __forceinline__ void stencil_cols(
     const Geometry& g, T (&acc)[MAXP]) {
 #pragma unroll
   for (int b = 0; b < MAXP; ++b) acc[b] = T(0);
-  for (int k = 0; k + 1 < ct.n; k += 2) {
+  // unrolled over the (at most two) pairs, so that both pairs' loads can
+  // be in flight together: at p = 1 there is no other parallelism per thread
+#pragma unroll
+  for (int k = 0; k + 1 < kMaxTaps; k += 2) {
+    if (k + 1 >= ct.n) break;
     const int t0 = ct.t[k], t1 = ct.t[k + 1];
     const int o0 = tap_offset(ct.ic[k], z, ct.dz[k], l, ct.r[k], g);
     const int o1 = tap_offset(ct.ic[k + 1], z, ct.dz[k + 1], l, ct.r[k + 1], g);
@@ -141,16 +146,16 @@ __device__ __forceinline__ void block_sum(T (&acc)[NACC], T* red) {
 }
 
 // Second pass of the cross-block sums: out[i] = sum_b partial[b, i], in
-// block order.
-template <typename T>
+// block order, in T; rounded to TOut once at the end.
+template <typename T, typename TOut>
 __global__ void sum_partials_kernel(const T* __restrict__ partial,
                                     int nblocks, int nout,
-                                    T* __restrict__ out) {
+                                    TOut* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= nout) return;
   T s = T(0);
   for (int b = 0; b < nblocks; ++b) s += partial[(long long)b * nout + i];
-  out[i] = s;
+  out[i] = TOut(s);
 }
 
 // ---------------------------------------------------------------------------
@@ -160,12 +165,62 @@ __global__ void sum_partials_kernel(const T* __restrict__ partial,
 // Bound: device memory.  One read and one write of the state, 2 * 449.8 MB
 // at N=160 p=4, plus 2.6 MB of plane weights; the 4 tap reads of an output
 // hit its neighbours (+-1 lane, +-xc lanes, +-1 z-row of the opposite half),
-// which L1/L2 serve.  One thread per state position, looping over the p
-// block columns, keeps every load and store coalesced along the lane axis
-// and decodes the position once.
-constexpr int kStencilCols = 4;  // block columns per pass of K1
+// which L1/L2 serve.  One thread per (z, l) position, looping over the six
+// components and the p block columns, four per pass (one when p = 1;
+// stencil_pair_body), keeps every load and store coalesced along the lane
+// axis and decodes the position once.
+// The body K1 and K5 share: out = A u, plus u itself when kAddInput, for
+// output component c at (z, l) over the p block columns, COLS per pass.
+// taps is the block's shared-memory copy.
+template <typename T, bool kAddInput, int COLS>
+__device__ __forceinline__ void stencil_comp(
+    const T* __restrict__ u, T* __restrict__ out, const T* __restrict__ wz,
+    const T* __restrict__ wp, const StencilTaps& taps, const Geometry& g,
+    int p, int c, int z, int l, int s) {
+  const int h = c / 3;
+  const T* wzr = wz + ((long long)h * g.zc + z) * g.nt;
+  const T* wpl = wp + (long long)h * g.nt * g.plane + l;
+  const int e0 = c * g.zc * g.plane + s;  // < 2^30, checked by the wrapper
+  for (int b0 = 0; b0 < p; b0 += COLS) {
+    T acc[COLS];
+    stencil_cols<T, COLS>(u + b0 * g.state, g.state, p - b0, taps.comp[c],
+                          wzr, wpl, z, l, g, acc);
+#pragma unroll
+    for (int b = 0; b < COLS; ++b) {
+      if (b0 + b < p) {
+        const long long e = (b0 + b) * g.state + e0;
+        out[e] = kAddInput ? u[e] + acc[b] : acc[b];
+      }
+    }
+  }
+}
 
-template <typename T>
+// One thread owns one (z, l) position and writes all six output
+// components there: a block then reads each input row's neighbourhood for
+// all the taps that need it, and K5's identity read of u, close together
+// in time, so L1 serves the repeats and device memory sees one read of u.
+// The position is decoded once for all components and columns.  p = 1
+// takes a one-column instantiation: the four-column one spends registers
+// and predicated loads on three empty columns.  The component loop stays
+// rolled: unrolled, it costs more occupancy than its overlapped loads gain
+// (158 registers and 2.4x the time at p = 1 on the H100; PERF.md).
+template <typename T, bool kAddInput, int COLS>
+__device__ __forceinline__ void stencil_pair_body(
+    const T* __restrict__ u, T* __restrict__ out, const T* __restrict__ wz,
+    const T* __restrict__ wp, const StencilTaps& taps, const Geometry& g,
+    int p) {
+  const int comp = g.zc * g.plane;  // elements of one component
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < comp;
+       s += gridDim.x * blockDim.x) {
+    const int l = s % g.plane;
+    const int z = s / g.plane;
+#pragma unroll 1
+    for (int c = 0; c < 6; ++c)
+      stencil_comp<T, kAddInput, COLS>(u, out, wz, wp, taps, g, p, c, z, l, s);
+  }
+}
+
+template <typename T, int COLS>
 __global__ void __launch_bounds__(kThreads)
     stencil_pair_kernel(const T* __restrict__ u, T* __restrict__ out,
                         const T* __restrict__ wz, const T* __restrict__ wp,
@@ -173,26 +228,7 @@ __global__ void __launch_bounds__(kThreads)
   __shared__ StencilTaps s_taps;
   if (threadIdx.x == 0) s_taps = taps;
   __syncthreads();
-  const int state = (int)g.state;  // <= 2^30, checked by the wrapper
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < state;
-       s += gridDim.x * blockDim.x) {
-    const int l = s % g.plane;
-    const int rz = s / g.plane;
-    const int z = rz % g.zc;
-    const int c = rz / g.zc;
-    const int h = c / 3;
-    const CompTaps& ct = s_taps.comp[c];
-    const T* wzr = wz + ((long long)h * g.zc + z) * g.nt;
-    const T* wpl = wp + (long long)h * g.nt * g.plane + l;
-    for (int b0 = 0; b0 < p; b0 += kStencilCols) {
-      T acc[kStencilCols];
-      stencil_cols<T, kStencilCols>(u + b0 * g.state, g.state, p - b0, ct,
-                                    wzr, wpl, z, l, g, acc);
-#pragma unroll
-      for (int b = 0; b < kStencilCols; ++b)
-        if (b0 + b < p) out[(b0 + b) * g.state + s] = acc[b];
-    }
-  }
+  stencil_pair_body<T, false, COLS>(u, out, wz, wp, s_taps, g, p);
 }
 
 // ---------------------------------------------------------------------------
@@ -267,43 +303,55 @@ __device__ __forceinline__ const T* row_ptr(const Rows<T>& rows, int k,
   return nullptr;
 }
 
+// The body K3 and K7 share: the block's partial sums of one R x C tile of
+// the Gram, operands of type T accumulated in Acc.  red is the block's
+// shared scratch of R * C * kWarps Acc.
+template <typename T, typename Acc, int R, int C>
+__device__ __forceinline__ void gram_tile(const Rows<T>& rows,
+                                          const T* __restrict__ z, int p,
+                                          long long S,
+                                          Acc* __restrict__ partial,
+                                          Acc* red) {
+  const int K = rows.total;
+  const int k0 = blockIdx.y * R, j0 = blockIdx.z * C;
+  const T* xr[R];
+  const T* zr[C];
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    xr[k] = k0 + k < K ? row_ptr(rows, k0 + k, S) : nullptr;
+#pragma unroll
+  for (int j = 0; j < C; ++j)
+    zr[j] = j0 + j < p ? z + (long long)(j0 + j) * S : nullptr;
+  Acc acc[R * C];
+#pragma unroll
+  for (int i = 0; i < R * C; ++i) acc[i] = Acc(0);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
+       s += stride) {
+    Acc zv[C];
+#pragma unroll
+    for (int j = 0; j < C; ++j) zv[j] = zr[j] ? Acc(zr[j][s]) : Acc(0);
+#pragma unroll
+    for (int k = 0; k < R; ++k) {
+      const Acc xv = xr[k] ? Acc(xr[k][s]) : Acc(0);
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[k * C + j] += xv * zv[j];
+    }
+  }
+  block_sum<Acc, R * C>(acc, red);
+  Acc* part = partial + (long long)blockIdx.x * K * p;
+  for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
+    const int k = k0 + i / C, j = j0 + i % C;
+    if (k < K && j < p) part[k * p + j] = red[i * kWarps];
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     block_grams_kernel(Rows<T> rows, const T* __restrict__ z, int p,
                        long long S, T* __restrict__ partial) {
   __shared__ T red[kGramRows * kGramCols * kWarps];
-  const int K = rows.total;
-  const int k0 = blockIdx.y * kGramRows, j0 = blockIdx.z * kGramCols;
-  const T* xr[kGramRows];
-  const T* zr[kGramCols];
-#pragma unroll
-  for (int k = 0; k < kGramRows; ++k)
-    xr[k] = k0 + k < K ? row_ptr(rows, k0 + k, S) : nullptr;
-#pragma unroll
-  for (int j = 0; j < kGramCols; ++j)
-    zr[j] = j0 + j < p ? z + (long long)(j0 + j) * S : nullptr;
-  T acc[kGramRows * kGramCols];
-#pragma unroll
-  for (int i = 0; i < kGramRows * kGramCols; ++i) acc[i] = T(0);
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
-       s += stride) {
-    T zv[kGramCols];
-#pragma unroll
-    for (int j = 0; j < kGramCols; ++j) zv[j] = zr[j] ? zr[j][s] : T(0);
-#pragma unroll
-    for (int k = 0; k < kGramRows; ++k) {
-      const T xv = xr[k] ? xr[k][s] : T(0);
-#pragma unroll
-      for (int j = 0; j < kGramCols; ++j) acc[k * kGramCols + j] += xv * zv[j];
-    }
-  }
-  block_sum<T, kGramRows * kGramCols>(acc, red);
-  T* part = partial + (long long)blockIdx.x * K * p;
-  for (int i = threadIdx.x; i < kGramRows * kGramCols; i += blockDim.x) {
-    const int k = k0 + i / kGramCols, j = j0 + i % kGramCols;
-    if (k < K && j < p) part[k * p + j] = red[i * kWarps];
-  }
+  gram_tile<T, T, kGramRows, kGramCols>(rows, z, p, S, partial, red);
 }
 
 // ---------------------------------------------------------------------------
@@ -371,15 +419,62 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K5: out = u + (dt A) u over p block columns, one forward-Euler step.
+// Replaces fdtd_step_inplace (lanczos_tpu/ops/pallas/stencil_fdtd.py:50).
+// Bound: device memory.  One read of u and one write of out: 2 * 112.5 MB
+// at N=160 p=1, 2 * 449.8 MB at p=4, against five passes for K1 and a
+// separate add.  It is K1's body with the identity term added to the tap
+// sum (the plain version's order; the Pallas kernel starts its sum at u,
+// which differs in rounding only).  The Pallas kernel updates u in place,
+// which the TPU's in-order grid and a VMEM delay ring make safe; CUDA
+// blocks run in no order and would overwrite z-halo rows and +-xc lanes a
+// neighbour still reads, so out is a second buffer (the caller swaps the
+// two), never u.
+template <typename T, int COLS>
+__global__ void __launch_bounds__(kThreads)
+    fdtd_step_kernel(const T* __restrict__ u, T* __restrict__ out,
+                     const T* __restrict__ wz, const T* __restrict__ wp,
+                     StencilTaps taps, Geometry g, int p) {
+  __shared__ StencilTaps s_taps;
+  if (threadIdx.x == 0) s_taps = taps;
+  __syncthreads();
+  stencil_pair_body<T, true, COLS>(u, out, wz, wp, s_taps, g, p);
+}
+
+// ---------------------------------------------------------------------------
+// K7: partial sums of gram(cat(x0..x3), z) of float32 operands in float64.
+// Replaces block_grams_compensated (lanczos_tpu/ops/pallas/block_dense.py:361).
+// The TPU has no f64, so the JAX kernel carries Dekker TwoProd/TwoSum
+// two-float sums.  Here a float32 x float32 product is exact in float64,
+// and every sum (per thread, the block tree, sum_partials in block order)
+// runs in float64; the (K, p) total is rounded to float32 once: O(eps_f32)
+// error instead of O(eps_f32 sqrt(n)).
+// Bound: device memory, as K3: one read of each operand, 2 * 449.8 MB for
+// (q,), v, include_zz at N=160 p=4.  The f64 sums double K3's register
+// tile, so the tile is 8 x 4 (64 registers of sums) instead of 12 x 4;
+// K = 8 rows of the main path's calls still fit one tile, read once.
+constexpr int kCompRows = 8;
+constexpr int kCompCols = 4;
+
+__global__ void __launch_bounds__(kThreads)
+    block_grams_compensated_kernel(Rows<float> rows,
+                                   const float* __restrict__ z, int p,
+                                   long long S, double* __restrict__ partial) {
+  __shared__ double red[kCompRows * kCompCols * kWarps];
+  gram_tile<float, double, kCompRows, kCompCols>(rows, z, p, S, partial, red);
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
 
-template <typename T>
-int sum_partials(const T* partial, int nblocks, int nout, T* out,
+template <typename T, typename TOut = T>
+int sum_partials(const T* partial, int nblocks, int nout, TOut* out,
                  cudaStream_t st) {
-  sum_partials_kernel<T><<<(nout + kThreads - 1) / kThreads, kThreads, 0, st>>>(
-      partial, nblocks, nout, out);
+  sum_partials_kernel<T, TOut>
+      <<<(nout + kThreads - 1) / kThreads, kThreads, 0, st>>>(partial, nblocks,
+                                                              nout, out);
   return finish();
 }
 
@@ -388,7 +483,21 @@ int stencil_pair(const void* u, void* out, const void* wz, const void* wp,
                  const int* taps, int p, int zc, int plane, int nt,
                  int nblocks, cudaStream_t st) {
   const Geometry g{zc, plane, nt, 6LL * zc * plane};
-  stencil_pair_kernel<T><<<nblocks, kThreads, 0, st>>>(
+  auto kernel = p == 1 ? stencil_pair_kernel<T, 1> : stencil_pair_kernel<T, 4>;
+  kernel<<<nblocks, kThreads, 0, st>>>(
+      static_cast<const T*>(u), static_cast<T*>(out),
+      static_cast<const T*>(wz), static_cast<const T*>(wp), unpack_taps(taps),
+      g, p);
+  return finish();
+}
+
+template <typename T>
+int fdtd_step(const void* u, void* out, const void* wz, const void* wp,
+              const int* taps, int p, int zc, int plane, int nt, int nblocks,
+              cudaStream_t st) {
+  const Geometry g{zc, plane, nt, 6LL * zc * plane};
+  auto kernel = p == 1 ? fdtd_step_kernel<T, 1> : fdtd_step_kernel<T, 4>;
+  kernel<<<nblocks, kThreads, 0, st>>>(
       static_cast<const T*>(u), static_cast<T*>(out),
       static_cast<const T*>(wz), static_cast<const T*>(wp), unpack_taps(taps),
       g, p);
@@ -443,6 +552,27 @@ int block_grams(const void* x0, int p0, const void* x1, int p1,
   if (err) return err;
   return sum_partials<T>(static_cast<const T*>(partial), nblocks,
                          rows.total * p, static_cast<T*>(out), st);
+}
+
+int block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
+                            const void* x2, int p2, const void* x3, int p3,
+                            const void* z, int p, long long S, void* partial,
+                            int nblocks, void* out, cudaStream_t st) {
+  Rows<float> rows{{static_cast<const float*>(x0),
+                    static_cast<const float*>(x1),
+                    static_cast<const float*>(x2),
+                    static_cast<const float*>(x3)},
+                   {p0, p1, p2, p3},
+                   p0 + p1 + p2 + p3};
+  const dim3 grid(nblocks, (rows.total + kCompRows - 1) / kCompRows,
+                  (p + kCompCols - 1) / kCompCols);
+  block_grams_compensated_kernel<<<grid, kThreads, 0, st>>>(
+      rows, static_cast<const float*>(z), p, S, static_cast<double*>(partial));
+  const int err = finish();
+  if (err) return err;
+  return sum_partials<double, float>(static_cast<const double*>(partial),
+                                     nblocks, rows.total * p,
+                                     static_cast<float*>(out), st);
 }
 
 template <typename T>
@@ -517,6 +647,26 @@ int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
                                         nt, partial, nblocks, g3, st)
              : stencil_pair_gram<double>(q, dst, wz, wp, taps, p, zc, plane,
                                          nt, partial, nblocks, g3, st);
+}
+
+int lt_fdtd_step(int dtype, const void* u, void* out, const void* wz,
+                 const void* wp, const int* taps, int p, int zc, int plane,
+                 int nt, int nblocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? fdtd_step<float>(u, out, wz, wp, taps, p, zc, plane,
+                                       nt, nblocks, st)
+                    : fdtd_step<double>(u, out, wz, wp, taps, p, zc, plane,
+                                        nt, nblocks, st);
+}
+
+int lt_block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
+                               const void* x2, int p2, const void* x3, int p3,
+                               const void* z, int p, long long S,
+                               void* partial, int nblocks, void* out,
+                               void* stream) {
+  return block_grams_compensated(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
+                                 partial, nblocks, out,
+                                 static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -12,12 +12,13 @@ Same recurrence as the reference (`methods/block_lanczos.hpp:13-80`):
 BLOCK-MAJOR convention: B has shape (p, *state_shape), the block axis
 first.  `block_lanczos` dispatches exactly as the JAX package does: bare
 (reorth="none", normalize="sqrtm") runs whose block state holds at least
-16 MB, or fused=True, go to the traffic-minimal recurrence in
-`block_lanczos_fused.py`; the rest run the materialized recurrence below.
+16 MB, or fused=True, or compensated=True, go to the traffic-minimal
+recurrence in `block_lanczos_fused.py`; the rest run the materialized
+recurrence below.
 
-Ported so far: reorth="none" with normalize="sqrtm" (plus breakdown_eps /
-breakdown_tol).  Re-orthogonalization, normalize="qr", replace_dead,
-compensated Grams and store_basis are not: the first four raise
+Ported so far: reorth="none" with normalize="sqrtm" (plus breakdown_eps,
+breakdown_tol, store_basis and, on the fused path, compensated Grams).
+Re-orthogonalization, normalize="qr" and replace_dead are not: they raise
 NotImplementedError naming their ROADMAP item.
 """
 
@@ -41,13 +42,15 @@ class BlockLanczosResult:
     block column; beta_final: (p, p) symmetric factor sqrtm(W_m^T W_m) of
     the completed m-step residual block (the true beta_m); breakdown: 0-d
     bool, True if the recurrence was frozen at an invariant subspace
-    (breakdown_tol > 0).  All stay on the state's device."""
+    (breakdown_tol > 0); basis: (m, p, *state) Krylov blocks with
+    store_basis, else None.  All stay on the state's device."""
 
     alphas: torch.Tensor
     betas: torch.Tensor
     trace: torch.Tensor
     beta_final: torch.Tensor
     breakdown: torch.Tensor
+    basis: torch.Tensor | None = None
 
 
 def _sym(g):
@@ -83,6 +86,7 @@ def block_lanczos(
     lc: int | None = None,
     *,
     reorth: str = "none",
+    store_basis: bool = False,
     eig_backend: str = "jacobi",
     breakdown_eps: float = 0.0,
     breakdown_tol: float = 0.0,
@@ -97,36 +101,48 @@ def block_lanczos(
 
     fused=None (auto) takes the fused recurrence when the block state holds
     >= 16 MB, as the JAX package does; fused=True forces it, fused=False
-    forces the materialized one.  breakdown_tol > 0 freezes the recurrence
-    once sigma_min(beta_j)/||beta_j||_F falls below it (frozen steps emit
-    zero alpha/beta/trace rows; `breakdown` is set); breakdown_eps > 0
-    makes the inv-sqrtm a rank-revealing pseudo-inverse."""
+    forces the materialized one.  compensated=True takes every Gram from
+    K7 (`block_grams_compensated`, f32 states only) and exists on the
+    fused path only: it routes there, and fused=False contradicts it.
+    breakdown_tol > 0 freezes the recurrence once sigma_min(beta_j) /
+    ||beta_j||_F falls below it (frozen steps emit zero alpha/beta/trace
+    rows; `breakdown` is set); breakdown_eps > 0 makes the inv-sqrtm a
+    rank-revealing pseudo-inverse."""
     if reorth not in ("none", "full", "periodic", "selective"):
         raise ValueError(f"unknown reorth mode {reorth!r}")
     if normalize not in ("sqrtm", "qr"):
         raise ValueError(f"unknown normalize mode {normalize!r}")
+    fusable = reorth == "none" and normalize == "sqrtm" and not replace_dead
+    if compensated and not fusable:
+        raise ValueError(
+            "compensated=True is implemented on the fused path: requires "
+            "reorth='none', normalize='sqrtm' and replace_dead=False"
+        )
+    if compensated and fused is False:
+        raise ValueError(
+            "compensated=True is only implemented on the fused path; "
+            "fused=False contradicts it (drop one of the two)"
+        )
     if reorth != "none":
         raise _not_ported(f"reorth={reorth!r}", "Queue 1 item 9")
     if normalize != "sqrtm":
         raise _not_ported("normalize='qr' (TSQR)", "Queue 1 item 9")
     if replace_dead:
         raise _not_ported("replace_dead (adaptive restart)", "Queue 1 item 9")
-    if compensated:
-        raise _not_ported(
-            "compensated=True (block_grams_compensated, K7)", "Queue 2 item K7"
-        )
     big_enough = b.numel() * b.element_size() >= FUSED_GATE_BYTES
-    if fused or (fused is None and big_enough):
+    if fused or compensated or (fused is None and big_enough):
         from lanczos_tpu_torch.methods.block_lanczos_fused import (
             block_lanczos_fused,
         )
 
         return block_lanczos_fused(
             a, b, m, lc,
+            store_basis=store_basis,
             eig_backend=eig_backend,
             breakdown_eps=breakdown_eps,
             breakdown_tol=breakdown_tol,
             trace_fn=trace_fn,
+            compensated=compensated,
         )
 
     p = b.shape[0]
@@ -153,6 +169,7 @@ def block_lanczos(
     w = w - _mix(alpha0, q0)
 
     alphas, betas, traces = [alpha0], [beta0], [trace_at(q0)]
+    qs = [q0] if store_basis else []  # holds no buffer otherwise
     dead = torch.zeros((), dtype=torch.bool, device=b.device)
     q_prev = q0
     for _ in range(1, m):
@@ -170,6 +187,8 @@ def block_lanczos(
         alphas.append(alpha)
         betas.append(beta)
         traces.append(trace_at(q))
+        if store_basis:
+            qs.append(q)
         q_prev = q
 
     # true beta_m of the completed factorization (only its norm enters the
@@ -185,4 +204,5 @@ def block_lanczos(
         trace=torch.stack(traces),
         beta_final=beta_final,
         breakdown=dead,
+        basis=torch.stack(qs) if store_basis else None,
     )

@@ -29,6 +29,11 @@ Gram block.  The Python loop rotates the buffer references
 (u1, u2, u3) -> (u2, q_j, v_j); the JAX version's two-steps-per-scan-body
 trick only worked around XLA's donation rules and is not needed here.
 
+compensated=True takes every Gram from `block_grams_compensated` (K7,
+f64 accumulation of f32 states: O(eps) instead of O(eps sqrt(n))) and runs
+the 3-call step, as does store_basis=True, which keeps every q_j (the mono
+step overwrites q_{j-2}'s buffer).
+
 Semantics: identical to `block_lanczos(reorth='none', normalize='sqrtm')`
 in exact arithmetic.  alpha, beta and the trace stay on the device: the
 loop never waits for it.
@@ -43,6 +48,7 @@ from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.kernels.block_dense import (
     acc_dtype,
     block_grams,
+    block_grams_compensated,
     block_mix,
 )
 from lanczos_tpu_torch.ops.operator import state_trace
@@ -55,20 +61,23 @@ def block_lanczos_fused(
     m: int,
     lc=None,
     *,
+    store_basis: bool = False,
     eig_backend: str = "jacobi",
     breakdown_eps: float = 0.0,
     breakdown_tol: float = 0.0,
     trace_fn=None,
+    compensated: bool = False,
 ):
     """Drop-in for `block_lanczos(..., reorth='none', normalize='sqrtm')`.
-    Returns the same `BlockLanczosResult`.  See module docstring.  (The
-    compensated Grams of the JAX version are K7, not ported yet.)"""
+    Returns the same `BlockLanczosResult` (with `basis` (m, p, *state)
+    when store_basis).  See module docstring."""
     p = b.shape[0]
     dtype = b.dtype
     lc_idx = 0 if lc is None else int(lc)
     trace_at = trace_fn or (lambda q: state_trace(q, lc_idx, block=True))
     cdt = acc_dtype(dtype)
     tiny = torch.finfo(dtype).tiny
+    grams = block_grams_compensated if compensated else block_grams
 
     def sqrtm_inv(g):
         g = g.to(dtype)
@@ -97,11 +106,11 @@ def block_lanczos_fused(
         return g_vv - g_qv.T @ s2 - s2.T @ g_qv + s2.T @ (g_qq @ s2)
 
     # ---- prologue: q0, v0 = A q0, alpha0 -------------------------------
-    gbb = block_grams((), b, include_zz=True)  # (p, p): one read of b
+    gbb = grams((), b, include_zz=True)  # (p, p): one read of b
     beta0, inv0 = sqrtm_inv(gbb)
     q0 = block_mix(inv0.to(cdt), (b,))
     v0 = a.mm(q0)
-    g2 = block_grams((q0,), v0, include_zz=True)  # [gram(q0,v0); gram(v0,v0)]
+    g2 = grams((q0,), v0, include_zz=True)  # [gram(q0,v0); gram(v0,v0)]
     g_qv, g_vv = g2[:p], g2[p:]
     g_qq = inv0.T.to(cdt) @ gbb @ inv0.to(cdt)
     alpha0 = _sym(g_qv.T).to(dtype)
@@ -113,6 +122,7 @@ def block_lanczos_fused(
         return BlockLanczosResult(
             alphas=alpha0[None], betas=beta0[None], trace=trace0[None],
             beta_final=beta_final, breakdown=dead,
+            basis=q0[None] if store_basis else None,
         )
 
     # ---- peeled step j=1 (doublet U = (q0, v0)) ------------------------
@@ -122,7 +132,7 @@ def block_lanczos_fused(
     e1 = torch.cat([-(s2 @ inv1f), inv1f])  # (2p, p)
     q1 = block_mix(e1, (q0, v0))
     v1 = a.mm(q1)
-    g2 = block_grams((q1,), v1, include_zz=True)
+    g2 = grams((q1,), v1, include_zz=True)
     m23, m33 = g2[:p], g2[p:]
     # 2p x 2p gram of (q0, v0) for the derived blocks
     gU = torch.cat([torch.cat([g_qq, g_qv], 1), torch.cat([g_qv.T, g_vv], 1)])
@@ -147,12 +157,15 @@ def block_lanczos_fused(
         )
 
     mono = (
-        p >= 2  # p=1 is fixed-cost-bound (JAX measurement, TPU)
+        not store_basis
+        and not compensated
+        and p >= 2  # p=1 is fixed-cost-bound (JAX measurement, TPU)
         and hasattr(a, "stencil_gram")
         and a.supports_stencil_gram(p, dtype)
     )
 
     alphas, betas, traces = [alpha0, alpha1], [beta0, beta1.to(dtype)], [trace0, trace1]
+    qs = [q0, q1] if store_basis else []  # holds no buffer otherwise
     u1, u2, u3 = q0, q1, v1
     M = (m11, m12, m13, m22, m23, m33)
     alpha_prev, beta_prev = alpha1, beta1
@@ -174,7 +187,7 @@ def block_lanczos_fused(
         else:
             q_j = block_mix(e, (u1, u2, u3))
             v_j = a.mm(q_j)
-            g2 = block_grams((q_j,), v_j, include_zz=True)
+            g2 = grams((q_j,), v_j, include_zz=True)
             m23n, m33n = g2[:p], g2[p:]
             gu3U = torch.cat([m13.T, m23.T, m33], 1)
             m13n = gu3U @ e  # gram(u2, v_j) = gram(u3, q_j)  [A sym.]
@@ -189,6 +202,8 @@ def block_lanczos_fused(
         alphas.append(alpha_j)
         betas.append(beta_j.to(dtype))
         traces.append(trace_at(q_j))
+        if store_basis:
+            qs.append(q_j)
         u1, u2, u3 = u2, q_j, v_j
         M = (m22, m12n, m13n, m22n, m23n, m33n)
         alpha_prev, beta_prev = alpha_j, beta_j
@@ -202,4 +217,5 @@ def block_lanczos_fused(
         trace=torch.stack(traces),
         beta_final=beta_final,
         breakdown=dead,
+        basis=torch.stack(qs) if store_basis else None,
     )

@@ -1,13 +1,13 @@
-"""Matrix-exponential action via block Lanczos: row lc of expm(t*A) B.
+"""Matrix-exponential action via Lanczos: u(T) = expm(T*A) b at a receiver.
 
 Port of `lanczos_tpu/methods/expm_action.py`, the end-to-end pipeline of
 the reference driver:
+  vector: solution = beta_0 * dot(expm(T_end*T) e_1, q_trace)
+          (test_lanczos.cu:102-113)
   block:  solution = q_trace^T (expm(T_end*T)[:, :p] @ sqrtm(B^T B))
           (test_lanczos.cu:270-287)
-where T is the block-tridiagonal Lanczos matrix and q_trace holds the
+where T is the (block-)tridiagonal Lanczos matrix and q_trace holds the
 receiver row of each Krylov block (the basis itself is never stored).
-The single-vector `lanczos_expm_action` waits for slice 2 (ROADMAP Queue 1
-item 9).
 """
 
 from __future__ import annotations
@@ -15,16 +15,36 @@ from __future__ import annotations
 import torch
 
 from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.smalleig import expm_sym
-from lanczos_tpu_torch.ops.tridiag import assemble_block_tridiagonal
+from lanczos_tpu_torch.ops.tridiag import (
+    assemble_block_tridiagonal,
+    assemble_tridiagonal,
+)
 
 
-def lanczos_expm_action(*args, **kwargs):
-    raise NotImplementedError(
-        "lanczos_expm_action (single-vector Lanczos) is not ported to "
-        "lanczos_tpu_torch yet (ROADMAP Queue 1 item 9)"
-    )
+def lanczos_expm_action(
+    a,
+    b: torch.Tensor,
+    m: int,
+    t_end: float,
+    lc: int,
+    *,
+    reorth: str = "none",
+    breakdown_tol: float = 0.0,
+    trace_fn=None,
+    fused: bool | None = None,
+) -> torch.Tensor:
+    """Scalar approximation of [expm(t_end*A) b]_lc via m-step Lanczos, a
+    0-d tensor on b's device.  For non-flat operator states pass trace_fn
+    (see `vector_lanczos`); the keyword options forward to it."""
+    res = vector_lanczos(a, b, m, lc, reorth=reorth,
+                         breakdown_tol=breakdown_tol, trace_fn=trace_fn,
+                         fused=fused)
+    t = assemble_tridiagonal(res.alphas, res.betas[1:])
+    e = expm_sym(t_end * t, backend="lax")
+    return res.betas[0] * torch.sum(e[:, 0] * res.trace)
 
 
 def block_lanczos_expm_action(

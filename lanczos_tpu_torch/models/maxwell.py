@@ -9,15 +9,22 @@ weights (reference `source/matrix_a/build_A_ell.hpp:10`).  Every block of
 ``A`` is ``sign * kron(F3, F2, F1)`` with one bidiagonal 1-D factor and two
 diagonal ones, so ``A @ u`` is a separable stencil.
 
-The matrix-free `MaxwellOperator` (`--operator stencil`) and the assembled
-`maxwell_ell_operator` (`--operator ell`) are not ported yet (ROADMAP
-Queue 1 item 2); the folded-plane operator in `maxwell_pallas.py` is the
-port's operator.
+`MaxwellOperator` (`--operator stencil`, the CLI's default) applies A to
+the flat (n,) state in plain torch: each input component is padded once and
+every tap is a shifted slice of it, as in the JAX package, which also runs
+this operator outside any Pallas kernel.  The assembled
+`maxwell_ell_operator` (`--operator ell`) is not ported yet (ROADMAP Queue
+1 item 10); the folded-plane operator in `maxwell_pallas.py` is the one the
+CUDA kernels serve.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
+import torch.nn.functional as F
+
+from lanczos_tpu_torch.ops.operator import LinearOperator
 
 # Component order: E1, E2, E3, H1, H2, H3 (matches reference state layout
 # [E; H] produced by the `insert` calls in build_A_ell.hpp:190-212).
@@ -151,6 +158,98 @@ def _build_taps(nx, ny, nz, dtype=np.float64):
             descs.append((out_c, in_c, ax, off))
             arrays.append(tuple(per_axis))
     return tuple(descs), arrays
+
+
+class MaxwellOperator(LinearOperator):
+    """Matrix-free A = D @ diag(w) as 24 separable stencil taps on the flat
+    logical state: (n,) for `mv`, block-major (p, n) for `mm`.  The taps'
+    1-D weights (wz, wy, wx) are registered buffers."""
+
+    def __init__(self, nx, ny, nz, descs, tap_arrays):
+        super().__init__()
+        self.nx, self.ny, self.nz = nx, ny, nz
+        self.descs = tuple(descs)
+        self.comp_shapes = maxwell_component_shapes(nx, ny, nz)
+        self.comp_sizes = tuple(int(np.prod(s)) for s in self.comp_shapes)
+        self.n = int(sum(self.comp_sizes))
+        for i, tap in enumerate(tap_arrays):
+            for axis, w in zip("zyx", tap):
+                self.register_buffer(f"w{axis}_{i}", torch.as_tensor(w))
+
+    @classmethod
+    def create(cls, nx: int, ny: int, nz: int, dtype=torch.float32,
+               device="cpu") -> "MaxwellOperator":
+        """The weights are built in f64 and rounded once to dtype, as the
+        JAX `create` does."""
+        descs, arrays = _build_taps(nx, ny, nz, np.float64)
+        return cls(nx, ny, nz, descs, [
+            tuple(torch.as_tensor(w).to(device=device, dtype=dtype) for w in tap)
+            for tap in arrays
+        ])
+
+    @classmethod
+    def from_arrays(cls, nx: int, ny: int, nz: int, tap_arrays, *,
+                    dtype=None, device="cpu") -> "MaxwellOperator":
+        """The operator from tap weights made elsewhere (e.g. the JAX
+        operator's ``op.tap_arrays`` as NumPy arrays); the tap metadata is
+        rebuilt from the geometry.  dtype None keeps the arrays' own."""
+        descs, ref = _build_taps(nx, ny, nz, np.float64)
+        taps = [tuple(np.asarray(w) for w in tap) for tap in tap_arrays]
+        if [tuple(w.shape for w in t) for t in taps] != [
+            tuple(w.shape for w in t) for t in ref
+        ]:
+            raise ValueError(
+                f"tap arrays do not fit the {nx}x{ny}x{nz} geometry"
+            )
+        return cls(nx, ny, nz, descs, [
+            tuple(torch.tensor(w, dtype=dtype, device=device) for w in tap)
+            for tap in taps
+        ])
+
+    @property
+    def tap_arrays(self):
+        return [tuple(getattr(self, f"w{axis}_{i}") for axis in "zyx")
+                for i in range(len(self.descs))]
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self.wz_0.dtype
+
+    def mv(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mm(x[None])[0]
+
+    def mm(self, X: torch.Tensor) -> torch.Tensor:
+        """Block-major (p, n) -> A X.  Each input component is padded once
+        by one on every spatial axis; a tap is then a shifted slice of it
+        times its three 1-D weights, multiplied in one axis at a time, and
+        each output component sums its four taps in tap order (the JAX
+        `_apply`'s arithmetic, so the two agree to rounding)."""
+        p = X.shape[0]
+        xs, o = [], 0
+        for s, sz in zip(self.comp_shapes, self.comp_sizes):
+            xs.append(X[:, o : o + sz].reshape((p,) + s))
+            o += sz
+        xpads = {}
+        contribs = [[] for _ in range(6)]
+        for (out_c, in_c, ax, off), (wz, wy, wx) in zip(self.descs,
+                                                          self.tap_arrays):
+            if in_c not in xpads:
+                xpads[in_c] = F.pad(xs[in_c], (1, 1, 1, 1, 1, 1))
+            start = [1, 1, 1]
+            start[ax] += off
+            zl, yl, xl = self.comp_shapes[out_c]
+            v = xpads[in_c][:, start[0] : start[0] + zl,
+                            start[1] : start[1] + yl, start[2] : start[2] + xl]
+            v = v * wz.view(-1, 1, 1)
+            v = v * wy.view(1, -1, 1)
+            v = v * wx.view(1, 1, -1)
+            contribs[out_c].append(v)
+        ys = [c[0] + c[1] + c[2] + c[3] for c in contribs]
+        return torch.cat([y.reshape(p, -1) for y in ys], dim=1)
 
 
 def _bidiag_dense(kind: str, dp: np.ndarray, dd: np.ndarray) -> np.ndarray:

@@ -8,8 +8,9 @@ interiors sit at offset (z=Z_OFF, y=1, x=1) inside zero pads.  The layout
 is bit-identical to the JAX package's, so states compare elementwise:
 Z_OFF = 8, Zc = round_up(Z_OFF + nz + 2, TZ) and P = round_up((ny+3)(nx+3),
 128).  A @ u is the curl-pair stencil (`ops/kernels/stencil_kernel.py`,
-K1), and the fused iteration's A @ q + Grams pass is K4
-(`ops/kernels/stencil_gram.py`).
+K1), the fused iteration's A @ q + Grams pass is K4
+(`ops/kernels/stencil_gram.py`), and the FDTD step u + (dt A) u is K5
+(`ops/kernels/stencil_fdtd.py`).
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from lanczos_tpu_torch.models.maxwell import _build_taps, maxwell_component_shapes
-from lanczos_tpu_torch.ops.kernels import stencil_gram
+from lanczos_tpu_torch.ops.kernels import stencil_fdtd, stencil_gram
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair,
@@ -169,15 +170,16 @@ class PallasMaxwellOperator(LinearOperator):
     def supports_stencil_gram(self, p: int, dtype=None) -> bool:
         return stencil_gram.supports(p, self.dtype if dtype is None else dtype)
 
-    def supports_fdtd_inplace(self, p: int, dtype=None) -> bool:
-        """The one-pass FDTD kernel (K5) is not ported yet."""
-        return False
-
-    def fdtd_step(self, u: torch.Tensor) -> torch.Tensor:
-        raise NotImplementedError(
-            "fdtd_step (K5, fdtd_step_inplace) is not ported yet: "
-            "ROADMAP Queue 2, item K5"
-        )
+    def fdtd_step(self, u: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        """out = u + A u in one pass (K5) and returns out, which must be
+        another buffer than u.  Call it on an operator whose weights fold
+        dt (`.scaled(dt)`).  u, out: (6, Zc, P) or (p, 6, Zc, P)."""
+        single = u.ndim == 3
+        if single:
+            u, out = u[None], out[None]
+        out = stencil_fdtd.fdtd_step(u, out, self.wz_t, self.wplane_s,
+                                     self.spec_e, self.spec_h)
+        return out[0] if single else out
 
     def stencil_gram(self, q: torch.Tensor, dst: torch.Tensor):
         """(v, g3) = (A q, [gram(q,v); gram(v,v); gram(dst,q)]) in one pass

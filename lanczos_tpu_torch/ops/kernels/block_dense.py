@@ -1,20 +1,25 @@
-"""K2 and K3: the block-dense algebra around the operator.
+"""K2, K3 and K7: the block-dense algebra around the operator.
 
-Ports of `block_mix` and `block_grams` (lanczos_tpu/ops/pallas/
-block_dense.py:104 and :210).  Both are memory-bound passes over block
-operands (p_i, *state) that read every operand once:
+Ports of `block_mix`, `block_grams` and `block_grams_compensated`
+(lanczos_tpu/ops/pallas/block_dense.py:104, :210 and :361).  All are
+memory-bound passes over block operands (p_i, *state) that read every
+operand once:
 
 * ``block_mix(coeffs, xs)``  — out[j] = sum_k coeffs[k, j] * cat(xs)[k]
   (the reference's tall x small ``mm_ts`` update, `mm_ts.hpp:110`);
 * ``block_grams(xs, z)``     — gram(cat(xs), z)[k, j] = <cat(xs)[k], z[j]>
   over all state axes (the reference's ``mm_tt``/``mm_tt2``), f32
   accumulation, with ``include_zz`` appending gram(z, z) from the same read
-  of z.
+  of z;
+* ``block_grams_compensated(xs, z)`` — the same Gram of f32 operands with
+  O(eps_f32) error instead of O(eps_f32 sqrt(n)).  The JAX kernel stands in
+  for f64, which the TPU lacks, with Dekker TwoProd/TwoSum chains; on the
+  H100 an f32 x f32 product is exact in f64, so the kernel accumulates in
+  f64 and rounds the total to f32 once.
 
-On CUDA tensors they launch block_mix_kernel and block_grams_kernel of
-`csrc/lanczos_kernels.cu`; on CPU tensors they run the plain versions.
-The compensated Gram (`block_grams_compensated`, K7) is not ported yet
-(ROADMAP Queue 2).
+On CUDA tensors they launch block_mix_kernel, block_grams_kernel and
+block_grams_compensated_kernel of `csrc/lanczos_kernels.cu`; on CPU
+tensors they run the plain versions.
 """
 
 from __future__ import annotations
@@ -108,20 +113,20 @@ def block_grams_plain(xs, z: torch.Tensor, include_zz: bool = False):
     return torch.cat([gram_plain(x, z) for x in ops])
 
 
-def block_grams(xs, z: torch.Tensor, include_zz: bool = False) -> torch.Tensor:
-    """gram(cat(xs), z): (K, p) with K = sum p_i (+ p with include_zz,
-    which appends gram(z, z) as the trailing p rows).  xs: 0..3 operands
-    (p_i, *state) shaped like z; accumulates in f32 (f64 for f64 states).
-    The CUDA path sums across thread blocks in a fixed order, so the
-    result repeats bit for bit from run to run."""
+def _gram_operands(name, xs, z, include_zz):
     xs = tuple(xs)
     if len(xs) > MAX_OPERANDS or (not xs and not include_zz):
-        raise ValueError(f"block_grams takes 1..{MAX_OPERANDS} row operands")
+        raise ValueError(f"{name} takes 1..{MAX_OPERANDS} row operands")
     if any(x.shape[1:] != z.shape[1:] or x.dtype != z.dtype for x in xs):
         raise ValueError("operands must share z's state shape and dtype")
-    if z.device.type == "cpu":
-        return block_grams_plain(xs, z, include_zz)
-    build.require_cuda("block_grams", z, *xs)
+    return xs
+
+
+def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
+    """Shared launch of the two Gram kernels through the C entry point
+    `entry` (its leading arguments `lead`): the (K, p) result from
+    per-block partial sums in `acc`, added in block order."""
+    build.require_cuda(name, z, *xs)
     p = z.shape[0]
     ops = list(xs) + ([z] if include_zz else [])
     ptrs = [x.data_ptr() for x in ops] + [None] * (4 - len(ops))
@@ -129,13 +134,54 @@ def block_grams(xs, z: torch.Tensor, include_zz: bool = False) -> torch.Tensor:
     K = sum(rows)
     S = z[0].numel()
     nblocks = build.grid_blocks(S)
-    partial = torch.empty((nblocks, K, p), dtype=z.dtype, device=z.device)
-    out = torch.empty((K, p), dtype=z.dtype, device=z.device)
-    err = build.library().lt_block_grams(
-        build.dtype_code(z), ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2],
-        rows[2], ptrs[3], rows[3], z.data_ptr(), p, S, partial.data_ptr(),
-        nblocks, out.data_ptr(), build.stream_handle(z),
+    partial = torch.empty((nblocks, K, p), dtype=acc, device=z.device)
+    out = torch.empty((K, p), dtype=out_dtype, device=z.device)
+    err = getattr(build.library(), entry)(
+        *lead, ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2], rows[2], ptrs[3],
+        rows[3], z.data_ptr(), p, S, partial.data_ptr(), nblocks,
+        out.data_ptr(), build.stream_handle(z),
     )
-    build.LAUNCHES["block_grams"] += 1
-    build.check(err, "block_grams")
+    build.LAUNCHES[name] += 1
+    build.check(err, name)
     return out
+
+
+def block_grams(xs, z: torch.Tensor, include_zz: bool = False) -> torch.Tensor:
+    """gram(cat(xs), z): (K, p) with K = sum p_i (+ p with include_zz,
+    which appends gram(z, z) as the trailing p rows).  xs: 0..3 operands
+    (p_i, *state) shaped like z; accumulates in f32 (f64 for f64 states).
+    The CUDA path sums across thread blocks in a fixed order, so the
+    result repeats bit for bit from run to run."""
+    xs = _gram_operands("block_grams", xs, z, include_zz)
+    if z.device.type == "cpu":
+        return block_grams_plain(xs, z, include_zz)
+    return _gram_launch("block_grams", "lt_block_grams",
+                        (build.dtype_code(z),), xs, z, include_zz, z.dtype,
+                        z.dtype)
+
+
+def block_grams_compensated_plain(xs, z: torch.Tensor, include_zz: bool = False):
+    """Plain torch version of `block_grams_compensated`: the Gram in f64,
+    rounded to f32 once."""
+    ops = list(xs) + ([z] if include_zz else [])
+    cat = torch.cat([x.reshape(x.shape[0], -1) for x in ops]).double()
+    return (cat @ z.reshape(z.shape[0], -1).double().T).float()
+
+
+def block_grams_compensated(xs, z: torch.Tensor,
+                            include_zz: bool = False) -> torch.Tensor:
+    """`block_grams` of f32 operands with O(eps_f32) error: every product
+    is exact in f64 and the sums run in f64 (per thread, per block, then
+    across blocks in block order), rounded to the (K, p) f32 result once.
+    f64 states raise: they need no compensation (use `block_grams`), and
+    the JAX kernel would silently cast them to f32."""
+    xs = _gram_operands("block_grams_compensated", xs, z, include_zz)
+    if z.dtype != torch.float32:
+        raise ValueError(
+            f"block_grams_compensated takes float32 states, got {z.dtype}"
+        )
+    if z.device.type == "cpu":
+        return block_grams_compensated_plain(xs, z, include_zz)
+    return _gram_launch("block_grams_compensated",
+                        "lt_block_grams_compensated", (), xs, z, include_zz,
+                        torch.float64, torch.float32)

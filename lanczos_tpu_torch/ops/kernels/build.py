@@ -39,6 +39,8 @@ LAUNCHES = {
     "block_mix": 0,
     "block_grams": 0,
     "apply_stencil_pair_gram": 0,
+    "fdtd_step": 0,
+    "block_grams_compensated": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -53,6 +55,10 @@ _SIGNATURES = {
     ),
     "lt_stencil_pair_gram": (
         _I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _I, _P, _P,
+    ),
+    "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
+    "lt_block_grams_compensated": (
+        _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
     ),
 }
 

@@ -177,11 +177,11 @@ def apply_stencil_pair(
     taps = tap_table(spec_a, spec_b)
     out = torch.empty_like(u)
     lib = build.library()
-    state = 6 * spec_a.zc * spec_a.plane
+    positions = spec_a.zc * spec_a.plane  # one thread per (z, l)
     err = lib.lt_stencil_pair(
         build.dtype_code(u), u.data_ptr(), out.data_ptr(),
         wz_t.data_ptr(), wplane.data_ptr(), taps, u.shape[0],
-        spec_a.zc, spec_a.plane, nt, build.grid_blocks(state),
+        spec_a.zc, spec_a.plane, nt, build.grid_blocks(positions),
         build.stream_handle(u),
     )
     build.LAUNCHES["apply_stencil_pair"] += 1

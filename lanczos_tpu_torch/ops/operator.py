@@ -39,6 +39,30 @@ class LinearOperator(torch.nn.Module, abc.ABC):
         """Block product, BLOCK-MAJOR: X: (p, *state_shape) -> same."""
 
 
+class MatrixOperator(LinearOperator):
+    """Dense-matrix operator (tests and small oracles); the matrix is a
+    registered buffer."""
+
+    def __init__(self, a: torch.Tensor):
+        super().__init__()
+        self.register_buffer("a", torch.as_tensor(a))
+
+    @property
+    def shape(self):
+        return tuple(self.a.shape)
+
+    @property
+    def dtype(self):
+        return self.a.dtype
+
+    def mv(self, x):
+        return self.a @ x
+
+    def mm(self, X):
+        # X block-major (p, n): (A X^T)^T = X A^T
+        return X @ self.a.T
+
+
 def state_trace(q: torch.Tensor, lc: int, block: bool) -> torch.Tensor:
     """Receiver extraction q[..., lc] without flattening the state: lc is
     unravelled into the native state shape, so one element per block

@@ -1,16 +1,22 @@
-"""K2 (block_mix), K3 (block_grams) and K4 (apply_stencil_pair_gram):
-the port's wrappers on CPU tensors (their plain torch versions) against
-the JAX package's Pallas kernels in interpret mode, on the folded-plane
-Maxwell state (p, 6, Zc, P)."""
+"""K2 (block_mix), K3 (block_grams), K4 (apply_stencil_pair_gram) and K7
+(block_grams_compensated): the port's wrappers on CPU tensors (their plain
+torch versions) against the JAX package's Pallas kernels in interpret
+mode, on the folded-plane Maxwell state (p, 6, Zc, P) and, for K7, on the
+flat states of the JAX package's own K7 tests (its interpret-mode kernel
+takes minutes to trace on a folded-plane state)."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lanczos_tpu.methods.block_lanczos import block_lanczos as jax_block_lanczos
 from lanczos_tpu.models.maxwell_pallas import PallasMaxwellOperator as JaxOp
+from lanczos_tpu.ops.operator import MatrixOperator as JaxMatrix
 from lanczos_tpu.ops.pallas import block_dense as jbd
+from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
 from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+from lanczos_tpu_torch.ops.operator import MatrixOperator
 from lanczos_tpu_torch.ops.kernels import block_dense, stencil_gram
 
 # Tolerances, relative to the largest |value| of the result: both sides
@@ -117,3 +123,64 @@ def test_stencil_gram_contract():
         top.stencil_gram(q, q)
     with pytest.raises(ValueError, match="q/dst"):
         top.stencil_gram(q, q[:1].clone())
+
+
+def _wide_range(rng, p, n):
+    """Values spread over e^+-6 (tests/test_block_dense.py:133-165): a plain
+    f32 Gram of these loses ~10x more than eps_f32."""
+    return (rng.standard_normal((p, n)) * np.exp(rng.uniform(-6, 6, (p, n)))
+            ).astype(np.float32)
+
+
+@pytest.mark.parametrize("include_zz", [False, True])
+def test_block_grams_compensated_matches_jax_and_f64_oracle(include_zz, rng):
+    """K7's plain version and JAX's K7 both reach 5e-7 of the f64 oracle's
+    scale (~4 eps_f32, the JAX test's bound), where the plain f32 Gram
+    misses it; each Gram block is held to its own scale."""
+    p, n = 4, 1 << 16
+    x, z = _wide_range(rng, p, n), _wide_range(rng, p, n)
+    exact = [x.astype(np.float64) @ z.astype(np.float64).T]
+    if include_zz:
+        exact.append(z.astype(np.float64) @ z.astype(np.float64).T)
+    want = np.asarray(jbd.block_grams_compensated(
+        (jnp.asarray(x),), jnp.asarray(z), include_zz=include_zz))
+    got = block_dense.block_grams_compensated(
+        (torch.from_numpy(x),), torch.from_numpy(z), include_zz=include_zz)
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    plain = block_dense.block_grams((torch.from_numpy(x),), torch.from_numpy(z))
+    for i, ex in enumerate(exact):
+        scale = np.abs(ex).max()
+        rows = slice(i * p, (i + 1) * p)
+        assert np.abs(got.numpy()[rows] - ex).max() / scale < 5e-7
+        assert np.abs(want[rows] - ex).max() / scale < 5e-7
+    assert np.abs(plain.numpy() - exact[0]).max() / np.abs(exact[0]).max() > 5e-7
+
+
+def test_block_grams_compensated_takes_f32_only(rng):
+    """f64 states raise: the JAX kernel would cast them to f32 and return
+    an f32 Gram (ROADMAP Queue 3, reference-side faults)."""
+    z = torch.from_numpy(_state(rng, 2, np.float64))
+    with pytest.raises(ValueError, match="float32"):
+        block_dense.block_grams_compensated((), z, include_zz=True)
+    with pytest.raises(ValueError, match="row operands"):
+        block_dense.block_grams_compensated((), z.float())
+
+
+def test_compensated_block_lanczos_t_coefficients(rng):
+    """tests/test_block_dense.py:168-189: the fused recurrence with every
+    Gram compensated, from f32 storage, tracks the f64 recurrence's T
+    coefficients: its first alpha block to f32 representation (5e-6), and
+    overall no worse than 1.5x the plain f32 fused path (the bounds that
+    test holds JAX's compensated run to)."""
+    n, p, m = 2048, 4, 6
+    a = rng.standard_normal((n, n))
+    a = (a + a.T) / np.sqrt(n)
+    b = rng.standard_normal((p, n))
+    a64 = np.asarray(jax_block_lanczos(JaxMatrix(jnp.asarray(a)), jnp.asarray(b),
+                                       m, fused=False).alphas)
+    op32 = MatrixOperator(torch.from_numpy(a.astype(np.float32)))
+    b32 = torch.from_numpy(b.astype(np.float32))
+    comp = block_lanczos(op32, b32, m, compensated=True).alphas.numpy()
+    plain = block_lanczos(op32, b32, m, fused=True).alphas.numpy()
+    assert np.abs(comp[0] - a64[0]).max() < 5e-6 * np.abs(a64[0]).max()
+    assert np.abs(comp - a64).max() <= 1.5 * np.abs(plain - a64).max()

@@ -1,7 +1,10 @@
-"""The port's CLI slice (`python -m lanczos_tpu_torch`) against the JAX
+"""The port's CLI (`python -m lanczos_tpu_torch`) against the JAX
 package's `lanczos_tpu.cli.run`, on the CPU: the same config through both,
-comparing `solution` and `relative_error`, with the fused recurrence auto
-(materialized at this size), forced (the mono step) and off (--no-fused).
+comparing `solution` and `relative_error`.  The block slice on the
+folded-plane operator with the fused recurrence auto (materialized at this
+size), forced (the mono step) and off (--no-fused); `--vector` on the
+folded-plane and on the default flat-state operator (`--operator
+stencil`); the stencil block driver; and `--compensated`.
 
 Tolerances, relative to the solution's scale:
 - f64, 1e-10: rounding in different operation orders.
@@ -16,6 +19,14 @@ Tolerances, relative to the solution's scale:
 - f32 with the fixture's columns orthonormalized in f64 (the same span,
   condition 1), 1e-5: the whole slice, fixture to FDTD, at f32 precision
   (the two packages agree to 2.1e-6 there, and each to 1.2e-6 of f64).
+- f32 `--vector`, 1e-5: a single Gaussian start vector has none of the
+  block fixture's collinearity (measured: <= 4.3e-7 on a CPU).
+- f32 `--compensated`, as the block slice: 5e-4 with the fixture's start
+  block (both packages sit 4.7-4.9e-4 from f64 there, 3.7e-5 apart: a
+  compensated Gram cannot restore the start block's lost direction) and
+  1e-5 with it orthonormalized (2.1e-6 apart).  The compensated runs use
+  the flat-state operator, whose JAX K7 takes its exact f64 branch: JAX's
+  interpret-mode K7 needs over a minute to trace on a folded-plane state.
 
 The JAX runs are cached per process, and only the default run (fused=None,
 jacobi, the fixture's start block) validates against FDTD on the JAX side:
@@ -43,7 +54,15 @@ from lanczos_tpu_torch.config import LanczosConfig
 
 F32_SOLUTION_RTOL = 5e-4
 F32_WELL_CONDITIONED_RTOL = 1e-5
+F64_RTOL = 1e-12
 SLICE = dict(n_grid=6, m=6, n_col=4, operator="pallas", lc=20, fdtd_steps=200)
+VECTOR = dict(n_grid=6, m=8, block=False, operator="pallas", lc=20, fdtd_steps=200)
+STENCIL_VECTOR = dict(n_grid=3, m=8, block=False, reorth="full", lc=20,
+                      fdtd_steps=500)
+STENCIL_BLOCK = dict(n_grid=3, m=6, n_col=4, lc=20, fdtd_steps=500,
+                     eig_backend="lax")
+COMPENSATED = dict(n_grid=3, m=6, n_col=4, lc=20, fdtd_steps=500,
+                   compensated=True)
 
 
 def _orthonormal_columns(n_grid, n_rows, n_col,
@@ -85,6 +104,65 @@ def compare_with_jax(dtype, fused, rtol, start="fixture"):
     assert got["relative_error"] < 1e-3
     if "relative_error" in want:
         assert abs(got["relative_error"] - want["relative_error"]) <= 2 * rtol
+
+
+@functools.lru_cache(maxsize=None)
+def jax_run_of(items, start="fixture"):
+    """The JAX CLI's run of one config (a sorted item tuple), once per
+    worker process."""
+    with start_block(start):
+        return jax_run(JaxConfig(**dict(items)))
+
+
+def compare_config(cfg, rtol, start="fixture"):
+    """The port against JAX on one config: solutions to rtol of their
+    scale, the same n and lc, and relative errors under 1e-3 that differ
+    by no more than twice rtol."""
+    want = jax_run_of(tuple(sorted(cfg.items())), start)
+    with start_block(start):
+        got = run(LanczosConfig(**cfg, device="cpu"))
+    sj = np.atleast_1d(np.asarray(want["solution"]))
+    st = np.atleast_1d(np.asarray(got["solution"]))
+    assert st.shape == sj.shape
+    assert np.abs(st - sj).max() <= rtol * np.abs(sj).max()
+    assert (got["n"], got["lc"], got["block"]) == (want["n"], want["lc"],
+                                                    want["block"])
+    assert got["relative_error"] < 1e-3
+    assert abs(got["relative_error"] - want["relative_error"]) <= 2 * rtol * (
+        1 + want["relative_error"])
+
+
+@pytest.mark.parametrize("dtype,fused", [
+    ("float32", None), ("float32", True), ("float64", None),
+])
+def test_cli_vector_matches_jax(dtype, fused):
+    """--vector on the folded-plane operator: the classic recurrence at
+    this size, or the fused route at block width 1 when forced."""
+    compare_config(VECTOR | dict(dtype=dtype, fused=fused),
+                   F64_RTOL if dtype == "float64" else F32_WELL_CONDITIONED_RTOL)
+
+
+@pytest.mark.parametrize("dtype,reorth", [
+    ("float64", "full"), ("float32", "full"), ("float64", "selective"),
+    ("float64", "periodic"),
+])
+def test_cli_vector_on_the_default_operator_matches_jax(dtype, reorth):
+    """--vector with no --operator (the flat-state MaxwellOperator), as
+    tests/test_cli.py:23-28 drives the JAX CLI; periodic is none there."""
+    compare_config(STENCIL_VECTOR | dict(dtype=dtype, reorth=reorth),
+                   F64_RTOL if dtype == "float64" else F32_WELL_CONDITIONED_RTOL)
+
+
+def test_cli_block_on_the_default_operator_matches_jax_f64():
+    """The block driver with no --operator, as tests/test_cli.py:14-20."""
+    compare_config(STENCIL_BLOCK | dict(dtype="float64"), F64_RTOL)
+
+
+@pytest.mark.parametrize("start,rtol", [
+    ("fixture", F32_SOLUTION_RTOL), ("orthonormal", F32_WELL_CONDITIONED_RTOL),
+])
+def test_cli_compensated_matches_jax(start, rtol):
+    compare_config(COMPENSATED, rtol, start=start)
 
 
 @pytest.mark.parametrize("fused", [None, True, False])
@@ -136,6 +214,7 @@ def test_parser_flags_and_lc_default():
     cfg = config_from_args(args)
     assert (cfg.n_grid, cfg.m, cfg.operator, cfg.fused, cfg.device) == (4, 3, "pallas", False, "cpu")
     assert build_parser().parse_args([]).device == "cuda"
+    assert build_parser().parse_args([]).operator == "stencil"
     out = run(LanczosConfig(n_grid=3, m=2, operator="pallas", validate=False, device="cpu"))
     # the JAX CLI's default receiver (lanczos_tpu/cli.py:145-146)
     assert out["lc"] == 1 + random.Random(0).randrange(100)
@@ -143,17 +222,26 @@ def test_parser_flags_and_lc_default():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(operator="stencil"), "Queue 1 item 2"),
+    (dict(reorth="selective"), "Queue 1 item 9"),
     (dict(operator="ell"), "Queue 1 items 2 and 10"),
-    (dict(operator="pallas", block=False), "Queue 1 item 9"),
+    (dict(normalize="qr"), "Queue 1 item 9"),
     (dict(operator="pallas", devices=2), "Queue 1 item 12"),
     (dict(operator="pallas", reorth="full"), "Queue 1 item 9"),
-    (dict(operator="pallas", compensated=True), "K7"),
+    (dict(operator="pallas", replace_dead=True), "Queue 1 item 9"),
     (dict(operator="pallas", profile_dir="trace"), "Queue 1 item 7"),
 ])
 def test_unported_flags_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         run(LanczosConfig(n_grid=3, m=2, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("operator", ["stencil", "pallas"])
+def test_vector_compensated_is_a_value_error(operator):
+    """The JAX CLI silently ignores --compensated under --vector
+    (lanczos_tpu/cli.py:180-193); the port refuses the pair."""
+    with pytest.raises(ValueError, match="--compensated"):
+        run(LanczosConfig(n_grid=3, m=2, block=False, compensated=True,
+                          operator=operator, device="cpu"))
 
 
 def test_device_cuda_without_a_card_is_an_error():
@@ -169,6 +257,11 @@ def test_port_never_imports_jax():
         "import lanczos_tpu_torch, lanczos_tpu_torch.cli;"
         "import lanczos_tpu_torch.methods.expm_action, lanczos_tpu_torch.methods.fdtd;"
         "import lanczos_tpu_torch.models.maxwell_pallas, lanczos_tpu_torch.models.rhs;"
+        "import lanczos_tpu_torch.models.maxwell, lanczos_tpu_torch.ops.operator;"
+        "import lanczos_tpu_torch.methods.vector_lanczos;"
+        "import lanczos_tpu_torch.methods.block_lanczos_fused;"
+        "import lanczos_tpu_torch.ops.kernels.stencil_fdtd;"
+        "import lanczos_tpu_torch.ops.kernels.block_dense;"
         "import lanczos_tpu_torch.probes;"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )

@@ -11,7 +11,12 @@ import pytest
 import torch
 
 from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
-from lanczos_tpu_torch.ops.kernels import block_dense, build, stencil_gram
+from lanczos_tpu_torch.ops.kernels import (
+    block_dense,
+    build,
+    stencil_fdtd,
+    stencil_gram,
+)
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     MAX_TAPS_PER_COMP,
     apply_stencil_pair,
@@ -23,6 +28,9 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
 # order (per-thread partials, then a block tree, then block order), so
 # f32 agrees to ~1e-5 of the result's scale, f64 to ~1e-12
 KERNEL_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+# K7 against its plain version: both sum in f64 (in other orders) and
+# round to f32 once, so they differ by at most an ulp or two of f32
+K7_RTOL = 3e-7
 
 
 @pytest.fixture
@@ -55,7 +63,13 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     block_dense.block_mix(torch.eye(2), (u,))
     block_dense.block_grams((u,), u, include_zz=True)
     op.stencil_gram(u.clone(), u.clone())
+    op.scaled(0.1).fdtd_step(u, torch.empty_like(u))
+    block_dense.block_grams_compensated((u,), u, include_zz=True)
     assert all(v == 0 for v in build.LAUNCHES.values())
+    assert set(build.LAUNCHES) == {
+        "apply_stencil_pair", "block_mix", "block_grams",
+        "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
+    }
 
 
 def test_other_devices_raise_instead_of_falling_back():
@@ -66,6 +80,11 @@ def test_other_devices_raise_instead_of_falling_back():
                            op.spec_e, op.spec_h)
     with pytest.raises(ValueError, match="on"):
         block_dense.block_mix(torch.eye(2, device="meta"), (u,))
+    with pytest.raises(ValueError, match="on"):
+        stencil_fdtd.fdtd_step(u, torch.empty_like(u), op.wz_t.to("meta"),
+                               op.wplane_s.to("meta"), op.spec_e, op.spec_h)
+    with pytest.raises(ValueError, match="on"):
+        block_dense.block_grams_compensated((u,), u)
 
 
 def test_tap_table_encodes_the_specs():
@@ -171,3 +190,66 @@ def test_k4_stencil_gram_vs_plain(cuda, n, p, dtype):
     assert v.data_ptr() == dst.data_ptr()
     _close(v, want_v, dtype)
     _close(g3, want_g3, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (3, 1), (6, 1), (6, 5)])
+def test_k5_fdtd_step_vs_plain(cuda, n, p, dtype):
+    op, u = _op_state(n, p, dtype, cuda)
+    a = op.scaled(0.01)
+    keep = u.clone()
+    out = torch.empty_like(u)
+    before = build.LAUNCHES["fdtd_step"]
+    got = a.fdtd_step(u, out)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fdtd_step"] == before + 1
+    assert got.data_ptr() == out.data_ptr()
+    assert torch.equal(u, keep)  # u is only read
+    want = stencil_fdtd.fdtd_step_plain(u, torch.empty_like(u), a.wz_t,
+                                        a.wplane_s, a.spec_e, a.spec_h)
+    _close(got, want, dtype)
+    with pytest.raises(ValueError, match="out must not be u"):
+        a.fdtd_step(u, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,p,include_zz", [
+    ((), 4, True), ((4,), 4, True), ((4, 4, 4), 4, False), ((3,), 3, True),
+    ((9, 9), 9, True), ((1,), 1, True),
+])
+def test_k7_block_grams_compensated_vs_plain(cuda, rows, p, include_zz):
+    _, z = _op_state(11, p, torch.float32, cuda)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    xs = [torch.randn((r,) + tuple(z.shape[1:]), generator=g).to(cuda) for r in rows]
+    before = build.LAUNCHES["block_grams_compensated"]
+    got = block_dense.block_grams_compensated(xs, z, include_zz=include_zz)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["block_grams_compensated"] == before + 1
+    assert got.dtype == torch.float32
+    want = block_dense.block_grams_compensated_plain(xs, z, include_zz=include_zz)
+    got, want = got.double().cpu(), want.double().cpu()
+    assert (got - want).abs().max().item() <= K7_RTOL * want.abs().max().item()
+    assert torch.equal(got, block_dense.block_grams_compensated(
+        xs, z, include_zz=include_zz).double().cpu())
+
+
+@pytest.mark.cuda
+def test_k7_reaches_the_f64_oracle(cuda):
+    """Inputs spread over e^+-6, where a plain f32 Gram loses ~10x more:
+    K7, an f64 sum rounded once to f32, stays within 1e-7 of the f64
+    Gram's scale (one rounding is 2^-24 = 6e-8; tests/test_block_dense.py
+    holds the JAX kernel to 5e-7)."""
+    rng = np.random.default_rng(1234)
+    p, n = 4, 1 << 20
+    x, z = ((rng.standard_normal((p, n)) * np.exp(rng.uniform(-6, 6, (p, n))))
+            .astype(np.float32) for _ in range(2))
+    exact = x.astype(np.float64) @ z.astype(np.float64).T
+    got = block_dense.block_grams_compensated(
+        (torch.from_numpy(x).to(cuda),), torch.from_numpy(z).to(cuda)
+    ).cpu().numpy()
+    assert np.abs(got - exact).max() / np.abs(exact).max() < 1e-7
+    with pytest.raises(ValueError, match="float32"):
+        block_dense.block_grams_compensated((), torch.zeros((2, 8), device=cuda,
+                                                            dtype=torch.float64),
+                                            include_zz=True)

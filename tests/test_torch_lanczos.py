@@ -124,10 +124,65 @@ def test_state_trace_reads_one_element_per_column():
     (dict(reorth="full"), "Queue 1 item 9"),
     (dict(normalize="qr"), "Queue 1 item 9"),
     (dict(replace_dead=True), "Queue 1 item 9"),
-    (dict(compensated=True), "K7"),
 ])
 def test_unported_modes_raise(kw, item):
     top = PallasMaxwellOperator.create(3, 3, 3)
     b = top.pack(torch.ones((2, top.n)))
     with pytest.raises(NotImplementedError, match=item):
         block_lanczos(top, b, 2, 0, **kw)
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(fused=False), "fused=False contradicts it"),
+    (dict(reorth="full"), "implemented on the fused path"),
+    (dict(normalize="qr"), "implemented on the fused path"),
+    (dict(replace_dead=True), "implemented on the fused path"),
+])
+def test_compensated_needs_the_fused_path(kw, match):
+    """JAX block_lanczos.py:176-188: compensated=True exists on the fused
+    path only, so fused=False or a non-fusable mode is a ValueError."""
+    top = PallasMaxwellOperator.create(3, 3, 3)
+    b = top.pack(torch.ones((2, top.n)))
+    with pytest.raises(ValueError, match=match):
+        block_lanczos(top, b, 2, 0, compensated=True, **kw)
+
+
+def test_compensated_routes_to_the_fused_3call_step(monkeypatch):
+    """compensated=True takes the fused route below the 16 MB gate, takes
+    every Gram from K7 and none from K3, and runs no mono step (K4)."""
+    from lanczos_tpu_torch.ops.kernels import block_dense
+
+    top = PallasMaxwellOperator.create(3, 3, 3)
+    calls = {"comp": 0, "grams": 0, "stencil_gram": 0}
+
+    def counted(key, fn):
+        return lambda *a, **k: calls.__setitem__(key, calls[key] + 1) or fn(*a, **k)
+
+    monkeypatch.setattr(block_lanczos_fused, "block_grams_compensated",
+                        counted("comp", block_dense.block_grams_compensated))
+    monkeypatch.setattr(block_lanczos_fused, "block_grams",
+                        counted("grams", block_dense.block_grams))
+    monkeypatch.setattr(top, "stencil_gram", counted("stencil_gram", top.stencil_gram))
+    x = np.random.default_rng(0).standard_normal((4, top.n)).astype(np.float32)
+    b = top.pack(torch.from_numpy(x))
+    res = block_lanczos(top, b, 6, 0, trace_fn=top.trace_fn(LC), compensated=True)
+    assert calls == {"comp": 6 + 1, "grams": 0, "stencil_gram": 0}
+    ref = block_lanczos(top, b, 6, 0, trace_fn=top.trace_fn(LC), fused=False)
+    np.testing.assert_allclose(res.trace.numpy(), ref.trace.numpy(), rtol=0,
+                               atol=1e-4 * np.abs(ref.trace.numpy()).max())
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_store_basis_keeps_every_block(fused):
+    """store_basis turns the mono step off (its in-place block_mix reuses
+    q_{j-2}'s buffer) and returns the m blocks, orthonormal and matching
+    the trace."""
+    top = PallasMaxwellOperator.create(3, 3, 3, dtype=torch.float64)
+    x = np.random.default_rng(0).standard_normal((2, top.n))
+    b = top.pack(torch.from_numpy(x))
+    res = block_lanczos(top, b, 5, 0, trace_fn=top.trace_fn(LC), fused=fused,
+                        store_basis=True)
+    q = res.basis.reshape(5 * 2, -1).numpy()
+    np.testing.assert_allclose(q @ q.T, np.eye(10), atol=1e-10)
+    torch.testing.assert_close(top.trace_fn(LC)(res.basis), res.trace, rtol=0, atol=0)
+    assert block_lanczos(top, b, 5, 0, fused=fused).basis is None

@@ -1,15 +1,19 @@
-"""The port's Maxwell operator (lanczos_tpu_torch.models) against the JAX
-package's, on the CPU: weights, layout, packing, and A @ u (K1's plain
-version) against JAX's `apply_stencil_pair` (Pallas in interpret mode)
-and against the scipy oracle in f64."""
+"""The port's Maxwell operators (lanczos_tpu_torch.models) against the JAX
+package's, on the CPU: for the folded-plane operator, weights, layout,
+packing, and A @ u (K1's plain version) against JAX's `apply_stencil_pair`
+(Pallas in interpret mode) and against the scipy oracle in f64; for the
+flat-state `MaxwellOperator` (`--operator stencil`), mv/mm against JAX's
+and against the scipy oracle in f64 at N=3..10."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from lanczos_tpu.models.maxwell import MaxwellOperator as JaxMaxwell
 from lanczos_tpu.models.maxwell_pallas import PallasMaxwellOperator as JaxOp
-from lanczos_tpu_torch.models.maxwell import assemble_maxwell_A
+from lanczos_tpu_torch.models.maxwell import MaxwellOperator, assemble_maxwell_A
 from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
 
 # f32 tolerance of A @ u against JAX: the same taps in the same order and
@@ -128,9 +132,71 @@ def test_scaled_matches_jax_and_folds_into_z_weights(rng):
 
 
 def test_unported_paths_raise():
+    """What the operator refuses: bf16 states (not ported), and an FDTD
+    step whose output buffer is its input (K5 writes a second buffer)."""
     top = PallasMaxwellOperator.create(3, 3, 3)
-    assert top.supports_fdtd_inplace(2) is False
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        top.fdtd_step(torch.zeros((1,) + top.state_shape))
+    u = torch.zeros((1,) + top.state_shape)
+    with pytest.raises(ValueError, match="out must not be u"):
+        top.fdtd_step(u, u)
     with pytest.raises(ValueError, match="float32 or float64"):
         PallasMaxwellOperator.create(3, 3, 3, dtype=torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_fdtd_step_is_u_plus_a_u(dtype, rng):
+    """K5's plain version: out = u + A u into a second buffer, u unchanged;
+    (p, 6, Zc, P) and single (6, Zc, P) states."""
+    top = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype).scaled(0.01)
+    u = top.pack(torch.from_numpy(rng.standard_normal((3, top.n))).to(dtype))
+    keep = u.clone()
+    out = torch.empty_like(u)
+    got = top.fdtd_step(u, out)
+    assert got.data_ptr() == out.data_ptr() and torch.equal(u, keep)
+    torch.testing.assert_close(got, u + top.mm(u), rtol=0, atol=0)
+    one = top.fdtd_step(u[1], torch.empty_like(u[1]))
+    torch.testing.assert_close(one, got[1], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("n", [3, 6, 10])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_maxwell_operator_matches_jax(n, dtype, rng):
+    """The flat-state operator: the same taps multiplied in the same order
+    as JAX's `_apply`, so f32 agrees to a few ulps of the output scale
+    (1e-6), f64 to 1e-13; from_arrays carries JAX's weights over."""
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
+    jop = JaxMaxwell.create(n, n, n, dtype=jdt)
+    top = MaxwellOperator.create(n, n, n, dtype=dtype)
+    assert top.n == jop.n and top.shape == jop.shape and top.dtype == dtype
+    same = MaxwellOperator.from_arrays(
+        n, n, n, [tuple(np.asarray(w) for w in t) for t in jop.tap_arrays])
+    for mine, theirs in zip(same.tap_arrays, top.tap_arrays):
+        assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
+    x = rng.standard_normal((3, top.n))
+    tol = (1e-6 if dtype == torch.float32 else 1e-13)
+    # jitted, as the JAX methods call it (op-by-op it takes seconds)
+    want = np.asarray(jax.jit(lambda o, v: o.mm(v))(jop, jnp.asarray(x, jdt)))
+    got = top.mm(torch.from_numpy(x).to(dtype)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=tol * np.abs(want).max())
+    want1 = np.asarray(jax.jit(lambda o, v: o.mv(v))(jop, jnp.asarray(x[0], jdt)))
+    got1 = top.mv(torch.from_numpy(x[0]).to(dtype)).numpy()
+    np.testing.assert_allclose(got1, want1, rtol=0, atol=tol * np.abs(want1).max())
+
+
+@pytest.mark.parametrize("n", [3, 4, 7, 10])
+def test_maxwell_operator_matches_scipy_f64(n, rng):
+    """A = D diag(w) assembled by scipy, the f64 oracle (ROADMAP Queue 1
+    item 2): mv agrees to 1e-12 of the output scale."""
+    top = MaxwellOperator.create(n, n, n, dtype=torch.float64)
+    A = assemble_maxwell_A(n, n, n)
+    x = rng.standard_normal(top.n)
+    ref = A @ x
+    np.testing.assert_allclose(top.mv(torch.from_numpy(x)).numpy(), ref,
+                               rtol=0, atol=1e-12 * np.abs(ref).max())
+
+
+def test_maxwell_operator_from_arrays_checks_the_geometry():
+    jop = JaxMaxwell.create(3, 3, 3)
+    taps = [tuple(np.asarray(w) for w in t) for t in jop.tap_arrays]
+    assert MaxwellOperator.from_arrays(3, 3, 3, taps).dtype == torch.float32
+    with pytest.raises(ValueError, match="geometry"):
+        MaxwellOperator.from_arrays(4, 3, 3, taps)
