@@ -8,38 +8,57 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit;
-2. build: the six hand-written CUDA kernels (K1-K5, K7) from
+2. build: the seven hand-written CUDA kernels (K1-K5, K7, K8) from
    lanczos_tpu_torch/csrc, with nvcc's register/spill report;
-3. kernel vs plain: each kernel against its plain PyTorch version on the
-   card, at the main paths' shapes (Maxwell N=160 at p=4, the block
-   slices, and at p=1, the vector slice; K4 and K7 at p=4 only, the vector
-   slice runs neither) and at a small odd geometry (N=11, p=3, f32 and
-   f64; K7 takes f32 only), with the tolerance stated below, and timed
-   against its plain version and against a device copy of the same bytes;
-   K7 also against the f64 Gram on inputs spread over e^+-6, at a bound
-   that K3's f32 sums must miss;
-4. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
+3. kernel vs plain: each stencil-path kernel (K1-K5, K7) against its plain
+   PyTorch version on the card, at the main paths' shapes (Maxwell N=160
+   at p=4, the block slices, and at p=1, the vector slice; K4 and K7 at
+   p=4 only, the vector slice runs neither) and at a small odd geometry
+   (N=11, p=3, f32 and f64; K7 takes f32 only), with the tolerance stated
+   below, and timed against its plain version and against a device copy
+   of the same bytes; K7 also against the f64 Gram on inputs spread over
+   e^+-6, at a bound that K3's f32 sums must miss;
+4. K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
+   random matrix, a 500x500 unstructured one, an RCM-permuted band, 997
+   rows of a band; p=3, f32 and f64), then at the assembled slice's shape
+   (the synthetic SuiteSparse-style matrix, 10,485,760 rows, ~115M nnz),
+   p=8 and p=1, timed against its plain version, a device copy of the same
+   state and cuSPARSE (`torch.sparse.mm` on a CSR tensor, reported only);
+   at p=8 also against scipy's f64 product on the host;
+5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
    through K1-K5 (the stencil_gram count equals m - 2: the fused mono step
    ran; K1 only in Lanczos, K5 for every FDTD step), that the solution is
    finite and that its relative error against the FDTD oracle is under
    1e-3;
-5. the vector slice (--vector, m=8): the fused route at block width 1, K1,
+6. the vector slice (--vector, m=8): the fused route at block width 1, K1,
    K2, K3 every step, no K4, K5 for every FDTD step;
-6. the compensated slice (--compensated, m=6, p=4): the 3-call fused step
-   with K7 for every Gram (m + 1 calls) and no K3 or K4.
+7. the compensated slice (--compensated, m=6, p=4): the 3-call fused step
+   with K7 for every Gram (m + 1 calls) and no K3 or K4;
+8. the assembled slice: `block_lanczos_eigsh` (p=8, m=12, k=5, reorth
+   full, TSQR, breakdown_eps 1e-4, replace_dead) on the padded windowed
+   operator of the 10.5M-row matrix, then `ritz_residuals`: K8 exactly 12
+   times in the recurrence and once more for the residuals, all five
+   measured residuals under 1e-3; the same at 262,144 rows against scipy's
+   eigsh (top-5 to 1e-4), and a .mtx round trip through
+   `operator_from_file(format="windowed")`;
+9. the ELL slice: `--operator ell` (N=64, m=6, p=4, 2000 FDTD steps):
+   the gathered ELL product is plain torch, and the 25 MB block state
+   passes the 16 MB gate, so the fused recurrence runs K2/K3 on flat
+   (p, n) states; relative error under 1e-3.
 
-Each slice phase sets the launch counts to 0 just before it drives the CLI
-and reads them just after.
+Each slice phase sets the launch counts to 0 just before it drives its
+path and reads them just after.
 
 The FDTD oracle's forward-Euler error falls as 1/steps; the CLI's default
 is 10^6 steps, the smoke takes 2000 to fit its time budget.
 
 Output: one JSON line of per-kernel results (launches summed over the
-three slices), the nvidia-smi line, and as
-the last line {"ok": true, "device": {...}}.  Without a CUDA device, or
-without the rest of the repository beside it, the script exits non-zero
-and prints no result.
+slices; bound_ms the larger of the bytes over the card's memory rate and
+the operations over its peak rate), the nvidia-smi line, and as the last
+line {"ok": true, "device": {...}}.  Without a CUDA device, or without the
+rest of the repository beside it, the script exits non-zero and prints no
+result.
 """
 
 from __future__ import annotations
@@ -71,6 +90,18 @@ K7_RTOL = 3e-7
 # f32 is within 2^-24 (6e-8) of each entry.  Tighter than the JAX kernel's
 # 5e-7 (tests/test_block_dense.py), which K3's f32 sums meet at N=160.
 K7_ORACLE_RTOL = 1e-7
+# the assembled slice: BASELINE.json config 4 on one card
+N_ASSEMBLED, N_ASSEMBLED_SMALL = 10_485_760, 262_144
+P_ASSEMBLED, M_ASSEMBLED, K_ASSEMBLED = 8, 12, 5
+RESID_BOUND = 1e-3  # measured relative Ritz residuals, f32
+EIGSH_RTOL = 1e-4  # top-5 against scipy's eigsh at 262,144 rows
+# K8 at p=8 against scipy's f64 product: each row sums <= 15 f32 products
+K8_SCIPY_RTOL = 1e-5
+N_ELL, M_ELL = 64, 6  # a p=4 state of 25 MB: over the 16 MB fused gate
+# the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
+# device memory, and the non-tensor-core rate for each type of operation
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"float32": 67e12, "float64": 34e12}
 SOURCE = "lanczos_tpu_torch/csrc/lanczos_kernels.cu"
 REPLACES = {
     "apply_stencil_pair": "lanczos_tpu/ops/pallas/stencil_kernel.py:70",
@@ -79,6 +110,7 @@ REPLACES = {
     "apply_stencil_pair_gram": "lanczos_tpu/ops/pallas/stencil_gram.py:96",
     "fdtd_step": "lanczos_tpu/ops/pallas/stencil_fdtd.py:50",
     "block_grams_compensated": "lanczos_tpu/ops/pallas/block_dense.py:361",
+    "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
 }
 
 
@@ -147,6 +179,25 @@ def phase_build(build):
             log(f"  ptxas {name}: {m.group(1)} registers, {spills}")
 
 
+def bound(nbytes, ops, ops_type):
+    """The least time (ms) the card could take: the larger of the bytes
+    over its memory rate and the operations over its peak rate."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[ops_type] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def kernel_row(name, err, ms, plain_ms, nbytes, ops, ops_type, library_ms):
+    bound_ms, bound_by = bound(nbytes, ops, ops_type)
+    log(f"    bound {bound_ms:.4f} ms ({bound_by}), kernel at "
+        f"{bound_ms / ms:.1%} of it; library "
+        + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
+    return dict(name=name, route="cuda", source=SOURCE,
+                replaces=REPLACES[name], max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+                library_ms=library_ms)
+
+
 def compare(torch, got, want, rtol):
     got, want = got.double(), want.double()
     err = (got - want).abs().max().item()
@@ -156,8 +207,13 @@ def compare(torch, got, want, rtol):
 
 
 def phase_kernels(torch, results, failures):
-    """Each kernel against its plain version, at the slice's shapes (timed)
-    and at a small odd geometry."""
+    """Each stencil-path kernel against its plain version, at the slices'
+    shapes (timed) and at a small odd geometry.
+
+    Operations per call, for the bound: a stencil output element costs 12
+    (four taps, two multiplies and an add each), K5 one more (the identity
+    term); a Gram or block_mix of K rows against p columns 2*K*p per state
+    element of a column; K7's sums are f64 operations."""
     from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
     from lanczos_tpu_torch.ops.kernels import (
         block_dense,
@@ -179,6 +235,7 @@ def phase_kernels(torch, results, failures):
             failures.append(f"{label} disagrees with its plain version")
         return err
 
+    rows = results.setdefault("rows", {})
     for n, p, dtype in ((N_SLICE, P_SLICE, torch.float32),
                         (11, 3, torch.float32), (11, 3, torch.float64)):
         dname = str(dtype).split(".")[-1]
@@ -196,21 +253,21 @@ def phase_kernels(torch, results, failures):
             return x / x.flatten(1).norm(dim=1).view(-1, 1, 1, 1)
 
         state_bytes = math.prod(shape) * torch.tensor([], dtype=dtype).element_size()
-        row = {}
+        S = math.prod(op.state_shape)  # elements of one block column
 
-        def record(name, label, got, want, kernel_fn, plain_fn, nbytes):
+        def record(name, label, got, want, kernel_fn, plain_fn, nbytes, ops,
+                   library_fn=None, ops_type=dname):
             err = check(label, name, dname, got, want)
             if not timed:
                 return
             ms = cuda_ms(torch, kernel_fn)
             plain_ms = cuda_ms(torch, plain_fn)
+            library_ms = None if library_fn is None else cuda_ms(torch, library_fn)
             log(f"    {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"{nbytes / 1e6:.1f} MB/call -> {nbytes / ms / 1e6:.1f} GB/s")
-            row.setdefault(name, dict(
-                name=name, route="cuda", source=SOURCE,
-                replaces=REPLACES[name], max_abs_err=err, ms=ms,
-                plain_ms=plain_ms,
-            ))
+            row = kernel_row(name, err, ms, plain_ms, nbytes, ops, ops_type,
+                             library_ms)
+            rows.setdefault(name, row)
 
         if timed:
             src, dst = rand(), rand()
@@ -231,13 +288,17 @@ def phase_kernels(torch, results, failures):
             plain_k1 = lambda: apply_stencil_pair_plain(  # noqa: E731
                 u, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
             record("apply_stencil_pair", "K1 apply_stencil_pair" + tag, op.mm(u),
-                   plain_k1(), lambda: op.mm(u), plain_k1, 2 * pbytes)
+                   plain_k1(), lambda: op.mm(u), plain_k1, 2 * pbytes,
+                   12 * pk * S)
             del u
 
             # K2: block_mix, 1-, 2- and 3-operand, and in place (the mono
             # form is the one timed at p=4: it runs every step there; p=1
             # runs the 3-operand form into a new buffer)
-            xs = [rand(pk) for _ in range(3)]
+            # three operands in one buffer, so that cat(xs) is a view and
+            # one torch.mm computes block_mix and the Gram (library_ms)
+            stack = rand(3 * pk)
+            xs = list(stack.split(pk))
             for k in (3, 1, 2):
                 coeffs = 0.1 * torch.randn((k * pk, pk), generator=g, device=dev,
                                            dtype=dtype)
@@ -252,7 +313,8 @@ def phase_kernels(torch, results, failures):
                         record("block_mix", label, got, want,
                                lambda: block_dense.block_mix(coeffs, work, inplace=True),
                                lambda: block_dense.block_mix_plain(coeffs, ops),
-                               (k + 1) * pbytes)
+                               (k + 1) * pbytes, 2 * k * pk * pk * S,
+                               lambda: coeffs.T @ stack.flatten(1))
                     else:
                         check(label, "block_mix", dname, got, want)
                     del work, got
@@ -264,7 +326,8 @@ def phase_kernels(torch, results, failures):
                         record("block_mix", label, got, want,
                                lambda: block_dense.block_mix(coeffs, ops),
                                lambda: block_dense.block_mix_plain(coeffs, ops),
-                               (k + 1) * pbytes)
+                               (k + 1) * pbytes, 2 * k * pk * pk * S,
+                               lambda: coeffs.T @ stack.flatten(1))
                 else:
                     got = block_dense.block_mix(coeffs, ops)
                     check(f"K2 block_mix {k} operand(s){tag}", "block_mix", dname,
@@ -279,14 +342,15 @@ def phase_kernels(torch, results, failures):
                    block_dense.block_grams_plain((q,), v, include_zz=True),
                    lambda: block_dense.block_grams((q,), v, include_zz=True),
                    lambda: block_dense.block_grams_plain((q,), v, include_zz=True),
-                   2 * pbytes)
+                   2 * pbytes, 2 * (2 * pk) * pk * S,
+                   lambda: stack[: 2 * pk].flatten(1) @ v.flatten(1).T)
             check("K3 block_grams (), b, include_zz" + tag, "block_grams", dname,
                   block_dense.block_grams((), q, include_zz=True),
                   block_dense.block_grams_plain((), q, include_zz=True))
             check("K3 block_grams (x0, x1, x2), z" + tag, "block_grams", dname,
                   block_dense.block_grams(tuple(xs), v),
                   block_dense.block_grams_plain(tuple(xs), v))
-            del xs, q, v
+            del xs, q, v, stack
 
         # K4: v = A q into dst, plus [gram(q,v); gram(v,v); gram(dst_old,q)]
         q, dst = rand(), rand()
@@ -303,7 +367,7 @@ def phase_kernels(torch, results, failures):
                got_g3, want_g3, lambda: op.stencil_gram(q, work),
                lambda: stencil_gram.apply_stencil_pair_gram_plain(
                    q, scratch, op.wz_t, op.wplane_s, op.spec_e, op.spec_h),
-               3 * state_bytes)
+               3 * state_bytes, 12 * p * S + 3 * 2 * p * p * S)
         del q, dst, work, scratch, want_v, want_g3, got_v, got_g3
 
         # K5: out = u + (dt A) u into a second buffer, at the block width
@@ -320,7 +384,7 @@ def phase_kernels(torch, results, failures):
                 failures.append("K5 did not write its out buffer")
             record("fdtd_step", f"K5 fdtd_step p={pk}", got, plain_k5(),
                    lambda: a_dt.fdtd_step(u, out), plain_k5,
-                   2 * state_bytes * pk // p)
+                   2 * state_bytes * pk // p, 13 * pk * S)
             if timed and pk == p:
                 # the two passes it replaces: K1 then an in-place add
                 two_ms = cuda_ms(torch, lambda: u.clone().add_(a_dt.mm(u)))
@@ -338,7 +402,7 @@ def phase_kernels(torch, results, failures):
                    lambda: block_dense.block_grams_compensated((q,), v, include_zz=True),
                    lambda: block_dense.block_grams_compensated_plain(
                        (q,), v, include_zz=True),
-                   2 * state_bytes)
+                   2 * state_bytes, 2 * (2 * p) * p * S, ops_type="float64")
             check("K7 block_grams_compensated (), b, include_zz",
                   "block_grams_compensated", dname,
                   block_dense.block_grams_compensated((), q, include_zz=True),
@@ -352,8 +416,6 @@ def phase_kernels(torch, results, failures):
                 failures.append("K7 took an f64 state")
             except ValueError:
                 log("  K7 refuses f64 states: ok")
-        if timed:
-            results["kernels"] = [row[k] for k in REPLACES]
         del op
         torch.cuda.empty_cache()
 
@@ -534,6 +596,260 @@ def phase_compensated_slice(torch, build, results, failures):
     block_lanczos_ms(torch, op, b, tf, compensated=True)
 
 
+def small_windowed_cases():
+    """Odd geometries for K8: rectangular, unstructured (several windows a
+    chunk and the greedy packing), an RCM-permuted band, 997 rows."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    def band(n, k):
+        return sp.diags([np.full(n - abs(o), 2.0 if o == 0 else -1.0)
+                         for o in range(-k, k + 1)], list(range(-k, k + 1)),
+                        format="csr")
+
+    perm = np.random.default_rng(5).permutation(1500)
+    return {
+        "300x900 random": (sp.random(300, 900, density=0.01, random_state=3,
+                                     format="csr"), {}),
+        "500x500 unstructured": (sp.random(500, 500, density=0.02,
+                                           random_state=2, format="csr"), {}),
+        "RCM-permuted band": (band(1500, 3)[perm][:, perm].tocsr(),
+                              dict(reorder="rcm")),
+        "997-row band": (band(999, 1)[:997, :999].tocsr(), {}),
+    }
+
+
+def phase_windowed_kernel(torch, results, failures, assembled):
+    """K8 against its plain version at small odd geometries (p=3, f32 and
+    f64), then at the assembled slice's shape, p=8 and p=1, timed against
+    plain, a device copy of the state and cuSPARSE; at p=8 also against
+    scipy's f64 product.  Leaves the 10.5M-row matrix and its plan in
+    `assembled` for the slice phase."""
+    import numpy as np
+
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        windowed_spmm,
+        windowed_spmm_plain,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+
+    def check(label, dname, got, want):
+        err, rel, ok = compare(torch, got, want, KERNEL_RTOL[dname])
+        log(f"  {label}: max_abs_err {err:.3e} rel {rel:.3e} "
+            f"(tol {KERNEL_RTOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} disagrees with its plain version")
+        return err
+
+    log("K8 windowed_spmm vs plain at small geometries, p=3")
+    for label, (a, kw) in small_windowed_cases().items():
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[-1]
+            A = windowed_from_scipy(a, dtype=dtype, ppc_cap=256, device=dev, **kw)
+            X = A.pack(torch.from_numpy(
+                rng.standard_normal((3, a.shape[1]))).to(dev, dtype))
+            check(f"K8 {label} {dname} (ppc {A.ppc})", dname,
+                  windowed_spmm(A, X), windowed_spmm_plain(A, X))
+
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(N_ASSEMBLED)
+    log(f"assembled matrix: {a.shape[0]} rows, {a.nnz} nnz, "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    t0 = time.perf_counter()
+    A = windowed_from_scipy(a, reorder="none", device=dev)
+    torch.cuda.synchronize()
+    plan_s = time.perf_counter() - t0
+    log(f"  plan {plan_s:.2f} s: ppc {A.ppc}, wsz {A.wsz}, ng {A.ng}, "
+        f"n128 {A.n128}, {A.device_bytes() / 1e6:.1f} MB on the device")
+    assembled.update(a=a, A=A)
+
+    # cuSPARSE's SpMM on the same matrix, the library yardstick (not used
+    # anywhere in the port)
+    csr = torch.sparse_csr_tensor(
+        torch.from_numpy(a.indptr).to(dev), torch.from_numpy(a.indices).to(dev),
+        torch.from_numpy(a.data).to(dev), size=a.shape)
+    plane_bytes = sum(t.numel() * t.element_size()
+                      for t in (A.planes_data, A.planes_lidx, A.planes_off, A.wb))
+    n = a.shape[0]
+    for p in (P_ASSEMBLED, 1):
+        log(f"K8 at the assembled slice's shape, p={p}")
+        X = A.pack(torch.from_numpy(
+            rng.standard_normal((p, n)).astype(np.float32)).to(dev))
+        out = torch.empty_like(X)
+        got = windowed_spmm(A, X, out).clone()
+        err = check(f"K8 {n} rows p={p}", "float32", got,
+                    windowed_spmm_plain(A, X))
+        if p == P_ASSEMBLED:
+            ref = np.asarray(a.astype(np.float64) @ X[:, :n].cpu().numpy().T.astype(np.float64)).T
+            err_s, rel_s, ok = compare(torch, got[:, :n].cpu(), torch.from_numpy(ref),
+                                       K8_SCIPY_RTOL)
+            log(f"  K8 vs scipy's f64 product: max_abs_err {err_s:.3e} rel "
+                f"{rel_s:.3e} (tol {K8_SCIPY_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failures.append("K8 misses scipy's f64 product at p=8")
+            del ref
+        ms = cuda_ms(torch, lambda: windowed_spmm(A, X, out))
+        plain_ms = cuda_ms(torch, lambda: windowed_spmm_plain(A, X))
+        copy_ms = cuda_ms(torch, lambda: out.copy_(X))
+        # cuSPARSE with B row-major (an (n, p) copy) and column-major (the
+        # state's own buffer, a transposed view); the faster is library_ms
+        lib_ms = {}
+        for layout, xt in (("row-major", X[:, :n].T.contiguous()),
+                           ("column-major", X[:, :n].T)):
+            lib = torch.sparse.mm(csr, xt)
+            _, lib_rel, _ = compare(torch, lib.T, got[:, :n], 1.0)
+            lib_ms[layout] = cuda_ms(torch, lambda: torch.sparse.mm(csr, xt))
+            log(f"  cuSPARSE, B {layout}: {lib_ms[layout]:.4f} ms (agrees to "
+                f"{lib_rel:.1e} of scale)")
+            del lib, xt
+        library_ms = min(lib_ms.values())
+        nbytes = plane_bytes + 2 * X.numel() * X.element_size()
+        log(f"  kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, cuSPARSE "
+            f"{library_ms:.4f} ms (the faster layout), copy of "
+            f"the state {copy_ms:.4f} ms ({2 * X.numel() * 4 / copy_ms / 1e6:.1f} "
+            f"GB/s); {nbytes / 1e6:.1f} MB/call -> {nbytes / ms / 1e6:.1f} GB/s, "
+            f"{a.nnz * p / (ms * 1e-3):.4e} nnz*col/s")
+        row = kernel_row("windowed_spmm", err, ms, plain_ms, nbytes,
+                         2 * a.nnz * p, "float32", library_ms)
+        if p == P_ASSEMBLED:
+            results.setdefault("rows", {})["windowed_spmm"] = row
+            assembled["spmm_ms"] = ms
+        del X, out, got
+    del csr
+    torch.cuda.empty_cache()
+
+
+def assembled_eigsh(torch, A, seed=0, compute_vectors=True):
+    """block_lanczos_eigsh on the padded windowed operator, as the JAX
+    benchmark runs it (benchmarks/suitesparse_scale.py:218-220)."""
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh
+    from lanczos_tpu_torch.ops.window_ell import PaddedWindowedOperator
+
+    op = PaddedWindowedOperator(A)
+    x = np.random.default_rng(seed).standard_normal(
+        (P_ASSEMBLED, A.n_rows_true)).astype(np.float32)
+    b = A.pack(torch.from_numpy(x).cuda())
+    vals, vecs, bounds = block_lanczos_eigsh(
+        op, b, M_ASSEMBLED, K_ASSEMBLED, which="LA", reorth="full",
+        normalize="qr", breakdown_eps=1e-4, replace_dead=True,
+        eig_backend="newton", compute_vectors=compute_vectors)
+    return op, vals, vecs, bounds
+
+
+def phase_assembled_slice(torch, build, results, failures, assembled):
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import ritz_residuals
+
+    A = assembled["A"]
+    log(f"assembled slice: block_lanczos_eigsh p={P_ASSEMBLED} m={M_ASSEMBLED} "
+        f"k={K_ASSEMBLED} reorth=full normalize=qr breakdown_eps=1e-4 "
+        f"replace_dead on {A.n_rows_true} rows, then ritz_residuals")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    op, vals, vecs, bounds = assembled_eigsh(torch, A)
+    torch.cuda.synchronize()
+    lanczos_s = time.perf_counter() - t0
+    in_recurrence = build.LAUNCHES["windowed_spmm"]
+    resid = ritz_residuals(op, vals, vecs)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    results.setdefault("launches", {})["assembled"] = launches
+    vals_h, resid_h = vals.cpu().numpy(), resid.cpu().numpy()
+    log(f"  launches: {launches} ({in_recurrence} in the recurrence)")
+    log(f"  Ritz values {vals_h.tolist()}")
+    log(f"  measured residuals {resid_h.tolist()} (bound {RESID_BOUND:g}); "
+        f"|beta_m S| bounds {bounds.cpu().numpy().tolist()}")
+    spmm_ms = assembled["spmm_ms"]
+    log(f"  SpMM {spmm_ms:.4f} ms at p={P_ASSEMBLED}, "
+        f"{A.nnz * P_ASSEMBLED / (spmm_ms * 1e-3):.4e} nnz*col/s; Lanczos + eigsh "
+        f"{lanczos_s:.3f} s wall; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if in_recurrence != M_ASSEMBLED or launches["windowed_spmm"] != M_ASSEMBLED + 1:
+        failures.append(f"assembled slice: K8 launched {in_recurrence} times in "
+                        f"the recurrence and {launches['windowed_spmm']} in all, "
+                        f"expected {M_ASSEMBLED} and {M_ASSEMBLED + 1}")
+    if any(c for k, c in launches.items() if k != "windowed_spmm"):
+        failures.append(f"assembled slice: another kernel launched: {launches}")
+    if not (np.all(np.isfinite(vals_h)) and np.all(resid_h < RESID_BOUND)):
+        failures.append(f"assembled slice: Ritz values {vals_h} / residuals "
+                        f"{resid_h} not finite or not under {RESID_BOUND}")
+    del op, vals, vecs, bounds, resid
+    assembled.clear()
+    torch.cuda.empty_cache()
+    assembled_small(torch, build, results, failures)
+
+
+def assembled_small(torch, build, results, failures):
+    """The assembled slice at 262,144 rows against scipy's eigsh, and a
+    .mtx round trip of a slab through operator_from_file."""
+    import tempfile
+
+    import numpy as np
+    from scipy.io import mmwrite
+    from scipy.sparse.linalg import eigsh
+
+    from lanczos_tpu_torch.io import operator_from_file
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    a = synth_suitesparse_banded(N_ASSEMBLED_SMALL)
+    log(f"assembled slice at {N_ASSEMBLED_SMALL} rows against scipy eigsh")
+    A = windowed_from_scipy(a, reorder="none", device="cuda")
+    build.reset_launches()
+    _, vals, _, _ = assembled_eigsh(torch, A, compute_vectors=False)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    results.setdefault("launches", {})["assembled 262144"] = launches
+    got = vals.cpu().numpy().astype(np.float64)
+    want = np.sort(eigsh(a.astype(np.float64), k=K_ASSEMBLED, which="LA")[0])[::-1]
+    rel = np.abs(got - want) / np.abs(want)
+    log(f"  launches {launches}; Ritz {got.tolist()}; scipy {want.tolist()}; "
+        f"rel {rel.max():.2e} (tol {EIGSH_RTOL:g})")
+    if launches["windowed_spmm"] != M_ASSEMBLED or not rel.max() <= EIGSH_RTOL:
+        failures.append(f"assembled slice at {N_ASSEMBLED_SMALL} rows: K8 "
+                        f"{launches['windowed_spmm']} launches, top-5 rel {rel}")
+
+    slab = a[:2000, :2000].tocoo()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "slab.mtx")
+        mmwrite(path, slab)
+        W = operator_from_file(path, format="windowed", device="cuda")
+    x = np.random.default_rng(1).standard_normal((3, 2000))
+    y = W.unpermute(W.mm(W.permute(torch.from_numpy(x).float().cuda())))
+    err, rel, ok = compare(torch, y.cpu(), torch.from_numpy((slab @ x.T).T),
+                           K8_SCIPY_RTOL)
+    log(f"  .mtx round trip through operator_from_file(format='windowed'): "
+        f"{type(W).__name__} ppc {W.ppc}, vs scipy rel {rel:.2e} "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("the .mtx round trip disagrees with scipy")
+
+
+def phase_ell_slice(torch, build, results, failures):
+    from lanczos_tpu_torch.config import LanczosConfig
+
+    cfg = LanczosConfig(n_grid=N_ELL, m=M_ELL, n_col=P_SLICE, operator="ell",
+                        fdtd_steps=FDTD_STEPS, lc=LC, device="cuda")
+    log(f"ELL slice: python -m lanczos_tpu_torch -N {N_ELL} -m {M_ELL} "
+        f"--n-col {P_SLICE} --operator ell --fdtd-steps {FDTD_STEPS} --lc {LC}")
+    out, launches = drive(torch, build, results, "ell", cfg)
+    # gathered ELL is plain torch, as it is XLA in the JAX package; the
+    # fused recurrence's block_mix and Grams are K2/K3: one K2 a step, one
+    # K3 a step plus the start block's
+    want = {k: 0 for k in launches}
+    want.update(block_mix=M_ELL, block_grams=M_ELL + 1)
+    check_slice(out, launches, want, P_SLICE, failures, "ELL slice")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -551,17 +867,24 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
-    results, failures = {}, []
+    results, failures, assembled = {}, [], {}
     phases = (
         ("environment", lambda: phase_environment(torch, build)),
         ("build", lambda: phase_build(build)),
         ("kernels", lambda: phase_kernels(torch, results, failures)),
+        ("windowed kernel",
+         lambda: phase_windowed_kernel(torch, results, failures, assembled)),
         ("block slice",
          lambda: phase_block_slice(torch, build, results, failures)),
         ("vector slice",
          lambda: phase_vector_slice(torch, build, results, failures)),
         ("compensated slice",
          lambda: phase_compensated_slice(torch, build, results, failures)),
+        ("assembled slice",
+         lambda: phase_assembled_slice(torch, build, results, failures,
+                                       assembled)),
+        ("ell slice",
+         lambda: phase_ell_slice(torch, build, results, failures)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()
@@ -574,13 +897,15 @@ def main() -> int:
                 break
         log(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
 
-    if failures or "kernels" not in results:
-        for f in failures or ["no kernel results"]:
+    rows = results.get("rows", {})
+    missing = [k for k in REPLACES if k not in rows]
+    if failures or missing:
+        for f in failures or [f"no kernel results for {missing}"]:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
     paths = results.get("launches", {}).values()
-    kernels = [r | {"launches": sum(c[r["name"]] for c in paths)}
-               for r in results["kernels"]]
+    kernels = [rows[k] | {"launches": sum(c[k] for c in paths)}
+               for k in REPLACES]
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke FAILED: a kernel never launched on a main path: "
               f"{kernels}", file=sys.stderr)

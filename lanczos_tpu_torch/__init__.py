@@ -7,13 +7,67 @@ for the TPU as a kernel written by hand in CUDA C++ for Hopper
 package's, which stays in the repository as the reference.  This package
 never imports jax.
 
-Ported so far: the Maxwell folded-plane and flat-state operators,
-`MatrixOperator`, bare block Lanczos (materialized and fused, with
-compensated Grams), single-vector Lanczos (reorth none/full/selective),
-the small eigensolvers, both expm actions, the FDTD oracle and the CLI
-(`python -m lanczos_tpu_torch [--vector] [--operator pallas] ...`).
+Ported: the Maxwell folded-plane, flat-state and assembled-ELL operators,
+`MatrixOperator`, the sparse containers (ELL/COO/CSR/BSR/DIA), the
+windowed-ELL operator of assembled matrices (its SpMM is the CUDA kernel
+K8), matrix IO, block Lanczos (materialized with full/periodic/selective
+re-orthogonalization, TSQR normalization and adaptive restart; fused, with
+compensated Grams), single-vector Lanczos, the eigsh drivers, the small
+eigensolvers, both expm actions, the FDTD oracle and the CLI
+(`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell] ...`).
+Builders put their buffers on "cuda" unless given another device.
+
+The names below load lazily, as in the JAX package: `from
+lanczos_tpu_torch import block_lanczos_eigsh`.
 """
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 
 __version__ = "0.1.0"
+
+# the JAX package's `_API` names that are ported, and where they live
+_API = {
+    "vector_lanczos": "lanczos_tpu_torch.methods.vector_lanczos",
+    "block_lanczos": "lanczos_tpu_torch.methods.block_lanczos",
+    "lanczos_eigsh": "lanczos_tpu_torch.methods.eigs",
+    "block_lanczos_eigsh": "lanczos_tpu_torch.methods.eigs",
+    "lanczos_expm_action": "lanczos_tpu_torch.methods.expm_action",
+    "block_lanczos_expm_action": "lanczos_tpu_torch.methods.expm_action",
+    "fdtd_vector": "lanczos_tpu_torch.methods.fdtd",
+    "fdtd_block": "lanczos_tpu_torch.methods.fdtd",
+    "EllMatrix": "lanczos_tpu_torch.ops.formats",
+    "CsrMatrix": "lanczos_tpu_torch.ops.formats",
+    "CooMatrix": "lanczos_tpu_torch.ops.formats",
+    "BsrMatrix": "lanczos_tpu_torch.ops.formats",
+    "DiaMatrix": "lanczos_tpu_torch.ops.formats",
+    "ell_from_scipy": "lanczos_tpu_torch.ops.formats",
+    "csr_from_scipy": "lanczos_tpu_torch.ops.formats",
+    "coo_from_scipy": "lanczos_tpu_torch.ops.formats",
+    "bsr_from_scipy": "lanczos_tpu_torch.ops.formats",
+    "dia_from_scipy": "lanczos_tpu_torch.ops.formats",
+    "WindowedEllMatrix": "lanczos_tpu_torch.ops.window_ell",
+    "windowed_from_scipy": "lanczos_tpu_torch.ops.window_ell",
+    "windowed_from_ell": "lanczos_tpu_torch.ops.window_ell",
+    "PaddedWindowedOperator": "lanczos_tpu_torch.ops.window_ell",
+    "tsqr": "lanczos_tpu_torch.ops.tsqr",
+    "LinearOperator": "lanczos_tpu_torch.ops.operator",
+    "MaxwellOperator": "lanczos_tpu_torch.models.maxwell",
+    "PallasMaxwellOperator": "lanczos_tpu_torch.models.maxwell_pallas",
+    "LanczosConfig": "lanczos_tpu_torch.config",
+    "load_sparse": "lanczos_tpu_torch.io",
+    "operator_from_file": "lanczos_tpu_torch.io",
+}
+
+__all__ = ["__version__", *_API]
+
+
+def __getattr__(name):
+    if name in _API:
+        import importlib
+
+        return getattr(importlib.import_module(_API[name]), name)
+    raise AttributeError(f"module 'lanczos_tpu_torch' has no attribute {name!r}")
+
+
+def __dir__():
+    return sorted(__all__)

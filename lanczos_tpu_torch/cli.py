@@ -10,12 +10,12 @@ against the forward-Euler FDTD oracle (reference `test_lanczos.cu:21-305`).
 Same flags as `python -m lanczos_tpu`, plus `--device` (default cuda; a
 device that is not there is an error).  `--operator pallas` is the
 folded-plane stencil the CUDA kernels serve; `--operator stencil` (the
-default) the flat-state `MaxwellOperator` in plain torch.  The paths not
-ported yet raise NotImplementedError naming their ROADMAP item:
-`--operator ell`, `--devices > 1`, block `--reorth` other than none,
-`--normalize qr`, `--replace-dead` and `--profile`.  `--vector
---compensated` is a ValueError: the compensated Gram is a block-path
-option.
+default) the flat-state `MaxwellOperator` in plain torch; `--operator
+ell` the assembled A as gathered ELL in plain torch (in `--dtype`: the
+JAX package builds it in f32 whatever `--dtype` says).  Not ported yet,
+and raising NotImplementedError naming their ROADMAP item: `--devices > 1`
+and `--profile`.  `--vector --compensated` is a ValueError: the
+compensated Gram is a block-path option.
 """
 
 from __future__ import annotations
@@ -95,16 +95,8 @@ def _check_ported(cfg: LanczosConfig) -> None:
             "--vector has no Gram to compensate"
         )
     missing = [
-        (cfg.operator == "ell",
-         "--operator ell (maxwell_ell_operator)", "Queue 1 items 2 and 10"),
         (cfg.devices > 1, "--devices > 1 (multi-device operators)",
          "Queue 1 item 12"),
-        (cfg.block and cfg.reorth != "none",
-         f"block --reorth {cfg.reorth}", "Queue 1 item 9"),
-        (cfg.block and cfg.normalize == "qr", "--normalize qr (TSQR)",
-         "Queue 1 item 9"),
-        (cfg.block and cfg.replace_dead, "--replace-dead (adaptive restart)",
-         "Queue 1 item 9"),
         (cfg.profile_dir is not None, "--profile (torch.profiler)",
          "Queue 1 item 7"),
     ]
@@ -125,14 +117,16 @@ def run(cfg: LanczosConfig) -> dict:
         lanczos_expm_action,
     )
     from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
-    from lanczos_tpu_torch.models.maxwell import MaxwellOperator
+    from lanczos_tpu_torch.models.maxwell import (
+        MaxwellOperator,
+        maxwell_ell_operator,
+    )
     from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
     from lanczos_tpu_torch.models.rhs import gaussian_matrix_B, gaussian_vector_b
+    from lanczos_tpu_torch.ops.operator import target_device
 
     _check_ported(cfg)
-    device = torch.device(cfg.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {cfg.device}: CUDA is not available")
+    device = target_device(cfg.device)
     dtype = getattr(torch, cfg.dtype)
 
     def sync():
@@ -144,11 +138,15 @@ def run(cfg: LanczosConfig) -> dict:
         op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid,
                                           dtype=dtype, device=device)
         pack, unpack = op.pack, op.unpack
-    else:  # stencil: the flat state needs no packing and no trace_fn
-        op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
-                                    device=device)
+    else:  # the flat state needs no packing and no trace_fn
+        if cfg.operator == "ell":
+            op = maxwell_ell_operator(n_grid, n_grid, n_grid, dtype=dtype,
+                                      device=device)
+        else:
+            op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
+                                        device=device)
         pack = unpack = lambda x: x  # noqa: E731
-    n = op.n
+    n = op.shape[0]
     rng = random.Random(cfg.seed)
     lc = cfg.lc if cfg.lc is not None else 1 + rng.randrange(100)
     out = {"n": n, "lc": lc, "m": cfg.m, "block": cfg.block,
@@ -169,7 +167,7 @@ def run(cfg: LanczosConfig) -> dict:
     del b_np
     if cfg.block:
         sol = block_lanczos_expm_action(
-            op, b, cfg.m, cfg.t_end, **receiver,
+            op, b, cfg.m, cfg.t_end, **receiver, reorth=cfg.reorth,
             eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
             normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
             replace_dead=cfg.replace_dead, fused=cfg.fused,

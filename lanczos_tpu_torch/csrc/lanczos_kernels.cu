@@ -13,8 +13,9 @@
 // float32, 1 is float64; both accumulate in their own type, except K7,
 // which takes float32 and accumulates in float64.
 //
-// All six kernels stream the block state, (p, 6, Zc, P) per block, and do
-// a handful of flops per element, so device memory bounds them all.  At
+// K1-K5 and K7 stream the block state, (p, 6, Zc, P) per block, and do
+// a handful of flops per element, so device memory bounds them all; so it
+// does K8, the windowed-ELL SpMM of assembled matrices (see its section).  At
 // the main path's shape (Maxwell N=160, p=4: Zc=176, P=26624) one block
 // state is 449.8 MB; the bytes each moves per call are noted at each
 // kernel.  This first version is plain: one element (or one position
@@ -465,6 +466,57 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K8: the windowed-ELL SpMM, Y = A X on planes of an assembled matrix.
+// Replaces _windowed_spmm (lanczos_tpu/ops/pallas/window_ell.py:691,
+// kernel :624).  Row r of chunk c = r / 128 (lane l = r % 128) sums, over
+// the chunk's ppc planes k, data[c*ppc+k][l] * X[:, col] with col =
+// wb[c / cpg] + off[c*ppc+k] * 128 + lidx[c*ppc+k][l].  The Pallas kernel
+// DMAs each group's band of x into VMEM and rebuilds the gather from two
+// 128-lane register selects: the TPU cannot gather.  Here one thread owns
+// one output row and all (up to MAXP) columns of the state: a warp reads
+// each plane's values and uint8 indices coalesced, once for all columns;
+// the plane's offset is a warp-uniform load; the gathers of x go through
+// the read-only path and mostly hit L2 (a group's band, ~1.4 MB at p=8 on
+// the 10.5M-row slice, does not fit shared memory but fits the 50 MB L2).
+// No bounds logic: the planner keeps every col below n128, and empty slots
+// are value 0 at offset 0 and local index 0.
+// Bound: device memory.  At the assembled slice's shape (10.5M rows, ppc
+// 15, p=8): planes 631 MB + indices 158 MB + offsets 5 MB + X and Y 337 MB
+// each, 1.47 GB a call.  f32 sums in f32 (as the Pallas kernel), f64 in f64.
+constexpr int kSpmmCols = 8;  // columns per launch; wider states loop
+
+template <typename T, int MAXP>
+__global__ void __launch_bounds__(kThreads)
+    windowed_spmm_kernel(const T* __restrict__ data,
+                         const unsigned char* __restrict__ lidx,
+                         const int* __restrict__ off,
+                         const int* __restrict__ wb, const T* __restrict__ x,
+                         T* __restrict__ y, int p, int ppc, int cpg,
+                         long long n128) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= n128) return;
+  const long long c = r >> 7;
+  const int l = (int)(r & 127);
+  const long long base = wb[c / cpg];
+  const long long plane0 = c * ppc;
+  T acc[MAXP];
+#pragma unroll
+  for (int b = 0; b < MAXP; ++b) acc[b] = T(0);
+#pragma unroll 4
+  for (int k = 0; k < ppc; ++k) {
+    const long long j = plane0 + k;
+    const T v = data[j * 128 + l];
+    const long long col = base + (long long)off[j] * 128 + lidx[j * 128 + l];
+#pragma unroll
+    for (int b = 0; b < MAXP; ++b)
+      if (b < p) acc[b] += v * __ldg(x + b * n128 + col);
+  }
+#pragma unroll
+  for (int b = 0; b < MAXP; ++b)
+    if (b < p) y[b * n128 + r] = acc[b];
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
@@ -601,6 +653,27 @@ int stencil_pair_gram(const void* q, void* dst, const void* wz,
   return sum_partials<T>(part, nblocks, 3 * p * p, static_cast<T*>(g3), st);
 }
 
+template <typename T>
+int windowed_spmm(const void* data, const void* lidx, const void* off,
+                  const void* wb, const void* x, void* y, int p, int ppc,
+                  int cpg, long long n128, cudaStream_t st) {
+  const unsigned nblocks = (unsigned)((n128 + kThreads - 1) / kThreads);
+  for (int b0 = 0; b0 < p; b0 += kSpmmCols) {
+    const int pk = p - b0 < kSpmmCols ? p - b0 : kSpmmCols;
+    auto kernel = pk == 1   ? windowed_spmm_kernel<T, 1>
+                  : pk <= 4 ? windowed_spmm_kernel<T, 4>
+                            : windowed_spmm_kernel<T, kSpmmCols>;
+    kernel<<<nblocks, kThreads, 0, st>>>(
+        static_cast<const T*>(data), static_cast<const unsigned char*>(lidx),
+        static_cast<const int*>(off), static_cast<const int*>(wb),
+        static_cast<const T*>(x) + b0 * n128, static_cast<T*>(y) + b0 * n128,
+        pk, ppc, cpg, n128);
+    const int err = finish();
+    if (err) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -667,6 +740,16 @@ int lt_block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
   return block_grams_compensated(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
                                  partial, nblocks, out,
                                  static_cast<cudaStream_t>(stream));
+}
+
+int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
+                     const void* off, const void* wb, const void* x, void* y,
+                     int p, int ppc, int cpg, long long n128, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? windowed_spmm<float>(data, lidx, off, wb, x, y, p, ppc,
+                                           cpg, n128, st)
+                    : windowed_spmm<double>(data, lidx, off, wb, x, y, p, ppc,
+                                            cpg, n128, st);
 }
 
 }  // extern "C"

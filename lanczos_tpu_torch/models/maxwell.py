@@ -12,9 +12,9 @@ diagonal ones, so ``A @ u`` is a separable stencil.
 `MaxwellOperator` (`--operator stencil`, the CLI's default) applies A to
 the flat (n,) state in plain torch: each input component is padded once and
 every tap is a shifted slice of it, as in the JAX package, which also runs
-this operator outside any Pallas kernel.  The assembled
-`maxwell_ell_operator` (`--operator ell`) is not ported yet (ROADMAP Queue
-1 item 10); the folded-plane operator in `maxwell_pallas.py` is the one the
+this operator outside any Pallas kernel.  `maxwell_ell_operator`
+(`--operator ell`) is the assembled A as gathered ELL, also plain torch;
+the folded-plane operator in `maxwell_pallas.py` is the one the stencil
 CUDA kernels serve.
 """
 
@@ -24,7 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from lanczos_tpu_torch.ops.operator import LinearOperator
+from lanczos_tpu_torch.ops.operator import LinearOperator, target_device
 
 # Component order: E1, E2, E3, H1, H2, H3 (matches reference state layout
 # [E; H] produced by the `insert` calls in build_A_ell.hpp:190-212).
@@ -178,9 +178,10 @@ class MaxwellOperator(LinearOperator):
 
     @classmethod
     def create(cls, nx: int, ny: int, nz: int, dtype=torch.float32,
-               device="cpu") -> "MaxwellOperator":
+               device="cuda") -> "MaxwellOperator":
         """The weights are built in f64 and rounded once to dtype, as the
         JAX `create` does."""
+        device = target_device(device)
         descs, arrays = _build_taps(nx, ny, nz, np.float64)
         return cls(nx, ny, nz, descs, [
             tuple(torch.as_tensor(w).to(device=device, dtype=dtype) for w in tap)
@@ -189,10 +190,11 @@ class MaxwellOperator(LinearOperator):
 
     @classmethod
     def from_arrays(cls, nx: int, ny: int, nz: int, tap_arrays, *,
-                    dtype=None, device="cpu") -> "MaxwellOperator":
+                    dtype=None, device="cuda") -> "MaxwellOperator":
         """The operator from tap weights made elsewhere (e.g. the JAX
         operator's ``op.tap_arrays`` as NumPy arrays); the tap metadata is
         rebuilt from the geometry.  dtype None keeps the arrays' own."""
+        device = target_device(device)
         descs, ref = _build_taps(nx, ny, nz, np.float64)
         taps = [tuple(np.asarray(w) for w in tap) for tap in tap_arrays]
         if [tuple(w.shape for w in t) for t in taps] != [
@@ -298,12 +300,15 @@ def maxwell_scipy(nx: int, ny: int, nz: int):
         # columns, so compensate: D's own sign excludes the weight sign).
         blocks.append((out_c, in_c, blk))
 
-    D = sp.lil_matrix((n, n))
-    for (out_c, in_c, blk), (o2, i2, sgn, ax, kind) in zip(blocks, _BLOCKS):
-        r0, c0 = offsets[out_c], offsets[in_c]
+    # one sparse block matrix (the JAX package assigns each block into a
+    # lil_matrix, which takes minutes at N=32; the entries are the same)
+    grid = [[None] * 6 for _ in range(6)]
+    for out_c, in_c, blk in blocks:
         # Undo the folded H-column sign to recover the raw D entries:
         s = -1.0 if in_c >= _H1 else 1.0
-        D[r0 : r0 + blk.shape[0], c0 : c0 + blk.shape[1]] = blk * s
+        grid[out_c][in_c] = blk * s
+    D = sp.bmat(grid, format="csr")
+    assert D.shape == (n, n)
 
     w = np.concatenate(
         [
@@ -322,3 +327,36 @@ def assemble_maxwell_A(nx: int, ny: int, nz: int):
 
     D, w = maxwell_scipy(nx, ny, nz)
     return (D @ sp.diags(w)).tocsr()
+
+
+def maxwell_ell_operator(nx: int, ny: int, nz: int, dtype=torch.float32,
+                         device="cuda"):
+    """The assembled operator as width-4 ELL (`--operator ell`): the
+    gathered-SpMV counterpart of the matrix-free stencil, in plain torch.
+    The JAX package always builds it in f32 (its planes come from a native
+    packer with no dtype); the port honours dtype."""
+    from lanczos_tpu_torch.ops.formats import ell_from_scipy
+
+    return ell_from_scipy(assemble_maxwell_A(nx, ny, nz), dtype=dtype,
+                          width=4, device=device)
+
+
+def maxwell_interleave_perm(nx: int, ny: int, nz: int) -> np.ndarray:
+    """Symmetric z-interleaved ordering of the assembled Maxwell operator:
+    unknowns sorted by (z, component, y, x) instead of component-major.
+    The natural layout puts the curl coupling ~n/2 away, beyond any band
+    window; plain RCM restores the band but scatters the k-th nonzeros of
+    neighbouring rows over windows (~34 planes per chunk).  This ordering
+    collapses the band to ~2 z-slabs and keeps 128 consecutive rows on one
+    component's (y, x) run.  Use as
+    `windowed_from_ell(ell, perm=maxwell_interleave_perm(...))`."""
+    shapes = maxwell_component_shapes(nx, ny, nz)
+    zs, cs, ys, xs = [], [], [], []
+    for c, (sz, sy, sx) in enumerate(shapes):
+        z, y, x = np.indices((sz, sy, sx)).reshape(3, -1)
+        zs.append(z)
+        ys.append(y)
+        xs.append(x)
+        cs.append(np.full(z.shape, c, np.int64))
+    key = [np.concatenate(a) for a in (xs, ys, cs, zs)]
+    return np.lexsort(key).astype(np.int64)  # the last key (z) is primary

@@ -25,7 +25,7 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair,
 )
-from lanczos_tpu_torch.ops.operator import LinearOperator
+from lanczos_tpu_torch.ops.operator import LinearOperator, target_device
 
 Z_OFF = 8  # z-storage row of the first interior plane
 TZ = 16  # Zc is a multiple of TZ, the JAX default, so the layouts match
@@ -111,8 +111,9 @@ class PallasMaxwellOperator(LinearOperator):
 
     @classmethod
     def create(cls, nx: int, ny: int, nz: int, dtype=torch.float32,
-               device="cpu") -> "PallasMaxwellOperator":
+               device="cuda") -> "PallasMaxwellOperator":
         """dtype float32 or float64 (bf16 states are not ported yet)."""
+        device = target_device(device)
         np_dtype = _np_dtype(dtype)
         specs, wz_t, wplane_s = _host_taps(nx, ny, nz, np_dtype)
         return cls(
@@ -124,11 +125,12 @@ class PallasMaxwellOperator(LinearOperator):
 
     @classmethod
     def from_arrays(cls, nx: int, ny: int, nz: int, wz_t, wplane_s, *,
-                    device="cpu", dtype=torch.float32
+                    device="cuda", dtype=torch.float32
                     ) -> "PallasMaxwellOperator":
         """The operator from weight arrays made elsewhere (e.g. the JAX
         operator's ``np.asarray(op.wz_t)``, ``np.asarray(op.wplane_s)``);
         the tap metadata is rebuilt from the geometry."""
+        device = target_device(device)
         specs, wz_ref, wp_ref = _host_taps(nx, ny, nz, np.float64)
         wz_t, wplane_s = np.asarray(wz_t), np.asarray(wplane_s)
         if wz_t.shape != wz_ref.shape or wplane_s.shape != wp_ref.shape:

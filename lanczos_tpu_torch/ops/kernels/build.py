@@ -41,6 +41,7 @@ LAUNCHES = {
     "apply_stencil_pair_gram": 0,
     "fdtd_step": 0,
     "block_grams_compensated": 0,
+    "windowed_spmm": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -60,6 +61,7 @@ _SIGNATURES = {
     "lt_block_grams_compensated": (
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
     ),
+    "lt_windowed_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -15,6 +15,19 @@ import torch
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 
 
+def target_device(device="cuda") -> torch.device:
+    """The device a builder puts its buffers on.  Builders default to
+    "cuda"; without a card that default is an error, never a quiet build
+    on the CPU: pass device="cpu" to build there."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device}: CUDA is not available (pass device='cpu' to "
+            "build on the CPU)"
+        )
+    return device
+
+
 class LinearOperator(torch.nn.Module, abc.ABC):
     """A symmetric linear operator y = A @ x."""
 

@@ -2,6 +2,7 @@
 
     python -m lanczos_tpu_torch.probes
     python -m lanczos_tpu_torch.probes --p1-variants
+    python -m lanczos_tpu_torch.probes --assembled
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -29,6 +30,14 @@ and p=1 on the four-column instantiation), with each variant's registers
 from `-Xptxas -v` and its largest difference from the source's K5 p=1
 result.  Device ms per call (CUDA events, 50 calls after 3 warm-up calls),
 two rounds over all variants so that drift falls on all alike.
+
+With --assembled it prints only this, the breakdown of the assembled
+slice of `chip_smoke.py`: the host seconds to build the 10,485,760-row
+synthetic matrix and to plan it, then `torch.profiler` traces (as in 3.)
+of one `block_lanczos_eigsh` run on its padded windowed operator (p=8,
+m=12, k=5, reorth full, TSQR, breakdown_eps 1e-4, replace_dead,
+compute_vectors) and of 50 FDTD steps of the ELL slice's operator
+(`--operator ell`, N=48, p=4).
 """
 
 from __future__ import annotations
@@ -216,6 +225,39 @@ def probe_p1_variants(dev) -> None:
         build.SOURCE, build._lib = source, None
 
 
+def probe_assembled(dev) -> None:
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh
+    from lanczos_tpu_torch.models.maxwell import maxwell_ell_operator
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.window_ell import (
+        PaddedWindowedOperator,
+        windowed_from_scipy,
+    )
+
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(10_485_760)
+    t1 = time.perf_counter()
+    A = windowed_from_scipy(a, reorder="none", device=dev)
+    torch.cuda.synchronize(dev)
+    t2 = time.perf_counter()
+    print(f"assembled: build {t1 - t0:.2f} s, plan {t2 - t1:.2f} s (host), "
+          f"ppc {A.ppc}, {a.nnz} nnz", flush=True)
+    op = PaddedWindowedOperator(A)
+    x = np.random.default_rng(0).standard_normal((8, a.shape[0]), np.float32)
+    b = A.pack(torch.from_numpy(x).to(dev))
+    del a, x
+    probe_profile("assembled eigsh p=8 m=12", lambda: block_lanczos_eigsh(
+        op, b, 12, 5, reorth="full", normalize="qr", breakdown_eps=1e-4,
+        replace_dead=True, eig_backend="newton", compute_vectors=True), dev)
+    del op, A, b
+    ell = maxwell_ell_operator(48, 48, 48, device=dev)
+    u = torch.randn((P, ell.shape[0]), device=dev)
+    probe_profile(f"ell fdtd p={P} {FDTD_STEPS} steps",
+                  lambda: fdtd_block(ell, u, FDTD_STEPS, 1.0), dev)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the probes time the CUDA card: none is available")
@@ -228,6 +270,9 @@ def main() -> None:
           flush=True)
     if "--p1-variants" in sys.argv[1:]:
         probe_p1_variants(dev)
+        return
+    if "--assembled" in sys.argv[1:]:
+        probe_assembled(dev)
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

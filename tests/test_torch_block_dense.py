@@ -27,7 +27,7 @@ RTOL = {np.float32: 2e-6, np.float64: 1e-13}
 
 
 def _state(rng, p, dtype, n=6):
-    top = PallasMaxwellOperator.create(n, n, n)
+    top = PallasMaxwellOperator.create(n, n, n, device="cpu")
     x = rng.standard_normal((p, top.n))
     return np.asarray(top.pack(torch.from_numpy(x)).numpy(), dtype)
 
@@ -94,7 +94,7 @@ def test_block_grams_matches_jax(rows, include_zz, dtype, rng):
 @pytest.mark.parametrize("p", [2, 4])
 def test_stencil_gram_matches_jax_and_aliases_dst(p, rng):
     jop = JaxOp.create(6, 6, 6, dtype=jnp.float32)
-    top = PallasMaxwellOperator.create(6, 6, 6)
+    top = PallasMaxwellOperator.create(6, 6, 6, device="cpu")
     q = _state(rng, p, np.float32)
     dst = _state(rng, p, np.float32)
     vj, g3j = jop.stencil_gram(jnp.asarray(q), jnp.asarray(dst))
@@ -117,7 +117,7 @@ def test_stencil_gram_contract():
     assert stencil_gram.supports(stencil_gram.MAX_P, torch.float32)
     assert not stencil_gram.supports(stencil_gram.MAX_P + 1, torch.float32)
     assert not stencil_gram.supports(4, torch.float64)  # as JAX: f32 only
-    top = PallasMaxwellOperator.create(3, 3, 3)
+    top = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     q = torch.zeros((2,) + top.state_shape)
     with pytest.raises(ValueError, match="different buffers"):
         top.stencil_gram(q, q)

@@ -24,7 +24,12 @@ Tolerances, relative to the solution's scale:
 - f32 `--compensated`, as the block slice: 5e-4 with the fixture's start
   block (both packages sit 4.7-4.9e-4 from f64 there, 3.7e-5 apart: a
   compensated Gram cannot restore the start block's lost direction) and
-  1e-5 with it orthonormalized (2.1e-6 apart).  The compensated runs use
+  1e-5 with it orthonormalized (2.1e-6 apart).
+- f32 `--operator ell`, as the block slice (5e-4 with the fixture, 1e-5
+  orthonormalized); in f64 it is held to the port's own `--operator
+  stencil` to 1e-12 (the JAX package builds its ELL planes in f32 whatever
+  --dtype says, so its f64 run is not an f64 oracle).
+- f64 block `--reorth` / `--normalize qr`, 1e-12, as the other f64 runs.  The compensated runs use
   the flat-state operator, whose JAX K7 takes its exact f64 branch: JAX's
   interpret-mode K7 needs over a minute to trace on a folded-plane state.
 
@@ -63,6 +68,7 @@ STENCIL_BLOCK = dict(n_grid=3, m=6, n_col=4, lc=20, fdtd_steps=500,
                      eig_backend="lax")
 COMPENSATED = dict(n_grid=3, m=6, n_col=4, lc=20, fdtd_steps=500,
                    compensated=True)
+ELL = dict(n_grid=6, m=6, n_col=4, operator="ell", lc=20, fdtd_steps=200)
 
 
 def _orthonormal_columns(n_grid, n_rows, n_col,
@@ -207,6 +213,45 @@ def test_cli_reference_anchor_n10():
     assert out["relative_error"] < 1e-3
 
 
+@pytest.mark.parametrize("start,rtol", [
+    ("fixture", F32_SOLUTION_RTOL), ("orthonormal", F32_WELL_CONDITIONED_RTOL),
+])
+def test_cli_ell_matches_jax_f32(start, rtol):
+    """--operator ell: the assembled A as gathered ELL on both sides."""
+    compare_config(ELL, rtol, start=start)
+
+
+def test_cli_ell_f64_matches_the_stencil_operator():
+    """In f64 the assembled ELL operator and the matrix-free stencil are
+    the same A: the CLI agrees to 1e-12, FDTD oracle included."""
+    ell = run(LanczosConfig(**ELL, dtype="float64", device="cpu"))
+    stencil = run(LanczosConfig(**(ELL | dict(operator="stencil")),
+                                dtype="float64", device="cpu"))
+    se, ss = np.asarray(ell["solution"]), np.asarray(stencil["solution"])
+    assert np.abs(se - ss).max() <= F64_RTOL * np.abs(ss).max()
+    assert abs(ell["relative_error"] - stencil["relative_error"]) <= F64_RTOL
+    assert ell["n"] == stencil["n"] and ell["relative_error"] < 1e-3
+
+
+@pytest.mark.parametrize("reorth,normalize", [
+    ("full", "qr"), ("periodic", "sqrtm"), ("selective", "qr"),
+])
+def test_cli_block_reorth_matches_jax_f64(reorth, normalize):
+    compare_config(STENCIL_BLOCK | dict(dtype="float64", reorth=reorth,
+                                        normalize=normalize), F64_RTOL)
+
+
+def test_cli_replace_dead_runs():
+    """--replace-dead (its noise is not JAX's, so no JAX comparison): the
+    FDTD oracle's bound, and the options JAX's checks require."""
+    cfg = STENCIL_BLOCK | dict(dtype="float64", reorth="full", normalize="qr",
+                               breakdown_eps=1e-8, replace_dead=True)
+    out = run(LanczosConfig(**cfg, device="cpu"))
+    assert out["relative_error"] < 1e-3
+    with pytest.raises(ValueError, match="replace_dead"):
+        run(LanczosConfig(**(cfg | dict(reorth="none")), device="cpu"))
+
+
 def test_parser_flags_and_lc_default():
     args = build_parser().parse_args(
         ["-N", "4", "-m", "3", "--operator", "pallas", "--no-fused", "--device", "cpu"]
@@ -222,12 +267,7 @@ def test_parser_flags_and_lc_default():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(reorth="selective"), "Queue 1 item 9"),
-    (dict(operator="ell"), "Queue 1 items 2 and 10"),
-    (dict(normalize="qr"), "Queue 1 item 9"),
     (dict(operator="pallas", devices=2), "Queue 1 item 12"),
-    (dict(operator="pallas", reorth="full"), "Queue 1 item 9"),
-    (dict(operator="pallas", replace_dead=True), "Queue 1 item 9"),
     (dict(operator="pallas", profile_dir="trace"), "Queue 1 item 7"),
 ])
 def test_unported_flags_raise(kw, item):
@@ -263,6 +303,11 @@ def test_port_never_imports_jax():
         "import lanczos_tpu_torch.ops.kernels.stencil_fdtd;"
         "import lanczos_tpu_torch.ops.kernels.block_dense;"
         "import lanczos_tpu_torch.probes;"
+        "import lanczos_tpu_torch.io, lanczos_tpu_torch.methods.eigs;"
+        "import lanczos_tpu_torch.ops.formats, lanczos_tpu_torch.ops.window_ell;"
+        "import lanczos_tpu_torch.ops.kernels.window_ell, lanczos_tpu_torch.ops.tsqr;"
+        "import lanczos_tpu_torch.models.laplacian, lanczos_tpu_torch.models.synthetic;"
+        "import lanczos_tpu_torch as L; [getattr(L, n) for n in L.__all__];"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

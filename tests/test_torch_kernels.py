@@ -65,10 +65,17 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     op.stencil_gram(u.clone(), u.clone())
     op.scaled(0.1).fdtd_step(u, torch.empty_like(u))
     block_dense.block_grams_compensated((u,), u, include_zz=True)
+    import scipy.sparse as sp
+
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    windowed_from_scipy(sp.identity(300, format="csr"), device="cpu").mm(
+        torch.ones((2, 300)))
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
+        "windowed_spmm",
     }
 
 
@@ -88,7 +95,7 @@ def test_other_devices_raise_instead_of_falling_back():
 
 
 def test_tap_table_encodes_the_specs():
-    op = PallasMaxwellOperator.create(6, 6, 6)
+    op = PallasMaxwellOperator.create(6, 6, 6, device="cpu")
     tab = list(tap_table(op.spec_e, op.spec_h))
     stride = 1 + 4 * MAX_TAPS_PER_COMP
     for c in range(6):
@@ -109,7 +116,7 @@ def test_tap_table_encodes_the_specs():
 def test_unpaired_specs_are_refused():
     import dataclasses
 
-    op = PallasMaxwellOperator.create(3, 3, 3)
+    op = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     loose = dataclasses.replace(op.spec_e, paired=False)
     u = torch.zeros((1,) + op.state_shape)
     with pytest.raises(ValueError, match="paired"):
@@ -253,3 +260,72 @@ def test_k7_reaches_the_f64_oracle(cuda):
         block_dense.block_grams_compensated((), torch.zeros((2, 8), device=cuda,
                                                             dtype=torch.float64),
                                             include_zz=True)
+
+
+def _k8_case(name):
+    """Small odd geometries for K8 (as chip_smoke.py's): rectangular,
+    unstructured (several windows a chunk, greedy packing), an
+    RCM-permuted band, 997 rows of a band."""
+    import scipy.sparse as sp
+
+    def band(n, k):
+        return sp.diags([np.full(n - abs(o), 2.0 if o == 0 else -1.0)
+                         for o in range(-k, k + 1)], list(range(-k, k + 1)),
+                        format="csr")
+
+    if name == "rectangular":
+        return sp.random(300, 900, density=0.01, random_state=3, format="csr"), {}
+    if name == "unstructured":
+        return sp.random(500, 500, density=0.02, random_state=2, format="csr"), {}
+    if name == "rcm_band":
+        perm = np.random.default_rng(5).permutation(1500)
+        return band(1500, 3)[perm][:, perm].tocsr(), dict(reorder="rcm")
+    return band(999, 1)[:997, :999].tocsr(), {}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["rectangular", "unstructured", "rcm_band", "997_rows"])
+@pytest.mark.parametrize("p", [1, 3, 12])
+def test_k8_windowed_spmm_vs_plain_and_scipy(cuda, name, dtype, p):
+    """K8 against its plain version (KERNEL_RTOL) and against scipy's f64
+    product (2e-6 of scale in f32, 1e-13 in f64); p=12 takes two column
+    groups of the kernel, so two launches."""
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        windowed_spmm,
+        windowed_spmm_plain,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    a, kw = _k8_case(name)
+    A = windowed_from_scipy(a, dtype=dtype, ppc_cap=256, device=cuda, **kw)
+    x = np.random.default_rng(0).standard_normal((p, a.shape[1]))
+    X = A.pack(A.permute(torch.from_numpy(x).to(cuda, dtype)))
+    before = build.LAUNCHES["windowed_spmm"]
+    got = windowed_spmm(A, X)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["windowed_spmm"] == before + (1 if p <= 8 else 2)
+    want = windowed_spmm_plain(A, X)
+    err = (got - want).abs().max().item()
+    assert err <= KERNEL_RTOL[dtype] * want.abs().max().item()
+    assert torch.count_nonzero(got[:, A.n_rows_true:]) == 0
+    y = A.unpermute(A.unpack(got, p)).double().cpu().numpy()
+    ref = (a @ x.T).T
+    tol = 2e-6 if dtype == torch.float32 else 1e-13
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_k8_refuses_an_aliased_out(cuda):
+    import scipy.sparse as sp
+
+    from lanczos_tpu_torch.ops.kernels.window_ell import windowed_spmm
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    A = windowed_from_scipy(sp.identity(300, format="csr"), device=cuda)
+    X = A.pack(torch.ones((2, 300), device=cuda))
+    for out in (X, X.view(-1)[64 : 64 + A.n128].view(1, -1).expand(2, -1)):
+        with pytest.raises(ValueError, match="alias"):
+            windowed_spmm(A, X, out)
+    with pytest.raises(TypeError, match="planes"):
+        windowed_spmm(A, X.double())

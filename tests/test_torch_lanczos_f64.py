@@ -51,7 +51,7 @@ def test_materialized_matches_jax(p, m, dtype):
 def _fixture(p, dtype, seed=3):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     jop = JaxOp.create(3, 3, 3, dtype=jdt)
-    top = PallasMaxwellOperator.create(3, 3, 3, dtype=dtype)
+    top = PallasMaxwellOperator.create(3, 3, 3, dtype=dtype, device="cpu")
     x = np.random.default_rng(seed).standard_normal((p, top.n))
     b = top.pack(torch.from_numpy(x).to(dtype))
     return jop, top, b
@@ -96,7 +96,7 @@ def test_fdtd_one_pass_step_matches_jax(n, p, monkeypatch):
     two-pass step at p=4.  f32 to 2e-5, the JAX test's bound.  The loop
     swaps two buffers of its own: u0 is only read."""
     jop = JaxOp.create(n, n, n, dtype=jnp.float32)
-    top = PallasMaxwellOperator.create(n, n, n)
+    top = PallasMaxwellOperator.create(n, n, n, device="cpu")
     x = np.random.default_rng(p).standard_normal((p, top.n)).astype(np.float32)
     u0 = top.pack(torch.from_numpy(x))
     steps = []
@@ -120,7 +120,7 @@ def test_fdtd_on_the_flat_operator_matches_jax_f64(block):
     """MaxwellOperator has no `scaled`: both packages step u + dt (A u)
     (JAX `_maybe_fold_dt`), 300 steps, f64 to 1e-12."""
     jop = JaxMaxwell.create(3, 3, 3, dtype=jnp.float64)
-    top = MaxwellOperator.create(3, 3, 3, dtype=torch.float64)
+    top = MaxwellOperator.create(3, 3, 3, dtype=torch.float64, device="cpu")
     x = np.random.default_rng(4).standard_normal((2, top.n))
     if block:
         want = np.asarray(jax_fdtd_block(jop, jnp.asarray(x), 300, 1.0))

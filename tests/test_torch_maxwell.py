@@ -24,7 +24,7 @@ F32_STENCIL_RTOL = 1e-6
 
 def _pair(n, jdt=jnp.float32, tdt=torch.float32):
     return JaxOp.create(n, n, n, dtype=jdt), PallasMaxwellOperator.create(
-        n, n, n, dtype=tdt
+        n, n, n, dtype=tdt, device="cpu"
     )
 
 
@@ -55,14 +55,16 @@ def test_from_arrays_takes_jax_weights(dtype):
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     jop = JaxOp.create(6, 6, 6, dtype=jdt)
     top = PallasMaxwellOperator.from_arrays(
-        6, 6, 6, np.asarray(jop.wz_t), np.asarray(jop.wplane_s), dtype=dtype
+        6, 6, 6, np.asarray(jop.wz_t), np.asarray(jop.wplane_s), dtype=dtype,
+        device="cpu",
     )
-    ref = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype)
+    ref = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype, device="cpu")
     assert torch.equal(top.wz_t, ref.wz_t)
     assert torch.equal(top.wplane_s, ref.wplane_s)
     with pytest.raises(ValueError, match="geometry"):
         PallasMaxwellOperator.from_arrays(
-            6, 6, 14, np.asarray(jop.wz_t), np.asarray(jop.wplane_s)
+            6, 6, 14, np.asarray(jop.wz_t), np.asarray(jop.wplane_s),
+            device="cpu",
         )
 
 
@@ -110,7 +112,7 @@ def test_stencil_plain_matches_jax(n, p, rng):
 def test_stencil_matches_scipy_f64(n, rng):
     """A = D diag(w) assembled by scipy is the f64 oracle: the stencil
     agrees to f64 rounding (1e-12 of the output scale)."""
-    top = PallasMaxwellOperator.create(n, n, n, dtype=torch.float64)
+    top = PallasMaxwellOperator.create(n, n, n, dtype=torch.float64, device="cpu")
     A = assemble_maxwell_A(n, n, n)
     x = rng.standard_normal((2, top.n))
     y = top.unpack(top.mm(top.pack(torch.from_numpy(x)))).numpy()
@@ -134,19 +136,19 @@ def test_scaled_matches_jax_and_folds_into_z_weights(rng):
 def test_unported_paths_raise():
     """What the operator refuses: bf16 states (not ported), and an FDTD
     step whose output buffer is its input (K5 writes a second buffer)."""
-    top = PallasMaxwellOperator.create(3, 3, 3)
+    top = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     u = torch.zeros((1,) + top.state_shape)
     with pytest.raises(ValueError, match="out must not be u"):
         top.fdtd_step(u, u)
     with pytest.raises(ValueError, match="float32 or float64"):
-        PallasMaxwellOperator.create(3, 3, 3, dtype=torch.bfloat16)
+        PallasMaxwellOperator.create(3, 3, 3, dtype=torch.bfloat16, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_fdtd_step_is_u_plus_a_u(dtype, rng):
     """K5's plain version: out = u + A u into a second buffer, u unchanged;
     (p, 6, Zc, P) and single (6, Zc, P) states."""
-    top = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype).scaled(0.01)
+    top = PallasMaxwellOperator.create(6, 6, 6, dtype=dtype, device="cpu").scaled(0.01)
     u = top.pack(torch.from_numpy(rng.standard_normal((3, top.n))).to(dtype))
     keep = u.clone()
     out = torch.empty_like(u)
@@ -165,10 +167,11 @@ def test_maxwell_operator_matches_jax(n, dtype, rng):
     (1e-6), f64 to 1e-13; from_arrays carries JAX's weights over."""
     jdt = jnp.float32 if dtype == torch.float32 else jnp.float64
     jop = JaxMaxwell.create(n, n, n, dtype=jdt)
-    top = MaxwellOperator.create(n, n, n, dtype=dtype)
+    top = MaxwellOperator.create(n, n, n, dtype=dtype, device="cpu")
     assert top.n == jop.n and top.shape == jop.shape and top.dtype == dtype
     same = MaxwellOperator.from_arrays(
-        n, n, n, [tuple(np.asarray(w) for w in t) for t in jop.tap_arrays])
+        n, n, n, [tuple(np.asarray(w) for w in t) for t in jop.tap_arrays],
+        device="cpu")
     for mine, theirs in zip(same.tap_arrays, top.tap_arrays):
         assert all(torch.equal(a, b) for a, b in zip(mine, theirs))
     x = rng.standard_normal((3, top.n))
@@ -186,7 +189,7 @@ def test_maxwell_operator_matches_jax(n, dtype, rng):
 def test_maxwell_operator_matches_scipy_f64(n, rng):
     """A = D diag(w) assembled by scipy, the f64 oracle (ROADMAP Queue 1
     item 2): mv agrees to 1e-12 of the output scale."""
-    top = MaxwellOperator.create(n, n, n, dtype=torch.float64)
+    top = MaxwellOperator.create(n, n, n, dtype=torch.float64, device="cpu")
     A = assemble_maxwell_A(n, n, n)
     x = rng.standard_normal(top.n)
     ref = A @ x
@@ -197,6 +200,77 @@ def test_maxwell_operator_matches_scipy_f64(n, rng):
 def test_maxwell_operator_from_arrays_checks_the_geometry():
     jop = JaxMaxwell.create(3, 3, 3)
     taps = [tuple(np.asarray(w) for w in t) for t in jop.tap_arrays]
-    assert MaxwellOperator.from_arrays(3, 3, 3, taps).dtype == torch.float32
+    assert MaxwellOperator.from_arrays(3, 3, 3, taps, device="cpu").dtype == torch.float32
     with pytest.raises(ValueError, match="geometry"):
-        MaxwellOperator.from_arrays(4, 3, 3, taps)
+        MaxwellOperator.from_arrays(4, 3, 3, taps, device="cpu")
+
+
+def test_builders_default_to_cuda():
+    """Every builder puts its buffers on the card unless asked for the
+    CPU; without a card the default is an error, never a quiet CPU build."""
+    from lanczos_tpu_torch.models.maxwell import maxwell_ell_operator
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a GPU")
+    jop = JaxOp.create(3, 3, 3)
+    taps = [tuple(np.asarray(w) for w in t) for t in JaxMaxwell.create(3, 3, 3).tap_arrays]
+    for build in (
+        lambda: PallasMaxwellOperator.create(3, 3, 3),
+        lambda: PallasMaxwellOperator.from_arrays(
+            3, 3, 3, np.asarray(jop.wz_t), np.asarray(jop.wplane_s)),
+        lambda: MaxwellOperator.create(3, 3, 3),
+        lambda: MaxwellOperator.from_arrays(3, 3, 3, taps),
+        lambda: maxwell_ell_operator(3, 3, 3),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_maxwell_ell_operator_matches_jax_and_scipy(dtype, rng):
+    """--operator ell's operator: width-4 ELL of the assembled A, the same
+    matrix as JAX's (whose planes are f32 whatever the run's dtype),
+    agreeing with scipy to f64 rounding; the fast block assembly gives JAX's
+    lil-assembled matrix entry for entry."""
+    from lanczos_tpu.models.maxwell import (
+        assemble_maxwell_A as jax_assemble,
+        maxwell_ell_operator as jax_ell,
+    )
+    from lanczos_tpu_torch.models.maxwell import maxwell_ell_operator
+
+    a = assemble_maxwell_A(3, 4, 5)
+    assert abs(a - jax_assemble(3, 4, 5)).max() == 0
+    ell = maxwell_ell_operator(3, 4, 5, dtype=dtype, device="cpu")
+    jell = jax_ell(3, 4, 5)
+    assert ell.width == 4 and ell.shape == jell.shape and ell.dtype == dtype
+    # JAX's native packer orders a row's slots its own way: compare the
+    # matrices the planes hold
+    np.testing.assert_array_equal(ell.to_dense().numpy().astype(np.float32),
+                                  np.asarray(jell.to_dense()))
+    x = rng.standard_normal((2, a.shape[1]))
+    got = ell.mm(torch.from_numpy(x).to(dtype)).double().numpy()
+    tol = 1e-12 if dtype == torch.float64 else 1e-6
+    np.testing.assert_allclose(got, (a @ x.T).T, rtol=0,
+                               atol=tol * np.abs(a @ x.T).max())
+
+
+def test_interleave_perm_matches_jax_and_packs_tight():
+    """maxwell_interleave_perm is JAX's ordering, and the windowed plan
+    made with it has JAX's planes per chunk."""
+    from lanczos_tpu.models.maxwell import maxwell_ell_operator as jax_ell
+    from lanczos_tpu.models.maxwell import maxwell_interleave_perm as jax_perm
+    from lanczos_tpu.ops.pallas.window_ell import windowed_from_ell as jax_from_ell
+    from lanczos_tpu_torch.models.maxwell import (
+        maxwell_ell_operator,
+        maxwell_interleave_perm,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_ell
+
+    perm = maxwell_interleave_perm(6, 6, 6)
+    np.testing.assert_array_equal(perm, jax_perm(6, 6, 6))
+    ell = maxwell_ell_operator(6, 6, 6, dtype=torch.float64, device="cpu")
+    W = windowed_from_ell(ell, perm=perm)
+    assert W.ppc == jax_from_ell(jax_ell(6, 6, 6), perm=perm).ppc
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((2, ell.shape[0])))
+    torch.testing.assert_close(W.unpermute(W.mm(W.permute(x))), ell.mm(x),
+                               rtol=0, atol=1e-12)

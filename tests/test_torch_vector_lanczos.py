@@ -133,7 +133,7 @@ def test_fused_route_needs_a_bare_run():
 
 
 def test_auto_dispatch_uses_the_16mb_gate(monkeypatch):
-    top = PallasMaxwellOperator.create(3, 3, 3)
+    top = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     b = top.pack(torch.ones(top.n))
     taken = []
     real = block_lanczos_fused.block_lanczos_fused
@@ -152,7 +152,7 @@ def test_fused_route_calls_each_kernel_once_per_step(monkeypatch):
     block_mix (K2), one A q (K1) and one block_grams (K3), and no
     stencil_gram (K4: mono needs p >= 2).  The counts the H100 smoke
     expects at m=8: K1 8, K2 8, K3 9."""
-    top = PallasMaxwellOperator.create(3, 3, 3)
+    top = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     calls = {"mix": 0, "grams": 0, "mm": 0, "stencil_gram": 0}
 
     def counted(key, fn):
@@ -180,7 +180,7 @@ def test_expm_action_convergence_on_maxwell():
     plateaus near 1e-10."""
     from scipy.linalg import expm as scipy_expm
 
-    op = MaxwellOperator.create(3, 3, 3, dtype=torch.float64)
+    op = MaxwellOperator.create(3, 3, 3, dtype=torch.float64, device="cpu")
     b = gaussian_vector_b(3, op.n)
     lc = 20
     exact = (scipy_expm(assemble_maxwell_A(3, 3, 3).toarray()) @ b)[lc]
