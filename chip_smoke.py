@@ -8,7 +8,7 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit;
-2. build: the seven hand-written CUDA kernels (K1-K5, K7, K8) from
+2. build: the eight hand-written CUDA kernels (K1-K8) from
    lanczos_tpu_torch/csrc, with nvcc's register/spill report;
 3. kernel vs plain: each stencil-path kernel (K1-K5, K7) against its plain
    PyTorch version on the card, at the main paths' shapes (Maxwell N=160
@@ -17,7 +17,10 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    (N=11, p=3, f32 and f64; K7 takes f32 only), with the tolerance stated
    below, and timed against its plain version and against a device copy
    of the same bytes; K7 also against the f64 Gram on inputs spread over
-   e^+-6, at a bound that K3's f32 sums must miss;
+   e^+-6, at a bound that K3's f32 sums must miss; K6, the generic
+   stencil, against its plain version at small geometries (6 -> 3 fields
+   with 27 taps per output, a 7-point 1 -> 1 set, an odd Zc; p=1 and p=3;
+   f32 and f64), then at the Maxwell N=160 p=4 half-call, timed;
 4. K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
    random matrix, a 500x500 unstructured one, an RCM-permuted band, 997
    rows of a band; p=3, f32 and f64), then at the assembled slice's shape
@@ -45,10 +48,21 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 9. the ELL slice: `--operator ell` (N=64, m=6, p=4, 2000 FDTD steps):
    the gathered ELL product is plain torch, and the 25 MB block state
    passes the 16 MB gate, so the fused recurrence runs K2/K3 on flat
-   (p, n) states; relative error under 1e-3.
+   (p, n) states; relative error under 1e-3;
+10. the unpaired pair: A U at N=160 p=4 through `apply_stencil_pair`
+    with paired=False on both halves, two K6 launches and no K1, within
+    1e-5 of K1's paired A U, both timed;
+11. checkpoint/resume at N=160 p=4: `block_lanczos_checkpointed` (m=6,
+    chunk 3) against `block_lanczos(fused=False)`; a run stopped at j=4
+    and resumed, and an FDTD run (2000 steps, chunks of 1000) stopped
+    after its first chunk and resumed, each equal to its uninterrupted
+    run bit for bit (K5 2000 times); the seconds and MB of every save;
+12. the profile: the block slice's Lanczos through `run` with --profile
+    and --no-validate; the Chrome trace names stencil_gram_kernel and
+    the launch counts are the block slice's without its FDTD.
 
-Each slice phase sets the launch counts to 0 just before it drives its
-path and reads them just after.
+Each slice phase (and phases 10-12) sets the launch counts to 0 just
+before it drives its path and reads them just after.
 
 The FDTD oracle's forward-Euler error falls as 1/steps; the CLI's default
 is 10^6 steps, the smoke takes 2000 to fit its time budget.
@@ -63,6 +77,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -111,7 +126,12 @@ REPLACES = {
     "fdtd_step": "lanczos_tpu/ops/pallas/stencil_fdtd.py:50",
     "block_grams_compensated": "lanczos_tpu/ops/pallas/block_dense.py:361",
     "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
+    "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
 }
+# the unpaired pair (two K6 launches) against K1's factored A U, relative
+# to the result's scale: the factoring changes the rounding only
+UNPAIRED_RTOL = 1e-5
+M_CHECKPOINT, CHUNK_CHECKPOINT, M_STOPPED = 6, 3, 4
 
 
 def log(*args):
@@ -418,6 +438,101 @@ def phase_kernels(torch, results, failures):
                 log("  K7 refuses f64 states: ok")
         del op
         torch.cuda.empty_cache()
+    k6_vs_plain(torch, rows, failures)
+
+
+def k6_spec(kind, zc, plane):
+    """K6's small geometries: "27-point 6->3" takes all 27 (dz, roll)
+    combinations of a 3x3x3 neighbourhood for each of 3 output components
+    (the lane roll of a y-shift is xc=13 lanes); "7-point 1->1" is a
+    Laplacian-shaped tap set."""
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import StencilSpec
+
+    xc = 13
+    if kind == "27-point 6->3":
+        nbhd = [(dz, dy, dx) for dz in (-1, 0, 1) for dy in (-1, 0, 1)
+                for dx in (-1, 0, 1)]
+        taps = tuple((oc, (k + oc) % 6, dz, (-(dy * xc) - dx) % plane)
+                     for oc in range(3) for k, (dz, dy, dx) in enumerate(nbhd))
+        return StencilSpec(6, 3, taps, zc, plane)
+    offs = ((0, 0), (-1, 0), (1, 0), (0, 1), (0, plane - 1), (0, xc),
+            (0, plane - xc))
+    return StencilSpec(1, 1, tuple((0, 0, dz, r) for dz, r in offs), zc, plane)
+
+
+def k6_vs_plain(torch, rows, failures):
+    """K6 against its plain version at small geometries (an odd Zc among
+    them; p=1 and p=3; f32 and f64), then at the Maxwell N=160 p=4
+    half-call (the E half, unpaired, reading components 3..5 and writing
+    0..2 of one state), timed against its plain version and a device copy
+    of the same bytes.  z-shifted taps carry zero z-weights on the rows
+    where the shift leaves the state, as the Maxwell operator's do."""
+    import dataclasses
+
+    import numpy as np
+
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
+        apply_stencil,
+        apply_stencil_plain,
+        stencil_into,
+    )
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(6)
+
+    def check(label, dname, got, want):
+        err, rel, ok = compare(torch, got, want, KERNEL_RTOL[dname])
+        log(f"  {label}: max_abs_err {err:.3e} rel {rel:.3e} "
+            f"(tol {KERNEL_RTOL[dname]:.0e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"{label} disagrees with its plain version")
+        return err
+
+    log("K6 apply_stencil vs plain at small geometries")
+    for kind, zc in (("27-point 6->3", 16), ("7-point 1->1", 16),
+                     ("27-point 6->3", 13)):
+        spec = k6_spec(kind, zc, 256)
+        wz = rng.standard_normal((len(spec.taps), zc))
+        for t, (_, _, dz, _) in enumerate(spec.taps):
+            if dz:
+                wz[t, 0 if dz == -1 else -1] = 0.0
+        wp = rng.standard_normal((len(spec.taps), spec.plane))
+        for p in (1, 3):
+            x = rng.standard_normal((p, spec.n_in, zc, spec.plane))
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[-1]
+                args = [torch.from_numpy(a).to(dev, dtype) for a in (x, wz, wp)]
+                check(f"K6 {kind} Zc={zc} P={spec.plane} p={p} {dname}", dname,
+                      apply_stencil(*args, spec), apply_stencil_plain(*args, spec))
+
+    log(f"K6 at the Maxwell N={N_SLICE} p={P_SLICE} half-call (E half, unpaired)")
+    op = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, device=dev)
+    spec = dataclasses.replace(op.spec_e, paired=False)
+    wz, wp = op.wz_t[0].T, op.wplane_s[0]
+    g = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn((P_SLICE,) + op.state_shape, generator=g, device=dev)
+    out = torch.zeros_like(u)
+    half = lambda: stencil_into(u[:, 3:6], out[:, 0:3], wz, wp, spec)  # noqa: E731
+    plain = lambda: apply_stencil_plain(u[:, 3:6], wz, wp, spec)  # noqa: E731
+    half()
+    err = check("K6 Maxwell E half p=4 float32", "float32", out[:, 0:3], plain())
+    if torch.count_nonzero(out[:, 3:6]):
+        failures.append("K6 wrote outside its output components")
+    ms, plain_ms = cuda_ms(torch, half), cuda_ms(torch, plain)
+    src = u[:, 3:6].contiguous()
+    dst = torch.empty_like(src)
+    copy_ms = cuda_ms(torch, lambda: dst.copy_(src))
+    nbytes = 2 * src.numel() * 4 + (wz.numel() + wp.numel()) * 4
+    log(f"    K6 half-call: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, copy of "
+        f"the same bytes {copy_ms:.4f} ms; {nbytes / 1e6:.1f} MB/call -> "
+        f"{nbytes / ms / 1e6:.1f} GB/s")
+    # each tap: two multiplies and an add per element of its output field
+    rows["apply_stencil"] = kernel_row(
+        "apply_stencil", err, ms, plain_ms, nbytes,
+        3 * len(spec.taps) * P_SLICE * spec.zc * spec.plane, "float32", None)
+    del op, u, out, src, dst
+    torch.cuda.empty_cache()
 
 
 def k7_wide_range(torch, rand, failures):
@@ -850,6 +965,207 @@ def phase_ell_slice(torch, build, results, failures):
     check_slice(out, launches, want, P_SLICE, failures, "ELL slice")
 
 
+@contextlib.contextmanager
+def patched(module, name, value):
+    """module.name replaced by value inside the block."""
+    real = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield real
+    finally:
+        setattr(module, name, real)
+
+
+class StopAfterFirstChunk(Exception):
+    """Stands in for a job killed between two checkpointed chunks."""
+
+
+def phase_unpaired_pair(torch, build, results, failures):
+    """A U at N=160 p=4 through apply_stencil_pair with both halves
+    unpaired: two K6 launches and no K1, against K1's paired A U."""
+    import dataclasses
+
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair
+
+    dev = torch.device("cuda")
+    op = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, device=dev)
+    g = torch.Generator(device=dev).manual_seed(4)
+    u = op.pack(torch.randn((P_SLICE, op.n), generator=g, device=dev))
+    loose = [dataclasses.replace(s, paired=False) for s in (op.spec_e, op.spec_h)]
+    log(f"unpaired pair: apply_stencil_pair at N={N_SLICE} p={P_SLICE}, "
+        "paired=False on both halves")
+    build.reset_launches()
+    got = apply_stencil_pair(u, op.wz_t, op.wplane_s, *loose)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    results.setdefault("launches", {})["unpaired pair"] = launches
+    log(f"  launches: {launches}")
+    want = {k: 0 for k in launches} | {"apply_stencil": 2}
+    if launches != want:
+        failures.append(f"unpaired pair: launches {launches}, expected {want}")
+    err, rel, ok = compare(torch, got, op.mm(u), UNPAIRED_RTOL)
+    log(f"  vs K1's paired A U: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+        f"{UNPAIRED_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("the unpaired pair via K6 disagrees with K1's A U")
+    k6_ms = cuda_ms(torch, lambda: apply_stencil_pair(u, op.wz_t, op.wplane_s, *loose))
+    k1_ms = cuda_ms(torch, lambda: op.mm(u))
+    log(f"  A U: unpaired via K6 (2 launches) {k6_ms:.4f} ms, paired K1 "
+        f"{k1_ms:.4f} ms")
+
+
+def phase_checkpoint(torch, build, results, failures):
+    """Checkpointed block Lanczos and FDTD at N=160 p=4 (the block slice's
+    operator and start block), files in a temporary directory: the chunked
+    run against block_lanczos(fused=False); a run stopped at j=4 (an m=4
+    run's file, grown) and resumed to m=6 against the uninterrupted chunked
+    run, bit for bit; FDTD stopped after its first chunk and resumed,
+    against fdtd_block, bit for bit.  The references run first, so the
+    launch counts are the checkpointed runs' own."""
+    import tempfile
+
+    import numpy as np
+
+    from lanczos_tpu_torch.methods import checkpoint as ck
+    from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block
+
+    op, b, tf = block_fixture(torch)
+    m, chunk = M_CHECKPOINT, CHUNK_CHECKPOINT
+    log(f"checkpoint: N={N_SLICE} p={P_SLICE} m={m} chunk={chunk}; FDTD "
+        f"{FDTD_STEPS} steps in chunks of {FDTD_STEPS // 2}")
+    ref = block_lanczos(op, b, m, 0, trace_fn=tf, fused=False)
+    ref_u = fdtd_block(op, b, FDTD_STEPS, 1.0).clone()
+    torch.cuda.synchronize()
+
+    saves = []
+    real_save = ck._atomic_savez
+
+    def timed_save(path, **arrays):
+        t0 = time.perf_counter()
+        real_save(path, **arrays)
+        saves.append(time.perf_counter() - t0)
+        log(f"  save {os.path.basename(path)}: {saves[-1]:.3f} s, "
+            f"{os.path.getsize(path) / 1e6:.1f} MB")
+
+    def stop_after_first(real):
+        def once(*args, **kw):
+            if stop_after_first.calls:
+                raise StopAfterFirstChunk
+            stop_after_first.calls += 1
+            return real(*args, **kw)
+        stop_after_first.calls = 0
+        return once
+
+    with tempfile.TemporaryDirectory() as tmp, patched(ck, "_atomic_savez", timed_save):
+        whole, part, fd = (os.path.join(tmp, f) for f in ("whole.npz", "part.npz",
+                                                           "fdtd.npz"))
+        build.reset_launches()
+        got = ck.block_lanczos_checkpointed(op, b, m, 0, chunk=chunk, path=whole,
+                                            trace_fn=tf)
+        ck.block_lanczos_checkpointed(op, b, M_STOPPED, 0, chunk=chunk, path=part,
+                                      trace_fn=tf)
+        stopped = ck.BlockLanczosCheckpoint.load(part)
+        for name in ("alphas", "betas", "trace"):
+            arr = getattr(stopped, name)
+            grown = np.zeros((m,) + arr.shape[1:], arr.dtype)
+            grown[: arr.shape[0]] = arr
+            setattr(stopped, name, grown)
+        stopped.m = m
+        stopped.save(part)
+        resumed = ck.block_lanczos_checkpointed(op, b, m, 0, chunk=chunk, path=part,
+                                                trace_fn=tf)
+        with patched(ck, "euler_steps", stop_after_first(ck.euler_steps)):
+            try:
+                ck.fdtd_checkpointed(op, b, FDTD_STEPS, 1.0, chunk=FDTD_STEPS // 2,
+                                     path=fd, block=True)
+                failures.append("checkpoint: the FDTD run did not stop")
+            except StopAfterFirstChunk:
+                pass
+        with np.load(fd) as z:
+            stopped_at = int(z["step"])
+        u = ck.fdtd_checkpointed(op, b, FDTD_STEPS, 1.0, chunk=FDTD_STEPS // 2,
+                                 path=fd, block=True)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        results.setdefault("launches", {})["checkpoint"] = launches
+        log(f"  launches: {launches}; FDTD stopped at step {stopped_at}")
+        w_equal = np.array_equal(ck.BlockLanczosCheckpoint.load(part).w,
+                                 ck.BlockLanczosCheckpoint.load(whole).w)
+
+    for name in ("alphas", "betas", "trace"):
+        err, rel, ok = compare(torch, getattr(got, name), getattr(ref, name),
+                               KERNEL_RTOL["float32"])
+        log(f"  chunked {name} vs block_lanczos(fused=False): rel {rel:.3e} "
+            f"(tol {KERNEL_RTOL['float32']:.0e}), bit-equal "
+            f"{torch.equal(getattr(got, name), getattr(ref, name))}")
+        if not ok:
+            failures.append(f"checkpoint: chunked {name} misses block_lanczos")
+    same = {n: torch.equal(getattr(resumed, n), getattr(got, n))
+            for n in ("alphas", "betas", "trace")}
+    same["w"] = w_equal
+    same["fdtd u"] = torch.equal(u, ref_u)
+    log(f"  resumed == uninterrupted, bit for bit: {same}")
+    if not all(same.values()):
+        failures.append(f"checkpoint: a resumed run differs: {same}")
+    want = {"apply_stencil_pair": m + M_STOPPED + (m - M_STOPPED),
+            "fdtd_step": FDTD_STEPS}
+    if stopped_at != FDTD_STEPS // 2 or any(launches[k] != v for k, v in want.items()):
+        failures.append(f"checkpoint: launches {launches} / stop {stopped_at}, "
+                        f"expected {want} / {FDTD_STEPS // 2}")
+    log(f"  {len(saves)} saves, {sum(saves):.3f} s in all")
+
+
+def phase_profile(torch, build, results, failures):
+    """The block slice's Lanczos once more through `run`, with --profile
+    and --no-validate: the trace exists and names K4's kernel, and the
+    launch counts are the block slice's without its FDTD."""
+    import tempfile
+
+    from lanczos_tpu_torch.cli import TRACE_FILE, run
+    from lanczos_tpu_torch.config import LanczosConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = LanczosConfig(n_grid=N_SLICE, m=M_SLICE, n_col=P_SLICE,
+                            operator="pallas", lc=LC, validate=False,
+                            profile_dir=tmp, device="cuda")
+        log(f"profile: python -m lanczos_tpu_torch -N {N_SLICE} -m {M_SLICE} "
+            f"--n-col {P_SLICE} --operator pallas --lc {LC} --no-validate "
+            f"--profile DIR")
+        build.reset_launches()
+        out = run(cfg)
+        torch.cuda.synchronize()
+        launches = dict(build.LAUNCHES)
+        results.setdefault("launches", {})["profile"] = launches
+        path = os.path.join(tmp, TRACE_FILE)
+        with open(path) as f:
+            trace = json.load(f)
+        size = os.path.getsize(path)
+    kernels = [e for e in trace["traceEvents"] if e.get("cat") == "kernel"]
+    # the repo's kernels live in the .cu's anonymous namespace
+    ours = {}
+    for e in kernels:
+        m = re.search(r"\(anonymous namespace\)::(\w+_kernel)<", e["name"])
+        if m:
+            n, us = ours.get(m.group(1), (0, 0.0))
+            ours[m.group(1)] = (n + 1, us + e.get("dur", 0))
+    log(f"  launches: {launches}; lanczos_seconds {out['lanczos_seconds']:.3f}; "
+        f"trace {size / 1e6:.1f} MB, {len(kernels)} kernel events, "
+        f"{sum(e.get('dur', 0) for e in kernels) / 1e3:.3f} ms of kernels; "
+        "the repo's (events, ms): "
+        + ", ".join(f"{k} {n} {us / 1e3:.3f}" for k, (n, us) in sorted(ours.items())))
+    if out.get("profile_dir") != tmp:
+        failures.append("profile: the result does not name its directory")
+    if "stencil_gram_kernel" not in ours:
+        failures.append("profile: the trace names no stencil_gram_kernel")
+    block = results.get("launches", {}).get("block")
+    want = block and {k: v for k, v in block.items() if k != "fdtd_step"} | {"fdtd_step": 0}
+    if launches != want:
+        failures.append(f"profile: launches {launches}, the block slice's "
+                        f"without FDTD are {want}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -885,6 +1201,12 @@ def main() -> int:
                                        assembled)),
         ("ell slice",
          lambda: phase_ell_slice(torch, build, results, failures)),
+        ("unpaired pair",
+         lambda: phase_unpaired_pair(torch, build, results, failures)),
+        ("checkpoint",
+         lambda: phase_checkpoint(torch, build, results, failures)),
+        ("profile",
+         lambda: phase_profile(torch, build, results, failures)),
     )
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -13,8 +13,10 @@ windowed-ELL operator of assembled matrices (its SpMM is the CUDA kernel
 K8), matrix IO, block Lanczos (materialized with full/periodic/selective
 re-orthogonalization, TSQR normalization and adaptive restart; fused, with
 compensated Grams), single-vector Lanczos, the eigsh drivers, the small
-eigensolvers, both expm actions, the FDTD oracle and the CLI
-(`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell] ...`).
+eigensolvers, both expm actions, the FDTD oracle, checkpoint/resume of
+long Lanczos and FDTD runs, the generic separable stencil (K6) and the
+CLI (`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell]
+[--profile DIR] ...`).  Not ported yet: the multi-device layer.
 Builders put their buffers on "cuda" unless given another device.
 
 The names below load lazily, as in the JAX package: `from
@@ -35,6 +37,9 @@ _API = {
     "block_lanczos_expm_action": "lanczos_tpu_torch.methods.expm_action",
     "fdtd_vector": "lanczos_tpu_torch.methods.fdtd",
     "fdtd_block": "lanczos_tpu_torch.methods.fdtd",
+    "vector_lanczos_checkpointed": "lanczos_tpu_torch.methods.checkpoint",
+    "block_lanczos_checkpointed": "lanczos_tpu_torch.methods.checkpoint",
+    "fdtd_checkpointed": "lanczos_tpu_torch.methods.checkpoint",
     "EllMatrix": "lanczos_tpu_torch.ops.formats",
     "CsrMatrix": "lanczos_tpu_torch.ops.formats",
     "CooMatrix": "lanczos_tpu_torch.ops.formats",
@@ -53,6 +58,9 @@ _API = {
     "LinearOperator": "lanczos_tpu_torch.ops.operator",
     "MaxwellOperator": "lanczos_tpu_torch.models.maxwell",
     "PallasMaxwellOperator": "lanczos_tpu_torch.models.maxwell_pallas",
+    "StencilSpec": "lanczos_tpu_torch.ops.kernels",
+    "apply_stencil": "lanczos_tpu_torch.ops.kernels",
+    "apply_stencil_pair": "lanczos_tpu_torch.ops.kernels",
     "LanczosConfig": "lanczos_tpu_torch.config",
     "load_sparse": "lanczos_tpu_torch.io",
     "operator_from_file": "lanczos_tpu_torch.io",

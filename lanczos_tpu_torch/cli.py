@@ -12,19 +12,26 @@ device that is not there is an error).  `--operator pallas` is the
 folded-plane stencil the CUDA kernels serve; `--operator stencil` (the
 default) the flat-state `MaxwellOperator` in plain torch; `--operator
 ell` the assembled A as gathered ELL in plain torch (in `--dtype`: the
-JAX package builds it in f32 whatever `--dtype` says).  Not ported yet,
-and raising NotImplementedError naming their ROADMAP item: `--devices > 1`
-and `--profile`.  `--vector --compensated` is a ValueError: the
-compensated Gram is a block-path option.
+JAX package builds it in f32 whatever `--dtype` says).  `--profile DIR`
+wraps the Lanczos run, and only it, in `torch.profiler` (CPU activity,
+and CUDA activity on the card) and writes a Chrome trace,
+DIR/lanczos_trace.json, even when the run raises.  Not ported yet, and
+raising NotImplementedError naming its ROADMAP item: `--devices > 1`.
+`--vector --compensated` is a ValueError: the compensated Gram is a
+block-path option.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import random
 import time
 
 from lanczos_tpu_torch.config import LanczosConfig
+
+TRACE_FILE = "lanczos_trace.json"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,18 +101,29 @@ def _check_ported(cfg: LanczosConfig) -> None:
             "--compensated is a block-Lanczos option (the compensated Gram); "
             "--vector has no Gram to compensate"
         )
-    missing = [
-        (cfg.devices > 1, "--devices > 1 (multi-device operators)",
-         "Queue 1 item 12"),
-        (cfg.profile_dir is not None, "--profile (torch.profiler)",
-         "Queue 1 item 7"),
-    ]
-    for hit, what, item in missing:
-        if hit:
-            raise NotImplementedError(
-                f"{what} is not ported to lanczos_tpu_torch yet "
-                f"(ROADMAP {item})"
-            )
+    if cfg.devices > 1:
+        raise NotImplementedError(
+            "--devices > 1 (multi-device operators) is not ported to "
+            "lanczos_tpu_torch yet (ROADMAP Queue 1 item 12)"
+        )
+
+
+def _profiler(profile_dir: str | None, device):
+    """torch.profiler over CPU activity, plus CUDA activity on the card,
+    writing DIR/lanczos_trace.json when the block exits (an exception
+    included); a null context without a directory."""
+    if not profile_dir:
+        return contextlib.nullcontext()
+    import torch
+
+    def write(prof):
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(profile_dir, TRACE_FILE))
+
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if device.type == "cuda":
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    return torch.profiler.profile(activities=activities, on_trace_ready=write)
 
 
 def run(cfg: LanczosConfig) -> dict:
@@ -159,28 +177,31 @@ def run(cfg: LanczosConfig) -> dict:
 
     sync()
     t0 = time.perf_counter()
-    if cfg.block:
-        b_np = gaussian_matrix_B(n_grid, n, cfg.n_col)
-    else:
-        b_np = gaussian_vector_b(n_grid, n)
-    b = pack(torch.from_numpy(b_np.astype(cfg.dtype)).to(device))
-    del b_np
-    if cfg.block:
-        sol = block_lanczos_expm_action(
-            op, b, cfg.m, cfg.t_end, **receiver, reorth=cfg.reorth,
-            eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
-            normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
-            replace_dead=cfg.replace_dead, fused=cfg.fused,
-            compensated=cfg.compensated,
-        )
-    else:
-        sol = lanczos_expm_action(
-            op, b, cfg.m, cfg.t_end, **receiver,
-            reorth="none" if cfg.reorth == "periodic" else cfg.reorth,
-            breakdown_tol=cfg.breakdown_tol, fused=cfg.fused,
-        )
-    sol = sol.cpu().numpy()  # waits for the device
+    with _profiler(cfg.profile_dir, device):  # written even if the run raises
+        if cfg.block:
+            b_np = gaussian_matrix_B(n_grid, n, cfg.n_col)
+        else:
+            b_np = gaussian_vector_b(n_grid, n)
+        b = pack(torch.from_numpy(b_np.astype(cfg.dtype)).to(device))
+        del b_np
+        if cfg.block:
+            sol = block_lanczos_expm_action(
+                op, b, cfg.m, cfg.t_end, **receiver, reorth=cfg.reorth,
+                eig_backend=cfg.eig_backend, breakdown_tol=cfg.breakdown_tol,
+                normalize=cfg.normalize, breakdown_eps=cfg.breakdown_eps,
+                replace_dead=cfg.replace_dead, fused=cfg.fused,
+                compensated=cfg.compensated,
+            )
+        else:
+            sol = lanczos_expm_action(
+                op, b, cfg.m, cfg.t_end, **receiver,
+                reorth="none" if cfg.reorth == "periodic" else cfg.reorth,
+                breakdown_tol=cfg.breakdown_tol, fused=cfg.fused,
+            )
+        sol = sol.cpu().numpy()  # waits for the device
     out["lanczos_seconds"] = time.perf_counter() - t0
+    if cfg.profile_dir:
+        out["profile_dir"] = cfg.profile_dir
     out["solution"] = sol.tolist()
 
     if cfg.validate:

@@ -13,9 +13,10 @@
 // float32, 1 is float64; both accumulate in their own type, except K7,
 // which takes float32 and accumulates in float64.
 //
-// K1-K5 and K7 stream the block state, (p, 6, Zc, P) per block, and do
-// a handful of flops per element, so device memory bounds them all; so it
-// does K8, the windowed-ELL SpMM of assembled matrices (see its section).  At
+// K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
+// (Zc, P) fields), and do a handful of flops per element, so device memory
+// bounds them all; so it does K8, the windowed-ELL SpMM of assembled
+// matrices (see its section).  At
 // the main path's shape (Maxwell N=160, p=4: Zc=176, P=26624) one block
 // state is 449.8 MB; the bytes each moves per call are noted at each
 // kernel.  This first version is plain: one element (or one position
@@ -517,6 +518,114 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// K6: the generic separable stencil, out = S u over p block columns, with
+// u (p, n_in, Zc, P) and out (p, n_out, Zc, P) and unpaired taps:
+//   out[oc, z, l] = sum over oc's taps t, in spec order, of
+//                   (u[ic_t, z + dz_t, (l - r_t) mod P] * wp[t, l]) * wz[t, z]
+// Replaces apply_stencil (lanczos_tpu/ops/pallas/stencil_kernel.py:276).
+// u and out are component slices of larger states: fields contiguous,
+// block columns in_stride / out_stride elements apart, so an unpaired curl
+// pair reads u[:, 3:6] and writes out[:, 0:3] of one (p, 6, Zc, P) state
+// with no copy.  wz is read through (tap, z) strides, so the pair's
+// transposed wz_t[h] needs no copy either.
+// Bound: device memory.  One read of the n_in input and one write of the
+// n_out output fields per column: a Maxwell half-call at N=160 p=4 moves
+// 3 + 3 fields of 18.7 MB per column, 449.8 MB.  The Pallas kernel double-
+// buffers (n_in, tz, P) blocks through VMEM; here, as in K1, one thread
+// owns one (z, l) position for every component and column, its neighbour
+// reads (+-1 z-row, lane rolls) come from L1/L2, and each tap's two weights
+// are loaded once for up to COLS columns, whose input loads go out
+// together.  The tap table (2.6 KB, under the 4 KB parameter limit) is
+// copied into shared memory by the whole block.  Unlike K1's taps, which
+// come in pairs that share a weight row, each tap costs three multiplies.
+constexpr int kGenComps = 6;  // components in and out
+constexpr int kGenTaps = 27;  // taps per output component: a 3x3x3 stencil
+
+// Host int layout (see stencil_kernel.py generic_tap_table): n_out, then
+// per output component n, t[27], ic[27], dz[27], r[27].
+struct GenericTaps {
+  int n_out;
+  int n[kGenComps];
+  int t[kGenComps][kGenTaps];   // row in the weight arrays
+  int ic[kGenComps][kGenTaps];  // input component, local to u
+  int dz[kGenComps][kGenTaps];  // z-row offset in {-1, 0, 1}
+  int r[kGenComps][kGenTaps];   // lane roll in [0, P)
+};
+
+struct GenericArgs {
+  int zc, plane, p;
+  long long in_stride, out_stride;  // elements between block columns
+  long long wz_tap, wz_z;           // wz[t, z] at t * wz_tap + z * wz_z
+};
+
+GenericTaps unpack_generic_taps(const int* h) {
+  GenericTaps s;
+  s.n_out = h[0];
+  const int* c = h + 1;
+  for (int i = 0; i < kGenComps; ++i) {
+    s.n[i] = c[0];
+    for (int k = 0; k < kGenTaps; ++k) {
+      s.t[i][k] = c[1 + k];
+      s.ic[i][k] = c[1 + kGenTaps + k];
+      s.dz[i][k] = c[1 + 2 * kGenTaps + k];
+      s.r[i][k] = c[1 + 3 * kGenTaps + k];
+    }
+    c += 1 + 4 * kGenTaps;
+  }
+  return s;
+}
+
+template <typename T, int COLS>
+__global__ void __launch_bounds__(kThreads)
+    apply_stencil_kernel(const T* __restrict__ u, T* __restrict__ out,
+                         const T* __restrict__ wz, const T* __restrict__ wp,
+                         GenericTaps taps, GenericArgs a) {
+  __shared__ GenericTaps s;
+  {
+    const int* src = reinterpret_cast<const int*>(&taps);
+    int* dst = reinterpret_cast<int*>(&s);
+    for (int i = threadIdx.x; i < (int)(sizeof(GenericTaps) / sizeof(int));
+         i += blockDim.x)
+      dst[i] = src[i];
+  }
+  __syncthreads();
+  const Geometry g{a.zc, a.plane, 0, 0};
+  const int comp = a.zc * a.plane;  // n * comp < 2^30, checked by the wrapper
+  for (int pos = blockIdx.x * blockDim.x + threadIdx.x; pos < comp;
+       pos += gridDim.x * blockDim.x) {
+    const int l = pos % a.plane;
+    const int z = pos / a.plane;
+    for (int b0 = 0; b0 < a.p; b0 += COLS) {
+      const T* ub = u + b0 * a.in_stride;
+      T* ob = out + b0 * a.out_stride;
+#pragma unroll 1
+      for (int oc = 0; oc < s.n_out; ++oc) {
+        T acc[COLS];
+#pragma unroll
+        for (int b = 0; b < COLS; ++b) acc[b] = T(0);
+#pragma unroll 1
+        for (int k = 0; k < s.n[oc]; ++k) {
+          const int t = s.t[oc][k];
+          const int o = tap_offset(s.ic[oc][k], z, s.dz[oc][k], l,
+                                   s.r[oc][k], g);
+          const T w_p = wp[(long long)t * a.plane + l];
+          const T w_z = wz[t * a.wz_tap + z * a.wz_z];
+          T v[COLS];
+#pragma unroll
+          for (int b = 0; b < COLS; ++b)
+            v[b] = (b0 + b < a.p && o >= 0) ? ub[b * a.in_stride + o] : T(0);
+#pragma unroll
+          for (int b = 0; b < COLS; ++b) acc[b] += (v[b] * w_p) * w_z;
+        }
+#pragma unroll
+        for (int b = 0; b < COLS; ++b)
+          if (b0 + b < a.p) ob[b * a.out_stride + oc * comp + pos] = acc[b];
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
@@ -674,6 +783,21 @@ int windowed_spmm(const void* data, const void* lidx, const void* off,
   return 0;
 }
 
+template <typename T>
+int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
+                  const int* taps, int p, int zc, int plane,
+                  long long in_stride, long long out_stride, long long wz_tap,
+                  long long wz_z, int nblocks, cudaStream_t st) {
+  const GenericArgs a{zc, plane, p, in_stride, out_stride, wz_tap, wz_z};
+  auto kernel =
+      p == 1 ? apply_stencil_kernel<T, 1> : apply_stencil_kernel<T, 4>;
+  kernel<<<nblocks, kThreads, 0, st>>>(
+      static_cast<const T*>(u), static_cast<T*>(out),
+      static_cast<const T*>(wz), static_cast<const T*>(wp),
+      unpack_generic_taps(taps), a);
+  return finish();
+}
+
 }  // namespace
 
 extern "C" {
@@ -750,6 +874,21 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
                                            cpg, n128, st)
                     : windowed_spmm<double>(data, lidx, off, wb, x, y, p, ppc,
                                             cpg, n128, st);
+}
+
+int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
+                     const void* wp, const int* taps, int p, int zc,
+                     int plane, long long in_stride, long long out_stride,
+                     long long wz_tap, long long wz_z, int nblocks,
+                     void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0
+             ? apply_stencil<float>(u, out, wz, wp, taps, p, zc, plane,
+                                    in_stride, out_stride, wz_tap, wz_z,
+                                    nblocks, st)
+             : apply_stencil<double>(u, out, wz, wp, taps, p, zc, plane,
+                                     in_stride, out_stride, wz_tap, wz_z,
+                                     nblocks, st);
 }
 
 }  // extern "C"

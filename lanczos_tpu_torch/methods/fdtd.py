@@ -8,6 +8,8 @@ into its weights; the folded-plane operator, the one with `scaled`, also
 has `fdtd_step`, the one-pass step u + (dt A) u (K5) at every block width.
 That step writes into a second buffer: the loop swaps two buffers of its
 own and never writes u0.  Other operators step u + dt * (A u).
+`euler_steps` is the loop itself, from any start state for any number of
+steps; `methods/checkpoint.py` runs it chunk by chunk.
 """
 
 from __future__ import annotations
@@ -15,21 +17,33 @@ from __future__ import annotations
 import torch
 
 
-def _integrate(a, u0: torch.Tensor, nsteps: int, t_end: float, block: bool):
-    dt = torch.tensor(t_end / nsteps, dtype=u0.dtype, device=u0.device)
+def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
+                block: bool, bufs=None) -> torch.Tensor:
+    """nsteps forward-Euler steps u <- u + dt A u from u, which it never
+    writes.  An operator with `scaled` takes dt into its weights and steps
+    through its one-pass `fdtd_step`, each step into whichever of the two
+    buffers `bufs` (made here when None) does not hold the current state:
+    the result is then one of them, and a later call with the same bufs
+    continues from it.  Other operators step u + dt * (A u) into new
+    tensors.  Returns u itself when nsteps is 0."""
     if hasattr(a, "scaled"):
         # dt folded into the weights (JAX `_maybe_fold_dt`), one pass a step
         step = a.scaled(dt).fdtd_step
-        bufs = (torch.empty_like(u0), torch.empty_like(u0))
-        u = u0
-        for i in range(nsteps):
-            u = step(u, bufs[i % 2])
+        if bufs is None:
+            bufs = (torch.empty_like(u), torch.empty_like(u))
+        for _ in range(nsteps):
+            out = bufs[1] if u.data_ptr() == bufs[0].data_ptr() else bufs[0]
+            u = step(u, out)
         return u
     apply = a.mm if block else a.mv
-    u = u0
     for _ in range(nsteps):
         u = u + dt * apply(u)
     return u
+
+
+def _integrate(a, u0: torch.Tensor, nsteps: int, t_end: float, block: bool):
+    dt = torch.tensor(t_end / nsteps, dtype=u0.dtype, device=u0.device)
+    return euler_steps(a, u0, nsteps, dt, block=block)
 
 
 def fdtd_vector(a, u0: torch.Tensor, nsteps: int, t_end: float) -> torch.Tensor:

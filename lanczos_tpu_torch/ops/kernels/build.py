@@ -42,6 +42,7 @@ LAUNCHES = {
     "fdtd_step": 0,
     "block_grams_compensated": 0,
     "windowed_spmm": 0,
+    "apply_stencil": 0,
 }
 
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
@@ -62,6 +63,9 @@ _SIGNATURES = {
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
     ),
     "lt_windowed_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P),
+    "lt_apply_stencil": (
+        _I, _P, _P, _P, _P, _IP, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P,
+    ),
 }
 
 _lib: ctypes.CDLL | None = None

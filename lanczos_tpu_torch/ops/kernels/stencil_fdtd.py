@@ -28,6 +28,7 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair_plain,
     check_geometry,
+    require_paired,
     tap_table,
 )
 
@@ -46,7 +47,10 @@ def fdtd_step(
     spec_b: StencilSpec,
 ) -> torch.Tensor:
     """out = u + A u for u, out (p, 6, Zc, P), A the curl pair of the
-    (dt-scaled) weights.  out must be another buffer than u; returns out."""
+    (dt-scaled) weights.  out must be another buffer than u; returns out.
+    Takes paired specs only (the JAX kernel's unpaired branch has no
+    caller)."""
+    require_paired(spec_a, spec_b, "fdtd_step (K5)")
     if u.ndim != 4 or u.shape != out.shape:
         raise ValueError(
             f"u/out must be (p,6,Zc,P), got {tuple(u.shape)}/{tuple(out.shape)}"

@@ -27,6 +27,7 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair_plain,
     check_geometry,
+    require_paired,
     tap_table,
 )
 
@@ -58,7 +59,9 @@ def apply_stencil_pair_gram(
     """q, dst: (p, 6, Zc, P).  Returns (v, g3): v = A q written into dst's
     buffer (v is dst); g3 = [gram(q,v); gram(v,v); gram(dst_old,q)]
     (3p, p), gram(x,y)[k,j] = <x_k, y_j> over the whole state, accumulated
-    in the state's type.  dst's old contents are gone afterwards."""
+    in the state's type.  dst's old contents are gone afterwards.  Takes
+    paired specs only (the JAX kernel's unpaired branch has no caller)."""
+    require_paired(spec_a, spec_b, "apply_stencil_pair_gram (K4)")
     if q.ndim != 4 or q.shape != dst.shape:
         raise ValueError(
             f"q/dst must be (p,6,Zc,P), got {tuple(q.shape)}/{tuple(dst.shape)}"

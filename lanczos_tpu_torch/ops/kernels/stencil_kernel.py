@@ -1,23 +1,32 @@
-"""K1: the Maxwell curl-pair stencil on the folded-plane state.
+"""K1 and K6: separable stencils on the folded-plane state.
 
-Port of `apply_stencil_pair` (lanczos_tpu/ops/pallas/stencil_kernel.py:70).
-Each block column of the state is a stack of six fields in the
-*folded-plane* layout (6, Zc, P): z is the row axis and the (y, x) plane is
-folded into the lane axis, padded to a multiple of 128.  In this layout an
-x-shift by +-1 is a lane roll by -+1, a y-shift by +-1 a lane roll by
--+xc, and a z-shift a one-row shift, so every tap is a shifted read times
-two separable weights:
+Ports of `apply_stencil_pair` (K1) and `apply_stencil` (K6) of
+lanczos_tpu/ops/pallas/stencil_kernel.py (:70 and :276).  Each block column
+of the state is a stack of fields in the *folded-plane* layout (n, Zc, P):
+z is the row axis and the (y, x) plane is folded into the lane axis, padded
+to a multiple of 128.  In this layout an x-shift by +-1 is a lane roll by
+-+1, a y-shift by +-1 a lane roll by -+xc, and a z-shift a one-row shift,
+so every tap is a shifted read times two separable weights:
 
-    out[3h + oc, z, l] += wz_t[h, z, t] * wplane[h, t, l] * u[ic, z + dz, l - r]
+    out[oc, z, l] += wz[t, z] * wplane[t, l] * u[ic, z + dz, l - r]
 
-Half h writes components 3h..3h+2 from the opposite half's three.  The
-weights are zero wherever a lane roll wraps or a z-shift leaves the state,
-so both versions below read 0 there (the Pallas kernel clamps instead;
-the weights make the two agree).
+K6, `apply_stencil`, is the generic form: n_in fields in, n_out out, each
+tap with its own two weights, taps summed in spec order as (v * wp) * wz.
+K1, `apply_stencil_pair`, is the Maxwell curl pair on (6, Zc, P): half h
+writes components 3h..3h+2 from the opposite half's three, and with
+`spec.paired` each adjacent tap pair shares one weight row, so a pair
+costs three multiplies.  A pair with an unpaired half is two K6 launches,
+one per half, reading and writing component slices of the same tensors.
 
-On a CUDA tensor `apply_stencil_pair` launches the hand-written kernel
-(`csrc/lanczos_kernels.cu`, stencil_pair_kernel); on a CPU tensor it runs
-`apply_stencil_pair_plain`, the same arithmetic in torch ops.
+A z-row outside [0, Zc) reads as 0 in both versions below.  The Pallas
+kernels read a clamped neighbour block there instead: the two agree
+wherever the z-weights of rows 0 and Zc-1 are zero, which every operator
+constructor guarantees.  Lane rolls wrap circularly, as `jnp.roll` does.
+
+On a CUDA tensor the wrappers launch the hand-written kernels
+(`csrc/lanczos_kernels.cu`, stencil_pair_kernel and apply_stencil_kernel);
+on a CPU tensor they run the plain versions, the same arithmetic in torch
+ops.
 """
 
 from __future__ import annotations
@@ -31,6 +40,8 @@ import torch.nn.functional as F
 from lanczos_tpu_torch.ops.kernels import build
 
 MAX_TAPS_PER_COMP = 4  # csrc kMaxTaps
+MAX_COMPS = 6  # csrc kGenComps: K6's components in and out
+MAX_GENERIC_TAPS = 27  # csrc kGenTaps: K6's taps per output component
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,8 +50,8 @@ class StencilSpec:
 
     taps: tuple of (out_comp, in_comp, dz, roll) — dz in {-1,0,1} is the
     z-row offset; roll is the lane-roll amount within the folded plane
-    (already reduced mod P; 0 for pure z-taps).  Components are local to a
-    half (0..2).
+    (already reduced mod P; 0 for pure z-taps).  For the pair stencil the
+    components are local to a half (0..2).
     """
 
     n_in: int
@@ -51,8 +62,8 @@ class StencilSpec:
     # paired=True asserts taps come in adjacent 2-tuples per curl block
     # sharing (out, in) with EQUAL shared separable factors: a z-pair
     # (dz differs) shares its wplane row, a plane-pair (roll differs)
-    # shares its wz row — enabling the factored 3-multiply form.  The
-    # port's pair stencil takes paired specs only (the Maxwell operator's).
+    # shares its wz row — enabling the factored 3-multiply form (K1, K4,
+    # K5).  An unpaired pair stencil runs as two K6 launches.
     paired: bool = False
 
 
@@ -67,8 +78,12 @@ def _check_pair(spec_a: StencilSpec, spec_b: StencilSpec) -> None:
         raise ValueError("halves must have equal tap counts")
     if (spec_a.n_in, spec_a.n_out, spec_b.n_in, spec_b.n_out) != (3, 3, 3, 3):
         raise ValueError("pair kernel is specialized to 3-in/3-out halves")
+
+
+def require_paired(spec_a: StencilSpec, spec_b: StencilSpec, name: str) -> None:
+    """K1's tap table, K4 and K5 take the factored (paired) form only."""
     if not (spec_a.paired and spec_b.paired):
-        raise ValueError("the pair stencil takes paired specs only")
+        raise ValueError(f"{name} takes paired specs only")
 
 
 def _tap_input(u: torch.Tensor, ic: int, dz: int, r: int) -> torch.Tensor:
@@ -84,6 +99,138 @@ def _tap_input(u: torch.Tensor, ic: int, dz: int, r: int) -> torch.Tensor:
     return v
 
 
+# -- K6: the generic stencil ------------------------------------------------
+
+
+def check_spec(spec: StencilSpec, dtype: torch.dtype) -> None:
+    """What K6 takes, on every device: f32/f64 states, <= MAX_COMPS
+    components in and out, every output component fed by 1 ..
+    MAX_GENERIC_TAPS taps, in-range components and dz in {-1, 0, 1}."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"apply_stencil takes float32 or float64, got {dtype}")
+    if not (1 <= spec.n_in <= MAX_COMPS and 1 <= spec.n_out <= MAX_COMPS):
+        raise ValueError(
+            f"apply_stencil takes 1..{MAX_COMPS} components in and out, got "
+            f"{spec.n_in} -> {spec.n_out}"
+        )
+    for oc, ic, dz, _ in spec.taps:
+        if not (0 <= oc < spec.n_out and 0 <= ic < spec.n_in and dz in (-1, 0, 1)):
+            raise ValueError(f"tap {(oc, ic, dz)} out of range for {spec}")
+    for oc in range(spec.n_out):
+        n = len(_comp_taps(spec, oc))
+        if not 1 <= n <= MAX_GENERIC_TAPS:
+            raise ValueError(
+                f"output component {oc} has {n} taps; apply_stencil takes "
+                f"1..{MAX_GENERIC_TAPS} per component"
+            )
+
+
+def apply_stencil_plain(u, wz, wplane, spec: StencilSpec) -> torch.Tensor:
+    """Plain torch version of K6: u (p, n_in, Zc, P) -> (p, n_out, Zc, P);
+    wz (n_taps, Zc), wplane (n_taps, P).  Taps summed in spec order, each
+    term (v * wp) * wz, as the Pallas kernel."""
+    check_spec(spec, u.dtype)
+    out = u.new_empty((u.shape[0], spec.n_out, spec.zc, spec.plane))
+    for oc in range(spec.n_out):
+        acc = None
+        for t in _comp_taps(spec, oc):
+            _, ic, dz, r = spec.taps[t]
+            term = _tap_input(u, ic, dz, r) * wplane[t]
+            term = term * wz[t][:, None]
+            acc = term if acc is None else acc + term
+        out[:, oc] = acc
+    return out
+
+
+def generic_tap_table(spec: StencilSpec):
+    """K6's tap table (csrc GenericTaps) as a ctypes int array: n_out, then
+    per output component 0..MAX_COMPS-1: n, t[27], ic[27], dz[27], r[27],
+    taps in spec order, r reduced to [0, P)."""
+    vals = [spec.n_out]
+    for oc in range(MAX_COMPS):
+        idx = _comp_taps(spec, oc) if oc < spec.n_out else []
+        pad = [0] * (MAX_GENERIC_TAPS - len(idx))
+        taps = [spec.taps[t] for t in idx]
+        vals.append(len(idx))
+        vals += idx + pad
+        vals += [tp[1] for tp in taps] + pad
+        vals += [tp[2] for tp in taps] + pad
+        vals += [tp[3] % spec.plane for tp in taps] + pad
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+def _field_strides_ok(x: torch.Tensor, spec: StencilSpec) -> bool:
+    """(p, n, Zc, P) whose last three axes are contiguous (a component
+    slice of a contiguous state qualifies); p may be strided."""
+    return x.stride()[1:] == (spec.zc * spec.plane, spec.plane, 1)
+
+
+def stencil_into(u, out, wz, wplane, spec: StencilSpec) -> torch.Tensor:
+    """out[...] = K6(u): u (p, n_in, Zc, P) and out (p, n_out, Zc, P) may
+    be component slices of larger states (their (component, z, lane) axes
+    contiguous, the block axis strided); wz (n_taps, Zc) may be strided,
+    e.g. the transpose of a pair's wz_t[h].  On the card out must not
+    share u's buffer.  Returns out."""
+    check_spec(spec, u.dtype)
+    p = u.shape[0]
+    if tuple(u.shape) != (p, spec.n_in, spec.zc, spec.plane) or tuple(
+        out.shape
+    ) != (p, spec.n_out, spec.zc, spec.plane):
+        raise ValueError(
+            f"u/out must be (p, {spec.n_in}/{spec.n_out}, {spec.zc}, "
+            f"{spec.plane}), got {tuple(u.shape)}/{tuple(out.shape)}"
+        )
+    nt = len(spec.taps)
+    if tuple(wz.shape) != (nt, spec.zc) or tuple(wplane.shape) != (nt, spec.plane):
+        raise ValueError(
+            f"weights must be wz ({nt}, {spec.zc}) and wplane ({nt}, "
+            f"{spec.plane}), got {tuple(wz.shape)}/{tuple(wplane.shape)}"
+        )
+    if u.device.type == "cpu":
+        return out.copy_(apply_stencil_plain(u, wz, wplane, spec))
+    build.require_cuda("apply_stencil", wplane)
+    for name, x in (("u", u), ("out", out), ("wz", wz)):
+        if x.device != wplane.device or x.dtype != wplane.dtype:
+            raise ValueError(
+                f"apply_stencil: {name} must be {wplane.dtype} on {wplane.device}")
+    if not (_field_strides_ok(u, spec) and _field_strides_ok(out, spec)):
+        raise ValueError("apply_stencil: u/out need contiguous (n, Zc, P) fields")
+    if u.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+        raise ValueError("apply_stencil: out must not share u's buffer")
+    if max(spec.n_in, spec.n_out) * spec.zc * spec.plane > 2**30:
+        raise ValueError("one block column must hold <= 2^30 elements")
+    err = build.library().lt_apply_stencil(
+        build.dtype_code(u), u.data_ptr(), out.data_ptr(), wz.data_ptr(),
+        wplane.data_ptr(), generic_tap_table(spec), p, spec.zc, spec.plane,
+        u.stride(0), out.stride(0), wz.stride(0), wz.stride(1),
+        build.grid_blocks(spec.zc * spec.plane), build.stream_handle(u),
+    )
+    build.LAUNCHES["apply_stencil"] += 1
+    build.check(err, "apply_stencil")
+    return out
+
+
+def apply_stencil(
+    u: torch.Tensor,
+    wz: torch.Tensor,
+    wplane: torch.Tensor,
+    spec: StencilSpec,
+) -> torch.Tensor:
+    """u: (n_in, Zc, P), or (p, n_in, Zc, P) with a leading block axis (what
+    `jax.vmap(apply_stencil)` takes); wz: (n_taps, Zc); wplane: (n_taps,
+    P).  Returns (n_out, Zc, P), or (p, n_out, Zc, P), in u's dtype.  CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    single = u.ndim == 3
+    if single:
+        u = u[None]
+    out = u.new_empty((u.shape[0], spec.n_out, spec.zc, spec.plane))
+    stencil_into(u, out, wz, wplane, spec)
+    return out[0] if single else out
+
+
+# -- K1: the Maxwell curl pair ----------------------------------------------
+
+
 def apply_stencil_pair_plain(
     u: torch.Tensor,
     wz_t: torch.Tensor,
@@ -91,14 +238,19 @@ def apply_stencil_pair_plain(
     spec_a: StencilSpec,
     spec_b: StencilSpec,
 ) -> torch.Tensor:
-    """Plain torch version of the kernel: u (p, 6, Zc, P) -> A u, same
-    shape.  Same tap order and paired factoring as the Pallas kernel."""
+    """Plain torch version of the pair: u (p, 6, Zc, P) -> A u, same
+    shape.  A paired half takes the Pallas kernel's factored form, an
+    unpaired one K6's plain version on the component slices."""
     _check_pair(spec_a, spec_b)
     out = torch.empty_like(u)
     for h, spec in enumerate((spec_a, spec_b)):
         base = 3 * (1 - h)  # half h reads the OPPOSITE half's components
         wz = wz_t[h]  # (Zc, n_taps)
         wp = wplane[h]  # (n_taps, P)
+        if not spec.paired:
+            out[:, 3 * h : 3 * h + 3] = apply_stencil_plain(
+                u[:, base : base + 3], wz.T, wp, spec)
+            continue
         for oc in range(3):
             idx = _comp_taps(spec, oc)
             acc = None
@@ -120,10 +272,11 @@ def apply_stencil_pair_plain(
 
 
 def tap_table(spec_a: StencilSpec, spec_b: StencilSpec):
-    """The kernels' tap table (csrc StencilTaps) as a ctypes int array: per
-    output component 0..5, n, t[4], ic[4], dz[4], r[4], with ic the global
-    input component and r reduced to [0, P)."""
+    """The paired kernels' tap table (csrc StencilTaps) as a ctypes int
+    array: per output component 0..5, n, t[4], ic[4], dz[4], r[4], with ic
+    the global input component and r reduced to [0, P)."""
     _check_pair(spec_a, spec_b)
+    require_paired(spec_a, spec_b, "the paired stencil kernels (K1, K4, K5)")
     vals = []
     for h, spec in enumerate((spec_a, spec_b)):
         for oc in range(3):
@@ -169,13 +322,22 @@ def apply_stencil_pair(
     """A u for the Maxwell curl pair.  u: (p, 6, Zc, P) block-major;
     wz_t: (2, Zc, n_taps) z-weights stacked per half; wplane: (2, n_taps,
     P).  Returns a new tensor shaped like u.  CPU tensors take the plain
-    version; CUDA tensors the kernel."""
+    version; CUDA tensors K1 when both halves are paired, else two K6
+    launches (a paired half then sums its taps unfactored, which differs
+    from the factored form in rounding only)."""
     if u.device.type == "cpu":
         return apply_stencil_pair_plain(u, wz_t, wplane, spec_a, spec_b)
+    _check_pair(spec_a, spec_b)
     build.require_cuda("apply_stencil_pair", u, wz_t, wplane)
     nt = check_geometry(u, wz_t, wplane, spec_a)
-    taps = tap_table(spec_a, spec_b)
     out = torch.empty_like(u)
+    if not (spec_a.paired and spec_b.paired):
+        for h, spec in enumerate((spec_a, spec_b)):
+            base = 3 * (1 - h)
+            stencil_into(u[:, base : base + 3], out[:, 3 * h : 3 * h + 3],
+                         wz_t[h].T, wplane[h], spec)
+        return out
+    taps = tap_table(spec_a, spec_b)
     lib = build.library()
     positions = spec_a.zc * spec_a.plane  # one thread per (z, l)
     err = lib.lt_stencil_pair(

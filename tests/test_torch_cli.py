@@ -268,11 +268,41 @@ def test_parser_flags_and_lc_default():
 
 @pytest.mark.parametrize("kw,item", [
     (dict(operator="pallas", devices=2), "Queue 1 item 12"),
-    (dict(operator="pallas", profile_dir="trace"), "Queue 1 item 7"),
+    (dict(operator="stencil", devices=4, profile_dir="trace"), "Queue 1 item 12"),
 ])
 def test_unported_flags_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         run(LanczosConfig(n_grid=3, m=2, device="cpu", **kw))
+
+
+def test_profile_writes_a_chrome_trace(tmp_path):
+    """--profile DIR --device cpu: torch.profiler over the Lanczos run
+    writes DIR/lanczos_trace.json, and the result names the directory."""
+    import json
+
+    from lanczos_tpu_torch.cli import TRACE_FILE, main
+
+    trace_dir = str(tmp_path / "prof")
+    out = main(["-N", "3", "-m", "3", "--operator", "pallas", "--no-validate",
+                "--device", "cpu", "--profile", trace_dir])
+    assert out["profile_dir"] == trace_dir and len(out["solution"]) == 4
+    with open(os.path.join(trace_dir, TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    assert any("aten::" in n for n in names)  # CPU ops of the run were recorded
+    plain = run(LanczosConfig(n_grid=3, m=3, operator="pallas", validate=False,
+                              device="cpu"))
+    assert "profile_dir" not in plain and plain["solution"] == out["solution"]
+
+
+def test_profile_trace_is_written_when_the_run_raises(tmp_path):
+    from lanczos_tpu_torch.cli import TRACE_FILE
+
+    trace_dir = str(tmp_path / "prof")
+    with pytest.raises(ValueError, match="reorth"):
+        run(LanczosConfig(n_grid=3, m=3, operator="pallas", reorth="bogus",
+                          profile_dir=trace_dir, device="cpu"))
+    assert os.path.getsize(os.path.join(trace_dir, TRACE_FILE)) > 0
 
 
 @pytest.mark.parametrize("operator", ["stencil", "pallas"])
@@ -300,6 +330,7 @@ def test_port_never_imports_jax():
         "import lanczos_tpu_torch.models.maxwell, lanczos_tpu_torch.ops.operator;"
         "import lanczos_tpu_torch.methods.vector_lanczos;"
         "import lanczos_tpu_torch.methods.block_lanczos_fused;"
+        "import lanczos_tpu_torch.methods.checkpoint, lanczos_tpu_torch.ops.kernels;"
         "import lanczos_tpu_torch.ops.kernels.stencil_fdtd;"
         "import lanczos_tpu_torch.ops.kernels.block_dense;"
         "import lanczos_tpu_torch.probes;"

@@ -19,8 +19,11 @@ from lanczos_tpu_torch.ops.kernels import (
 )
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     MAX_TAPS_PER_COMP,
+    StencilSpec,
+    apply_stencil,
     apply_stencil_pair,
     apply_stencil_pair_plain,
+    apply_stencil_plain,
     tap_table,
 )
 
@@ -44,6 +47,36 @@ def _close(got, want, dtype):
     got, want = got.double().cpu(), want.double().cpu()
     tol = KERNEL_RTOL[dtype] * want.abs().max().item()
     assert (got - want).abs().max().item() <= tol
+
+
+def _k6_case(kind, p, dtype, device, zc=16, plane=256, seed=0):
+    """A K6 spec, its weights and a (p, n_in, Zc, P) input: "27-point" is
+    6 -> 3 with all 27 (dz, roll) combinations per output component,
+    "laplacian" a 7-point 1 -> 1 set.  z-shifted taps have zero z-weights
+    on the rows where the shift leaves the state (the operators' invariant
+    that makes the Pallas kernel's clamped reads and the port's zeros
+    agree)."""
+    xc = 13
+    if kind == "27-point":
+        taps = tuple(
+            (oc, (k + oc) % 6, dz, (-(dy * xc) - dx) % plane)
+            for oc in range(3)
+            for k, (dz, dy, dx) in enumerate(
+                (a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))
+        )
+        spec = StencilSpec(6, 3, taps, zc, plane)
+    else:
+        offs = ((0, 0), (-1, 0), (1, 0), (0, 1), (0, plane - 1), (0, xc),
+                (0, plane - xc))
+        spec = StencilSpec(1, 1, tuple((0, 0, dz, r) for dz, r in offs), zc, plane)
+    rng = np.random.default_rng(seed)
+    wz = rng.standard_normal((len(spec.taps), zc))
+    for t, (_, _, dz, _) in enumerate(spec.taps):
+        if dz:
+            wz[t, 0 if dz == -1 else -1] = 0.0
+    wp = rng.standard_normal((len(spec.taps), plane))
+    x = rng.standard_normal((p, spec.n_in, zc, plane))
+    return spec, *(torch.from_numpy(a).to(device, dtype) for a in (wz, wp, x))
 
 
 def _op_state(n, p, dtype, device, seed=0):
@@ -71,11 +104,13 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
 
     windowed_from_scipy(sp.identity(300, format="csr"), device="cpu").mm(
         torch.ones((2, 300)))
+    spec, wz, wp, x = _k6_case("laplacian", 1, torch.float32, "cpu")
+    apply_stencil(x, wz, wp, spec)
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
-        "windowed_spmm",
+        "windowed_spmm", "apply_stencil",
     }
 
 
@@ -114,15 +149,25 @@ def test_tap_table_encodes_the_specs():
 
 
 def test_unpaired_specs_are_refused():
+    """The paired kernels (K1's tap table, K4, K5) refuse unpaired specs on
+    every device; the pair stencil itself takes them (two K6 launches on
+    the card, K6's plain version here)."""
     import dataclasses
 
     op = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     loose = dataclasses.replace(op.spec_e, paired=False)
     u = torch.zeros((1,) + op.state_shape)
     with pytest.raises(ValueError, match="paired"):
-        apply_stencil_pair(u, op.wz_t, op.wplane_s, loose, op.spec_h)
-    with pytest.raises(ValueError, match="paired"):
         tap_table(loose, op.spec_h)
+    with pytest.raises(ValueError, match="paired"):
+        stencil_gram.apply_stencil_pair_gram(u, u.clone(), op.wz_t, op.wplane_s,
+                                             op.spec_e, loose)
+    with pytest.raises(ValueError, match="paired"):
+        stencil_fdtd.fdtd_step(u, u.clone(), op.wz_t, op.wplane_s, loose,
+                               op.spec_h)
+    x = torch.randn((2,) + op.state_shape, generator=torch.Generator().manual_seed(0))
+    got = apply_stencil_pair(x, op.wz_t, op.wplane_s, loose, op.spec_h)
+    torch.testing.assert_close(got, op.mm(x), rtol=1e-6, atol=1e-6)
 
 
 def test_grid_is_a_function_of_size_only():
@@ -145,6 +190,41 @@ def test_k1_stencil_kernel_vs_plain(cuda, n, p, dtype):
     assert build.LAUNCHES["apply_stencil_pair"] == before + 1
     want = apply_stencil_pair_plain(u, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
     _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kind,zc,plane", [
+    ("27-point", 16, 256), ("laplacian", 16, 256), ("27-point", 13, 256),
+    ("laplacian", 9, 128),
+])
+@pytest.mark.parametrize("p", [1, 3, 5])
+def test_k6_apply_stencil_vs_plain(cuda, kind, zc, plane, p, dtype):
+    spec, wz, wp, x = _k6_case(kind, p, dtype, cuda, zc=zc, plane=plane)
+    before = build.LAUNCHES["apply_stencil"]
+    got = apply_stencil(x, wz, wp, spec)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["apply_stencil"] == before + 1
+    _close(got, apply_stencil_plain(x, wz, wp, spec), dtype)
+    _close(apply_stencil(x[0], wz, wp, spec), got[0], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (3, 1)])
+def test_k6_unpaired_pair_vs_k1(cuda, n, p, dtype):
+    """An unpaired curl pair is two K6 launches and no K1, equal to K1's
+    factored product to rounding."""
+    import dataclasses
+
+    op, u = _op_state(n, p, dtype, cuda)
+    loose = [dataclasses.replace(s, paired=False) for s in (op.spec_e, op.spec_h)]
+    build.reset_launches()
+    got = apply_stencil_pair(u, op.wz_t, op.wplane_s, *loose)
+    torch.cuda.synchronize()
+    assert (build.LAUNCHES["apply_stencil"], build.LAUNCHES["apply_stencil_pair"]) == (2, 0)
+    _close(got, op.mm(u), dtype)
+    _close(got, apply_stencil_pair_plain(u, op.wz_t, op.wplane_s, *loose), dtype)
 
 
 @pytest.mark.cuda
