@@ -23,11 +23,11 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    f32 and f64), then at the Maxwell N=160 p=4 half-call, timed;
 4. K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
    random matrix, a 500x500 unstructured one, an RCM-permuted band, 997
-   rows of a band; p=3, f32 and f64), then at the assembled slice's shape
-   (the synthetic SuiteSparse-style matrix, 10,485,760 rows, ~115M nnz),
-   p=8 and p=1, timed against its plain version, a device copy of the same
-   state and cuSPARSE (`torch.sparse.mm` on a CSR tensor, reported only);
-   at p=8 also against scipy's f64 product on the host;
+   rows of a band; p=3 and p=1, f32 and f64), then at the assembled
+   slice's shape (the synthetic SuiteSparse-style matrix, 10,485,760 rows,
+   ~115M nnz), p=8 and p=1, timed against its plain version, a device
+   copy of the same state and cuSPARSE (`torch.sparse.mm` on a CSR tensor,
+   reported only); at p=8 also against scipy's f64 product on the host;
 5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
    through K1-K5 (the stencil_gram count equals m - 2: the fused mono step
@@ -42,9 +42,12 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    full, TSQR, breakdown_eps 1e-4, replace_dead) on the padded windowed
    operator of the 10.5M-row matrix, then `ritz_residuals`: K8 exactly 12
    times in the recurrence and once more for the residuals, all five
-   measured residuals under 1e-3; the same at 262,144 rows against scipy's
-   eigsh (top-5 to 1e-4), and a .mtx round trip through
-   `operator_from_file(format="windowed")`;
+   measured residuals under 1e-3; then `lanczos_eigsh` on the same
+   operator (p=1, m=96, k=5, reorth full): K8 at p=1 in every one of its
+   96 products and once more for the residuals' k=5 block, all five
+   measured residuals under 1e-3; the block eigsh at
+   262,144 rows against scipy's eigsh (top-5 to 1e-4), and a .mtx round
+   trip through `operator_from_file(format="windowed")`;
 9. the ELL slice: `--operator ell` (N=64, m=6, p=4, 2000 FDTD steps):
    the gathered ELL product is plain torch, and the 25 MB block state
    passes the 16 MB gate, so the fused recurrence runs K2/K3 on flat
@@ -69,7 +72,8 @@ is 10^6 steps, the smoke takes 2000 to fit its time budget.
 
 Output: one JSON line of per-kernel results (launches summed over the
 slices; bound_ms the larger of the bytes over the card's memory rate and
-the operations over its peak rate), the nvidia-smi line, and as the last
+the operations over its peak rate; K3 and K8 also at p=1, in rows of their
+own that count the launches at p=1), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -108,6 +112,7 @@ K7_ORACLE_RTOL = 1e-7
 # the assembled slice: BASELINE.json config 4 on one card
 N_ASSEMBLED, N_ASSEMBLED_SMALL = 10_485_760, 262_144
 P_ASSEMBLED, M_ASSEMBLED, K_ASSEMBLED = 8, 12, 5
+M_VECTOR_EIGSH = 96  # single-vector eigsh: the block slice's Krylov dimension
 RESID_BOUND = 1e-3  # measured relative Ritz residuals, f32
 EIGSH_RTOL = 1e-4  # top-5 against scipy's eigsh at 262,144 rows
 # K8 at p=8 against scipy's f64 product: each row sums <= 15 f32 products
@@ -128,6 +133,9 @@ REPLACES = {
     "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
     "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
 }
+# the kernels with a row of their own at p=1: K3 runs at p=1 in every step
+# of the vector slice, K8 in every step of the assembled vector eigsh
+P1_ROWS = ("block_grams", "windowed_spmm")
 # the unpaired pair (two K6 launches) against K1's factored A U, relative
 # to the result's scale: the factoring changes the rounding only
 UNPAIRED_RTOL = 1e-5
@@ -184,13 +192,14 @@ def phase_build(build):
     build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     # ptxas -v: registers and spills per kernel instantiation, e.g.
-    # "stencil_gram_kernel<f,4>: 98 registers, 0 bytes spill stores"
+    # "stencil_gram_kernel<f,4>: 98 registers, 0 bytes spill stores" or
+    # "gram_kernel<f,d,f,8,4,4>" (operand, sum and output types, R, C, VEC)
     name, spills = None, ""
     for ln in build.build_log.splitlines():
-        m = re.search(r"\d([a-z][a-z_]*_kernel)(?=[IE])(?:I([fd]+)(?:Li(\d+)E)?)?", ln)
+        m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I([fd]+)((?:Li\d+E)*)E)?", ln)
         if "Compiling entry function" in ln and m:
-            args = ",".join(a for a in m.group(2, 3) if a)
-            name = f"{m.group(1)}<{args}>"
+            args = list(m.group(2) or "") + re.findall(r"Li(\d+)E", m.group(3) or "")
+            name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
             spills = m.group(0)
@@ -207,12 +216,15 @@ def bound(nbytes, ops, ops_type):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def kernel_row(name, err, ms, plain_ms, nbytes, ops, ops_type, library_ms):
+def kernel_row(name, err, ms, plain_ms, nbytes, ops, ops_type, library_ms,
+               key=None):
+    """One entry of the kernels JSON line; `key` names a second row of the
+    same kernel (at p=1)."""
     bound_ms, bound_by = bound(nbytes, ops, ops_type)
     log(f"    bound {bound_ms:.4f} ms ({bound_by}), kernel at "
         f"{bound_ms / ms:.1%} of it; library "
         + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
-    return dict(name=name, route="cuda", source=SOURCE,
+    return dict(name=key or name, route="cuda", source=SOURCE,
                 replaces=REPLACES[name], max_abs_err=err, ms=ms,
                 plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
                 library_ms=library_ms)
@@ -276,7 +288,7 @@ def phase_kernels(torch, results, failures):
         S = math.prod(op.state_shape)  # elements of one block column
 
         def record(name, label, got, want, kernel_fn, plain_fn, nbytes, ops,
-                   library_fn=None, ops_type=dname):
+                   library_fn=None, ops_type=dname, key=None):
             err = check(label, name, dname, got, want)
             if not timed:
                 return
@@ -286,8 +298,8 @@ def phase_kernels(torch, results, failures):
             log(f"    {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"{nbytes / 1e6:.1f} MB/call -> {nbytes / ms / 1e6:.1f} GB/s")
             row = kernel_row(name, err, ms, plain_ms, nbytes, ops, ops_type,
-                             library_ms)
-            rows.setdefault(name, row)
+                             library_ms, key)
+            rows.setdefault(key or name, row)
 
         if timed:
             src, dst = rand(), rand()
@@ -298,7 +310,8 @@ def phase_kernels(torch, results, failures):
 
         # K1, K2, K3 at the block width and, on the slice's geometry, at
         # p=1, the vector slice's fused route (K2 -> K1 -> K3 per step); the
-        # JSON line keeps the block width's times
+        # JSON line keeps the block width's times, and K3's at p=1 in a row
+        # of its own
         for pk in (p, 1) if timed else (p,):
             tag = f" p={pk}"
             pbytes = state_bytes * pk // p
@@ -363,7 +376,8 @@ def phase_kernels(torch, results, failures):
                    lambda: block_dense.block_grams((q,), v, include_zz=True),
                    lambda: block_dense.block_grams_plain((q,), v, include_zz=True),
                    2 * pbytes, 2 * (2 * pk) * pk * S,
-                   lambda: stack[: 2 * pk].flatten(1) @ v.flatten(1).T)
+                   lambda: stack[: 2 * pk].flatten(1) @ v.flatten(1).T,
+                   key=None if pk == p else "block_grams p=1")
             check("K3 block_grams (), b, include_zz" + tag, "block_grams", dname,
                   block_dense.block_grams((), q, include_zz=True),
                   block_dense.block_grams_plain((), q, include_zz=True))
@@ -566,6 +580,14 @@ def k7_wide_range(torch, rand, failures):
                         "(K3) from K7's")
 
 
+def record_launches(build, results, label):
+    """The launch counts of the path just driven (read from 0), kept
+    under the path's label."""
+    launches = dict(build.LAUNCHES)
+    results.setdefault("launches", {})[label] = launches
+    return launches
+
+
 def drive(torch, build, results, label, cfg):
     """One slice through the CLI's `run`, its launch counts read from 0."""
     from lanczos_tpu_torch.cli import run
@@ -574,8 +596,7 @@ def drive(torch, build, results, label, cfg):
     build.reset_launches()
     out = run(cfg)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    results.setdefault("launches", {})[label] = launches
+    launches = record_launches(build, results, label)
     log(f"  launches: {launches}")
     log(f"  n {out['n']} lc {out['lc']} solution {out['solution']}")
     log(f"  relative_error {out['relative_error']:.6e} (bound {REL_ERROR_BOUND:g})")
@@ -671,6 +692,7 @@ def phase_vector_slice(torch, build, results, failures):
     log(f"vector slice: python -m lanczos_tpu_torch -N {N_SLICE} -m {M_VECTOR} "
         f"--vector --operator pallas --fdtd-steps {FDTD_STEPS} --lc {LC}")
     out, launches = drive(torch, build, results, "vector", cfg)
+    results.setdefault("p1_launches", {})["block_grams"] = launches["block_grams"]
     # the fused route at p=1: K2 -> K1 -> K3 per step, no mono (K4)
     check_slice(out, launches, {
         "apply_stencil_pair": M_VECTOR, "block_mix": M_VECTOR,
@@ -735,11 +757,11 @@ def small_windowed_cases():
 
 
 def phase_windowed_kernel(torch, results, failures, assembled):
-    """K8 against its plain version at small odd geometries (p=3, f32 and
-    f64), then at the assembled slice's shape, p=8 and p=1, timed against
-    plain, a device copy of the state and cuSPARSE; at p=8 also against
-    scipy's f64 product.  Leaves the 10.5M-row matrix and its plan in
-    `assembled` for the slice phase."""
+    """K8 against its plain version at small odd geometries (p=3 and p=1,
+    f32 and f64), then at the assembled slice's shape, p=8 and p=1, timed
+    against plain, a device copy of the state and cuSPARSE; at p=8 also
+    against scipy's f64 product.  Leaves the 10.5M-row matrix and its plan
+    in `assembled` for the slice phase."""
     import numpy as np
 
     from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
@@ -760,15 +782,16 @@ def phase_windowed_kernel(torch, results, failures, assembled):
             failures.append(f"{label} disagrees with its plain version")
         return err
 
-    log("K8 windowed_spmm vs plain at small geometries, p=3")
+    log("K8 windowed_spmm vs plain at small geometries, p=3 and p=1")
     for label, (a, kw) in small_windowed_cases().items():
         for dtype in (torch.float32, torch.float64):
             dname = str(dtype).split(".")[-1]
             A = windowed_from_scipy(a, dtype=dtype, ppc_cap=256, device=dev, **kw)
-            X = A.pack(torch.from_numpy(
-                rng.standard_normal((3, a.shape[1]))).to(dev, dtype))
-            check(f"K8 {label} {dname} (ppc {A.ppc})", dname,
-                  windowed_spmm(A, X), windowed_spmm_plain(A, X))
+            for p in (3, 1):
+                X = A.pack(torch.from_numpy(
+                    rng.standard_normal((p, a.shape[1]))).to(dev, dtype))
+                check(f"K8 {label} {dname} p={p} (ppc {A.ppc})", dname,
+                      windowed_spmm(A, X), windowed_spmm_plain(A, X))
 
     t0 = time.perf_counter()
     a = synth_suitesparse_banded(N_ASSEMBLED)
@@ -828,10 +851,11 @@ def phase_windowed_kernel(torch, results, failures, assembled):
             f"the state {copy_ms:.4f} ms ({2 * X.numel() * 4 / copy_ms / 1e6:.1f} "
             f"GB/s); {nbytes / 1e6:.1f} MB/call -> {nbytes / ms / 1e6:.1f} GB/s, "
             f"{a.nnz * p / (ms * 1e-3):.4e} nnz*col/s")
+        key = "windowed_spmm" if p == P_ASSEMBLED else "windowed_spmm p=1"
         row = kernel_row("windowed_spmm", err, ms, plain_ms, nbytes,
-                         2 * a.nnz * p, "float32", library_ms)
+                         2 * a.nnz * p, "float32", library_ms, key)
+        results.setdefault("rows", {})[key] = row
         if p == P_ASSEMBLED:
-            results.setdefault("rows", {})["windowed_spmm"] = row
             assembled["spmm_ms"] = ms
         del X, out, got
     del csr
@@ -876,8 +900,7 @@ def phase_assembled_slice(torch, build, results, failures, assembled):
     in_recurrence = build.LAUNCHES["windowed_spmm"]
     resid = ritz_residuals(op, vals, vecs)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    results.setdefault("launches", {})["assembled"] = launches
+    launches = record_launches(build, results, "assembled")
     vals_h, resid_h = vals.cpu().numpy(), resid.cpu().numpy()
     log(f"  launches: {launches} ({in_recurrence} in the recurrence)")
     log(f"  Ritz values {vals_h.tolist()}")
@@ -897,10 +920,57 @@ def phase_assembled_slice(torch, build, results, failures, assembled):
     if not (np.all(np.isfinite(vals_h)) and np.all(resid_h < RESID_BOUND)):
         failures.append(f"assembled slice: Ritz values {vals_h} / residuals "
                         f"{resid_h} not finite or not under {RESID_BOUND}")
-    del op, vals, vecs, bounds, resid
+    del vals, vecs, bounds, resid
+    assembled_vector(torch, build, results, failures, op)
+    del op
     assembled.clear()
     torch.cuda.empty_cache()
     assembled_small(torch, build, results, failures)
+
+
+def assembled_vector(torch, build, results, failures, op):
+    """The assembled slice's operator through single-vector Lanczos:
+    `lanczos_eigsh` (p=1, m=96, k=5, reorth full, compute_vectors), then
+    `ritz_residuals`.  Every product of the recurrence is K8 at p=1; the
+    residuals' k=5 block is one more launch."""
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import lanczos_eigsh, ritz_residuals
+
+    A = op.base
+    log(f"assembled vector slice: lanczos_eigsh p=1 m={M_VECTOR_EIGSH} "
+        f"k={K_ASSEMBLED} reorth=full on {A.n_rows_true} rows, then "
+        f"ritz_residuals")
+    x = np.random.default_rng(1).standard_normal(A.n_rows_true).astype(np.float32)
+    b = A.pack(torch.from_numpy(x).cuda())[0]
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    vals, vecs, bounds = lanczos_eigsh(op, b, M_VECTOR_EIGSH, K_ASSEMBLED,
+                                       which="LA", reorth="full",
+                                       compute_vectors=True)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    in_recurrence = build.LAUNCHES["windowed_spmm"]
+    results.setdefault("p1_launches", {})["windowed_spmm"] = in_recurrence
+    resid = ritz_residuals(op, vals, vecs)
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, "assembled vector")
+    vals_h, resid_h = vals.cpu().numpy(), resid.cpu().numpy()
+    log(f"  launches: {launches} ({in_recurrence} in the recurrence); "
+        f"Lanczos + eigsh {wall_s:.3f} s wall")
+    log(f"  Ritz values {vals_h.tolist()}")
+    log(f"  measured residuals {resid_h.tolist()} (bound {RESID_BOUND:g}); "
+        f"|beta_m s| bounds {bounds.cpu().numpy().tolist()}")
+    if in_recurrence != M_VECTOR_EIGSH or launches["windowed_spmm"] != M_VECTOR_EIGSH + 1:
+        failures.append(f"assembled vector slice: K8 launched {in_recurrence} "
+                        f"times in the recurrence and {launches['windowed_spmm']} "
+                        f"in all, expected {M_VECTOR_EIGSH} and {M_VECTOR_EIGSH + 1}")
+    if any(c for k, c in launches.items() if k != "windowed_spmm"):
+        failures.append(f"assembled vector slice: another kernel launched: {launches}")
+    if not (np.all(np.isfinite(vals_h)) and np.all(resid_h < RESID_BOUND)):
+        failures.append(f"assembled vector slice: Ritz values {vals_h} / "
+                        f"residuals {resid_h} not finite or not under {RESID_BOUND}")
 
 
 def assembled_small(torch, build, results, failures):
@@ -922,8 +992,7 @@ def assembled_small(torch, build, results, failures):
     build.reset_launches()
     _, vals, _, _ = assembled_eigsh(torch, A, compute_vectors=False)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    results.setdefault("launches", {})["assembled 262144"] = launches
+    launches = record_launches(build, results, "assembled 262144")
     got = vals.cpu().numpy().astype(np.float64)
     want = np.sort(eigsh(a.astype(np.float64), k=K_ASSEMBLED, which="LA")[0])[::-1]
     rel = np.abs(got - want) / np.abs(want)
@@ -998,8 +1067,7 @@ def phase_unpaired_pair(torch, build, results, failures):
     build.reset_launches()
     got = apply_stencil_pair(u, op.wz_t, op.wplane_s, *loose)
     torch.cuda.synchronize()
-    launches = dict(build.LAUNCHES)
-    results.setdefault("launches", {})["unpaired pair"] = launches
+    launches = record_launches(build, results, "unpaired pair")
     log(f"  launches: {launches}")
     want = {k: 0 for k in launches} | {"apply_stencil": 2}
     if launches != want:
@@ -1088,8 +1156,7 @@ def phase_checkpoint(torch, build, results, failures):
         u = ck.fdtd_checkpointed(op, b, FDTD_STEPS, 1.0, chunk=FDTD_STEPS // 2,
                                  path=fd, block=True)
         torch.cuda.synchronize()
-        launches = dict(build.LAUNCHES)
-        results.setdefault("launches", {})["checkpoint"] = launches
+        launches = record_launches(build, results, "checkpoint")
         log(f"  launches: {launches}; FDTD stopped at step {stopped_at}")
         w_equal = np.array_equal(ck.BlockLanczosCheckpoint.load(part).w,
                                  ck.BlockLanczosCheckpoint.load(whole).w)
@@ -1136,8 +1203,7 @@ def phase_profile(torch, build, results, failures):
         build.reset_launches()
         out = run(cfg)
         torch.cuda.synchronize()
-        launches = dict(build.LAUNCHES)
-        results.setdefault("launches", {})["profile"] = launches
+        launches = record_launches(build, results, "profile")
         path = os.path.join(tmp, TRACE_FILE)
         with open(path) as f:
             trace = json.load(f)
@@ -1220,14 +1286,23 @@ def main() -> int:
         log(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
 
     rows = results.get("rows", {})
-    missing = [k for k in REPLACES if k not in rows]
+    keys = list(REPLACES) + [f"{k} p=1" for k in P1_ROWS]
+    missing = [k for k in keys if k not in rows]
     if failures or missing:
         for f in failures or [f"no kernel results for {missing}"]:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
-    paths = results.get("launches", {}).values()
-    kernels = [rows[k] | {"launches": sum(c[k] for c in paths)}
-               for k in REPLACES]
+    paths = results.get("launches", {})
+    # a p=1 row counts its kernel's launches at p=1, the main row every
+    # other launch
+    at_p1 = results.get("p1_launches", {})
+
+    def launches(key):
+        name, _, width = key.partition(" ")
+        total = sum(c[name] for c in paths.values())
+        return at_p1.get(name, 0) if width else total - at_p1.get(name, 0)
+
+    kernels = [rows[k] | {"launches": launches(k)} for k in keys]
     if any(k["launches"] <= 0 for k in kernels):
         print(f"chip_smoke FAILED: a kernel never launched on a main path: "
               f"{kernels}", file=sys.stderr)

@@ -19,15 +19,23 @@
 // matrices (see its section).  At
 // the main path's shape (Maxwell N=160, p=4: Zc=176, P=26624) one block
 // state is 449.8 MB; the bytes each moves per call are noted at each
-// kernel.  This first version is plain: one element (or one position
-// across the block) per thread in a grid-stride loop, neighbouring threads
-// on neighbouring addresses, no shared-memory staging, no TMA or wgmma.
+// kernel.  K1, K2 and K4-K6 are plain first versions: one element (or one
+// position across the block) per thread in a grid-stride loop,
+// neighbouring threads on neighbouring addresses, no shared-memory
+// staging, no TMA or wgmma.  K3 (with K7, which shares its kernel) and K8
+// were redesigned for the card: exact-size register tiles, 16-byte loads
+// and a one-launch Gram; K8 16-byte plane loads, four rows a lane, with
+// the next planes' loads in flight before this plane's gathers (see their
+// sections).
 //
 // Cross-block sums (K3, K4, K7) are deterministic: each block writes its
-// partial sums into scratch, then sum_partials_kernel adds them in block
-// order.  No float atomics, so the Lanczos coefficients repeat run to run.
+// partial sums into scratch, then they are added in block order (K4: by
+// sum_partials_kernel; K3 and K7: by the grid's last block).  No float
+// atomics, so the Lanczos coefficients repeat run to run.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -275,17 +283,39 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K3: partial sums of gram(cat(x0..x3), z)[k, j] = <row_k, z_j>.
+// K3: gram(cat(x0..x3), z)[k, j] = <row_k, z_j>, f32 sums for f32 and f64
+// for f64; K7 runs the same kernel with f64 sums of f32 operands.
 // Replaces block_grams (lanczos_tpu/ops/pallas/block_dense.py:210); with
 // include_zz the wrapper passes z itself as x3.
-// Bound: device memory.  Each operand is read once when the (K, p) result
-// fits one 12 x 4 tile (every call of the main path at p <= 4): the
-// prologue's gram(q0, v0) + gram(v0, v0) reads 2 * 449.8 MB at N=160 p=4.
-// Each thread keeps its 12 x 4 tile of sums in registers over a
-// grid-stride run of positions; larger (K, p) take more tiles on
-// blockIdx.y/z, and each tile re-reads its rows.
-constexpr int kGramRows = 12;
-constexpr int kGramCols = 4;
+// Bound: device memory.  Each operand row is read once; the main path's
+// (q,), v, include_zz call reads 2 * 112.5 MB at N=160 p=1 and
+// 2 * 449.8 MB at p=4, for 2 K p flops per element of z, far below the
+// card's rate.  What the design does about it:
+// * exact-size register tiles: the wrapper picks R x C from (K, p)
+//   (block_dense.gram_tile): 1 x 1 and 2 x 1 at p=1, 4 x 4 and 8 x 4 at
+//   p=4 (K = p and 2p, the fused recurrence's calls), and a 12 x 4 tile
+//   for every other shape.  The main path's calls carry no dead
+//   accumulator; on them each exact tile beats 12 x 4 (PERF.md: 3.05x,
+//   2.23x, 1.29x, 1.05x at N=160).  The 12 x 4 tile points its
+//   rows and columns past K and p at the last real one, once before the
+//   loop, and drops their sums, so no loop trip tests a pointer; larger
+//   (K, p) take more tiles on blockIdx.y/z, each re-reading its rows.
+// * 16-byte loads: VEC elements a load per operand row (float4 /
+//   double2), two vectors a trip at the small tiles, so one thread keeps
+//   (R + C) * 32 bytes in flight at p=1.  The wrapper takes the scalar
+//   instantiation (VEC = 1) when a row does not start on a 16-byte
+//   boundary (block_dense.gram_vector_width).
+// * whole waves: at most kGramBlocksPerSM blocks per SM in the grid
+//   (the wrapper reads it, build.gram_grid_cap), and __launch_bounds__ that keep a tile's
+//   registers low enough for 4, 2 or 1 of its blocks to share an SM.
+// * one launch: each block writes its partial sums; the last block to
+//   finish (an atomic ticket after __threadfence) adds every block's
+//   partials in block order, one warp per output with a fixed shuffle
+//   tree, and re-arms the ticket to 0.  The grid is a function of S, so
+//   the order of every sum, and the result's bits, repeat run to run.  The
+//   ticket is one word per stream that the wrapper zeroes once, when it
+//   first launches on that stream.
+constexpr int kGramBlocksPerSM = 4;
 
 template <typename T>
 struct Rows {
@@ -305,55 +335,123 @@ __device__ __forceinline__ const T* row_ptr(const Rows<T>& rows, int k,
   return nullptr;
 }
 
-// The body K3 and K7 share: the block's partial sums of one R x C tile of
-// the Gram, operands of type T accumulated in Acc.  red is the block's
-// shared scratch of R * C * kWarps Acc.
-template <typename T, typename Acc, int R, int C>
-__device__ __forceinline__ void gram_tile(const Rows<T>& rows,
-                                          const T* __restrict__ z, int p,
-                                          long long S,
-                                          Acc* __restrict__ partial,
-                                          Acc* red) {
+// VEC consecutive elements at p: one 16-byte load when VEC > 1 (p then
+// 16-byte aligned), else one scalar load.
+template <typename T, int VEC>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p,
+                                         T (&v)[VEC]) {
+  if constexpr (VEC == 1) {
+    v[0] = __ldg(p);
+  } else if constexpr (VEC == 4) {
+    static_assert(sizeof(T) == 4, "four-wide loads are float4");
+    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    static_assert(VEC == 2 && sizeof(T) == 8, "two-wide loads are double2");
+    const double2 d = __ldg(reinterpret_cast<const double2*>(p));
+    v[0] = d.x;
+    v[1] = d.y;
+  }
+}
+
+// Register budget of an R x C tile summed in Acc: its accumulators take
+// R * C * sizeof(Acc) / 4 registers.  Up to 8 leave room for 4 blocks of
+// 256 threads on an SM (64 registers a thread) and two vectors a trip; up
+// to 32, 2 blocks (128 registers); more, 1 block.  Each is a divisor of
+// kGramBlocksPerSM, so the grid runs in whole waves.
+template <typename Acc, int R, int C>
+struct GramTraits {
+  static constexpr int kAccRegs = R * C * (int)sizeof(Acc) / 4;
+  static constexpr int kMinBlocks = kAccRegs <= 8    ? kGramBlocksPerSM
+                                    : kAccRegs <= 32 ? kGramBlocksPerSM / 2
+                                                     : 1;
+  static constexpr int kVecsPerTrip = kMinBlocks == kGramBlocksPerSM ? 2 : 1;
+};
+
+// acc[k * C + j] += <x_k, z_j> over NV vectors, `stride` vectors apart,
+// from vector v on: every load is issued before the first product.
+template <typename T, typename Acc, int R, int C, int VEC, int NV>
+__device__ __forceinline__ void gram_trip(const T* (&xr)[R],
+                                          const T* (&zr)[C],
+                                          long long v, long long stride,
+                                          Acc (&acc)[R * C]) {
+  T xv[NV][R][VEC], zv[NV][C][VEC];
+#pragma unroll
+  for (int u = 0; u < NV; ++u) {
+    const long long e = (v + u * stride) * VEC;
+#pragma unroll
+    for (int j = 0; j < C; ++j) load_vec<T, VEC>(zr[j] + e, zv[u][j]);
+#pragma unroll
+    for (int k = 0; k < R; ++k) load_vec<T, VEC>(xr[k] + e, xv[u][k]);
+  }
+#pragma unroll
+  for (int u = 0; u < NV; ++u)
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+#pragma unroll
+      for (int j = 0; j < C; ++j)
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          acc[k * C + j] += Acc(xv[u][k][i]) * Acc(zv[u][j][i]);
+}
+
+// The (K, p) Gram of operands of type T with sums in Acc, rounded to TOut
+// once.  partial holds gridDim.x * K * p Acc; ticket is 0 at launch and
+// is 0 again when the kernel ends.
+template <typename T, typename Acc, typename TOut, int R, int C, int VEC>
+__global__ void __launch_bounds__(kThreads,
+                                  GramTraits<Acc, R, C>::kMinBlocks)
+    gram_kernel(Rows<T> rows, const T* __restrict__ z, int p, long long S,
+                Acc* __restrict__ partial, unsigned* __restrict__ ticket,
+                TOut* __restrict__ out) {
+  constexpr int U = GramTraits<Acc, R, C>::kVecsPerTrip;
+  __shared__ Acc red[R * C * kWarps];
+  __shared__ bool last;
   const int K = rows.total;
   const int k0 = blockIdx.y * R, j0 = blockIdx.z * C;
   const T* xr[R];
   const T* zr[C];
 #pragma unroll
-  for (int k = 0; k < R; ++k)
-    xr[k] = k0 + k < K ? row_ptr(rows, k0 + k, S) : nullptr;
+  for (int k = 0; k < R; ++k) xr[k] = row_ptr(rows, min(k0 + k, K - 1), S);
 #pragma unroll
-  for (int j = 0; j < C; ++j)
-    zr[j] = j0 + j < p ? z + (long long)(j0 + j) * S : nullptr;
+  for (int j = 0; j < C; ++j) zr[j] = z + (long long)min(j0 + j, p - 1) * S;
   Acc acc[R * C];
 #pragma unroll
   for (int i = 0; i < R * C; ++i) acc[i] = Acc(0);
+  const long long nvec = S / VEC;  // S % VEC == 0: the wrapper's choice
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
-       s += stride) {
-    Acc zv[C];
-#pragma unroll
-    for (int j = 0; j < C; ++j) zv[j] = zr[j] ? Acc(zr[j][s]) : Acc(0);
-#pragma unroll
-    for (int k = 0; k < R; ++k) {
-      const Acc xv = xr[k] ? Acc(xr[k][s]) : Acc(0);
-#pragma unroll
-      for (int j = 0; j < C; ++j) acc[k * C + j] += xv * zv[j];
-    }
-  }
+  long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (; v + (U - 1) * stride < nvec; v += U * stride)
+    gram_trip<T, Acc, R, C, VEC, U>(xr, zr, v, stride, acc);
+  if (v < nvec) gram_trip<T, Acc, R, C, VEC, 1>(xr, zr, v, stride, acc);
+
   block_sum<Acc, R * C>(acc, red);
-  Acc* part = partial + (long long)blockIdx.x * K * p;
+  const int nout = K * p;
+  Acc* part = partial + (long long)blockIdx.x * nout;
   for (int i = threadIdx.x; i < R * C; i += blockDim.x) {
     const int k = k0 + i / C, j = j0 + i % C;
     if (k < K && j < p) part[k * p + j] = red[i * kWarps];
   }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    block_grams_kernel(Rows<T> rows, const T* __restrict__ z, int p,
-                       long long S, T* __restrict__ partial) {
-  __shared__ T red[kGramRows * kGramCols * kWarps];
-  gram_tile<T, T, kGramRows, kGramCols>(rows, z, p, S, partial, red);
+  // the last block to finish adds every block's partials, in block order
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0)
+    last = atomicAdd(ticket, 1u) == gridDim.x * gridDim.y * gridDim.z - 1;
+  __syncthreads();
+  if (!last) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < nout; o += kWarps) {
+    Acc s = Acc(0);
+    for (int b = lane; b < (int)gridDim.x; b += 32)
+      s += __ldcg(partial + (long long)b * nout + o);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) s += __shfl_down_sync(0xffffffffu, s, d);
+    if (lane == 0) out[o] = TOut(s);
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -444,27 +542,18 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K7: partial sums of gram(cat(x0..x3), z) of float32 operands in float64.
+// K7: gram(cat(x0..x3), z) of float32 operands with float64 sums.
 // Replaces block_grams_compensated (lanczos_tpu/ops/pallas/block_dense.py:361).
 // The TPU has no f64, so the JAX kernel carries Dekker TwoProd/TwoSum
 // two-float sums.  Here a float32 x float32 product is exact in float64,
-// and every sum (per thread, the block tree, sum_partials in block order)
-// runs in float64; the (K, p) total is rounded to float32 once: O(eps_f32)
-// error instead of O(eps_f32 sqrt(n)).
+// and every sum (per thread, the block tree, the last block's sum in block
+// order) runs in float64; the (K, p) total is rounded to float32 once:
+// O(eps_f32) error instead of O(eps_f32 sqrt(n)).
 // Bound: device memory, as K3: one read of each operand, 2 * 449.8 MB for
-// (q,), v, include_zz at N=160 p=4.  The f64 sums double K3's register
-// tile, so the tile is 8 x 4 (64 registers of sums) instead of 12 x 4;
-// K = 8 rows of the main path's calls still fit one tile, read once.
-constexpr int kCompRows = 8;
-constexpr int kCompCols = 4;
-
-__global__ void __launch_bounds__(kThreads)
-    block_grams_compensated_kernel(Rows<float> rows,
-                                   const float* __restrict__ z, int p,
-                                   long long S, double* __restrict__ partial) {
-  __shared__ double red[kCompRows * kCompCols * kWarps];
-  gram_tile<float, double, kCompRows, kCompCols>(rows, z, p, S, partial, red);
-}
+// (q,), v, include_zz at N=160 p=4.  It is K3's gram_kernel with Acc =
+// double: the same tiles and float4 loads; the f64 sums double each
+// tile's accumulator registers, so its 8 x 4 tile runs one block per SM
+// (GramTraits) where K3's runs two.
 
 // ---------------------------------------------------------------------------
 // K8: the windowed-ELL SpMM, Y = A X on planes of an assembled matrix.
@@ -473,48 +562,139 @@ __global__ void __launch_bounds__(kThreads)
 // the chunk's ppc planes k, data[c*ppc+k][l] * X[:, col] with col =
 // wb[c / cpg] + off[c*ppc+k] * 128 + lidx[c*ppc+k][l].  The Pallas kernel
 // DMAs each group's band of x into VMEM and rebuilds the gather from two
-// 128-lane register selects: the TPU cannot gather.  Here one thread owns
-// one output row and all (up to MAXP) columns of the state: a warp reads
-// each plane's values and uint8 indices coalesced, once for all columns;
-// the plane's offset is a warp-uniform load; the gathers of x go through
-// the read-only path and mostly hit L2 (a group's band, ~1.4 MB at p=8 on
-// the 10.5M-row slice, does not fit shared memory but fits the 50 MB L2).
-// No bounds logic: the planner keeps every col below n128, and empty slots
-// are value 0 at offset 0 and local index 0.
+// 128-lane register selects: the TPU cannot gather.
 // Bound: device memory.  At the assembled slice's shape (10.5M rows, ppc
-// 15, p=8): planes 631 MB + indices 158 MB + offsets 5 MB + X and Y 337 MB
-// each, 1.47 GB a call.  f32 sums in f32 (as the Pallas kernel), f64 in f64.
+// 15): planes 631 MB + indices 158 MB + offsets 5 MB, plus one read of X
+// and one write of Y, 42 MB each a column: 878 MB a call at p=1, 1.47 GB
+// at p=8.  A warp owns one 128-row chunk and a lane four of its rows: it
+// reads the plane's values as a float4 (or two double2) and its four uint8
+// indices as one 4-byte word, with streaming loads; the plane's offset is a
+// warp-uniform load.  The gathers of x go through the read-only path and
+// mostly hit L1 and L2: a plane's 128 rows gather inside one 256-wide
+// window, 1 KB of x a column.  The next stage's value, index and offset
+// loads are issued before the current stage's gathers, so the load ->
+// gather chain does not set the pace.  One launch covers up to kSpmmCols
+// columns.  No bounds logic: the plan guarantees off * 128 + lidx < wsz and
+// wb + wsz <= n128 (WindowedEllMatrix checks it once per plan); empty slots
+// are value 0 at index 0.  f32 sums in f32 (as the Pallas
+// kernel), f64 in f64.
+// Staging a group's band of x in shared memory, as the Pallas kernel does
+// in VMEM, fits one column in f32 on the slice (43,008 elements), but was
+// measured slower at p=1 than these L1/L2 gathers, whose windows L1 already
+// serves (PERF.md, NVIDIA H100 80GB HBM3, 700 W: 0.319 against 0.303 ms),
+// so K8 has this one kernel.  p=1 0.303 ms against a 0.262 ms bound; p=8
+// 0.784 ms against 0.438.
 constexpr int kSpmmCols = 8;  // columns per launch; wider states loop
+
+// Four consecutive T at p (16-byte aligned), one float4 or two double2,
+// as streaming loads: the planes are read once, so their lines are the
+// first evicted, and x's stay in L1 and L2.
+template <typename T>
+__device__ __forceinline__ void load4_stream(const T* __restrict__ p,
+                                             T (&v)[4]) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
+}
+
+// Four consecutive T to p: 16-byte stores where p is 16-byte aligned.
+template <typename T>
+__device__ __forceinline__ void store4(T* __restrict__ p, const T (&v)[4],
+                                       bool aligned) {
+  if (!aligned) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) p[i] = v[i];
+  } else if constexpr (sizeof(T) == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+    reinterpret_cast<double2*>(p)[0] = make_double2(v[0], v[1]);
+    reinterpret_cast<double2*>(p)[1] = make_double2(v[2], v[3]);
+  }
+}
+
+// One plane as a lane sees it: its four rows' values and uint8 indices,
+// and the plane's offset in 128-blocks from the group's window base.
+template <typename T>
+struct PlaneSlot {
+  T v[4];
+  unsigned li;
+  int off;
+};
+
+// Planes k0 .. k0 + U - 1 (those below ppc) of the chunk whose planes
+// start at plane0.
+template <typename T, int U>
+__device__ __forceinline__ void load_planes(
+    const T* __restrict__ data, const unsigned* __restrict__ lidx,
+    const int* __restrict__ off, long long plane0, int k0, int ppc, int lane,
+    PlaneSlot<T> (&st)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    if (k0 + u < ppc) {
+      const long long j = plane0 + k0 + u;
+      load4_stream(data + j * 128 + 4 * lane, st[u].v);
+      st[u].li = __ldcs(lidx + j * 32 + lane);
+      st[u].off = __ldg(off + j);
+    }
+  }
+}
 
 template <typename T, int MAXP>
 __global__ void __launch_bounds__(kThreads)
     windowed_spmm_kernel(const T* __restrict__ data,
-                         const unsigned char* __restrict__ lidx,
+                         const unsigned* __restrict__ lidx,
                          const int* __restrict__ off,
                          const int* __restrict__ wb, const T* __restrict__ x,
                          T* __restrict__ y, int p, int ppc, int cpg,
                          long long n128) {
-  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (r >= n128) return;
-  const long long c = r >> 7;
-  const int l = (int)(r & 127);
+  // planes a stage; the next stage's loads go out before this stage's
+  // gathers
+  constexpr int U = MAXP == 1 ? 4 : 2;
+  const long long c = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (c * 128 >= n128) return;
   const long long base = wb[c / cpg];
-  const long long plane0 = c * ppc;
-  T acc[MAXP];
-#pragma unroll
-  for (int b = 0; b < MAXP; ++b) acc[b] = T(0);
-#pragma unroll 4
-  for (int k = 0; k < ppc; ++k) {
-    const long long j = plane0 + k;
-    const T v = data[j * 128 + l];
-    const long long col = base + (long long)off[j] * 128 + lidx[j * 128 + l];
-#pragma unroll
-    for (int b = 0; b < MAXP; ++b)
-      if (b < p) acc[b] += v * __ldg(x + b * n128 + col);
-  }
+  T acc[MAXP][4];
 #pragma unroll
   for (int b = 0; b < MAXP; ++b)
-    if (b < p) y[b * n128 + r] = acc[b];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[b][e] = T(0);
+  PlaneSlot<T> cur[U], nxt[U];
+  load_planes<T, U>(data, lidx, off, c * ppc, 0, ppc, lane, cur);
+  for (int k0 = 0; k0 < ppc; k0 += U) {
+    if (k0 + U < ppc)
+      load_planes<T, U>(data, lidx, off, c * ppc, k0 + U, ppc, lane, nxt);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (k0 + u < ppc) {
+        const long long col = base + (long long)cur[u].off * 128;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long ce = col + ((cur[u].li >> (8 * e)) & 255);
+#pragma unroll
+          for (int b = 0; b < MAXP; ++b)
+            if (b < p) acc[b][e] += cur[u].v[e] * __ldg(x + b * n128 + ce);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) cur[u] = nxt[u];
+  }
+  const bool aligned = (reinterpret_cast<uintptr_t>(y) & 15) == 0;
+#pragma unroll
+  for (int b = 0; b < MAXP; ++b)
+    if (b < p) store4(y + b * n128 + c * 128 + 4 * lane, acc[b], aligned);
 }
 
 // ---------------------------------------------------------------------------
@@ -696,44 +876,56 @@ int block_mix(const void* x0, int p0, const void* x1, int p1, const void* x2,
   return (int)cudaErrorInvalidValue;
 }
 
-template <typename T>
-int block_grams(const void* x0, int p0, const void* x1, int p1,
-                const void* x2, int p2, const void* x3, int p3, const void* z,
-                int p, long long S, void* partial, int nblocks, void* out,
-                cudaStream_t st) {
-  Rows<T> rows{{static_cast<const T*>(x0), static_cast<const T*>(x1),
-                static_cast<const T*>(x2), static_cast<const T*>(x3)},
-               {p0, p1, p2, p3},
-               p0 + p1 + p2 + p3};
-  const dim3 grid(nblocks, (rows.total + kGramRows - 1) / kGramRows,
-                  (p + kGramCols - 1) / kGramCols);
-  block_grams_kernel<T><<<grid, kThreads, 0, st>>>(
-      rows, static_cast<const T*>(z), p, S, static_cast<T*>(partial));
-  const int err = finish();
-  if (err) return err;
-  return sum_partials<T>(static_cast<const T*>(partial), nblocks,
-                         rows.total * p, static_cast<T*>(out), st);
-}
+// The (R, C) tiles and vector widths the wrapper may pick
+// (block_dense.gram_tile); another combination is refused.
+template <typename T, typename Acc, typename TOut>
+struct GramLaunch {
+  Rows<T> rows;
+  const T* z;
+  int p;
+  long long S;
+  Acc* partial;
+  unsigned* ticket;
+  TOut* out;
+  dim3 grid;
+  cudaStream_t st;
 
-int block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
-                            const void* x2, int p2, const void* x3, int p3,
-                            const void* z, int p, long long S, void* partial,
-                            int nblocks, void* out, cudaStream_t st) {
-  Rows<float> rows{{static_cast<const float*>(x0),
-                    static_cast<const float*>(x1),
-                    static_cast<const float*>(x2),
-                    static_cast<const float*>(x3)},
-                   {p0, p1, p2, p3},
-                   p0 + p1 + p2 + p3};
-  const dim3 grid(nblocks, (rows.total + kCompRows - 1) / kCompRows,
-                  (p + kCompCols - 1) / kCompCols);
-  block_grams_compensated_kernel<<<grid, kThreads, 0, st>>>(
-      rows, static_cast<const float*>(z), p, S, static_cast<double*>(partial));
-  const int err = finish();
-  if (err) return err;
-  return sum_partials<double, float>(static_cast<const double*>(partial),
-                                     nblocks, rows.total * p,
-                                     static_cast<float*>(out), st);
+  template <int R, int C>
+  int run(int vec) const {
+    constexpr int kVec = 16 / (int)sizeof(T);
+    if (vec == kVec)
+      gram_kernel<T, Acc, TOut, R, C, kVec><<<grid, kThreads, 0, st>>>(
+          rows, z, p, S, partial, ticket, out);
+    else
+      gram_kernel<T, Acc, TOut, R, C, 1><<<grid, kThreads, 0, st>>>(
+          rows, z, p, S, partial, ticket, out);
+    return finish();
+  }
+};
+
+template <typename T, typename Acc, typename TOut>
+int gram(const void* x0, int p0, const void* x1, int p1, const void* x2,
+         int p2, const void* x3, int p3, const void* z, int p, long long S,
+         int tile_r, int tile_c, int vec, void* partial, int nblocks,
+         void* ticket, void* out, cudaStream_t st) {
+  const Rows<T> rows{{static_cast<const T*>(x0), static_cast<const T*>(x1),
+                      static_cast<const T*>(x2), static_cast<const T*>(x3)},
+                     {p0, p1, p2, p3},
+                     p0 + p1 + p2 + p3};
+  if ((vec != 1 && vec != 16 / (int)sizeof(T)) || S % vec)
+    return (int)cudaErrorInvalidValue;
+  const GramLaunch<T, Acc, TOut> g{
+      rows, static_cast<const T*>(z), p, S, static_cast<Acc*>(partial),
+      static_cast<unsigned*>(ticket), static_cast<TOut*>(out),
+      dim3(nblocks, (rows.total + tile_r - 1) / tile_r,
+           (p + tile_c - 1) / tile_c),
+      st};
+  if (tile_c == 1 && tile_r == 1) return g.template run<1, 1>(vec);
+  if (tile_c == 1 && tile_r == 2) return g.template run<2, 1>(vec);
+  if (tile_c == 4 && tile_r == 4) return g.template run<4, 4>(vec);
+  if (tile_c == 4 && tile_r == 8) return g.template run<8, 4>(vec);
+  if (tile_c == 4 && tile_r == 12) return g.template run<12, 4>(vec);
+  return (int)cudaErrorInvalidValue;
 }
 
 template <typename T>
@@ -766,17 +958,20 @@ template <typename T>
 int windowed_spmm(const void* data, const void* lidx, const void* off,
                   const void* wb, const void* x, void* y, int p, int ppc,
                   int cpg, long long n128, cudaStream_t st) {
-  const unsigned nblocks = (unsigned)((n128 + kThreads - 1) / kThreads);
+  const T* dt = static_cast<const T*>(data);
+  const unsigned* li = static_cast<const unsigned*>(lidx);
+  const int* of = static_cast<const int*>(off);
+  const int* w = static_cast<const int*>(wb);
+  const T* xt = static_cast<const T*>(x);
+  T* yt = static_cast<T*>(y);
+  const unsigned nblocks = (unsigned)((n128 / 128 + kWarps - 1) / kWarps);
   for (int b0 = 0; b0 < p; b0 += kSpmmCols) {
     const int pk = p - b0 < kSpmmCols ? p - b0 : kSpmmCols;
     auto kernel = pk == 1   ? windowed_spmm_kernel<T, 1>
                   : pk <= 4 ? windowed_spmm_kernel<T, 4>
                             : windowed_spmm_kernel<T, kSpmmCols>;
-    kernel<<<nblocks, kThreads, 0, st>>>(
-        static_cast<const T*>(data), static_cast<const unsigned char*>(lidx),
-        static_cast<const int*>(off), static_cast<const int*>(wb),
-        static_cast<const T*>(x) + b0 * n128, static_cast<T*>(y) + b0 * n128,
-        pk, ppc, cpg, n128);
+    kernel<<<nblocks, kThreads, 0, st>>>(dt, li, of, w, xt + b0 * n128,
+                                         yt + b0 * n128, pk, ppc, cpg, n128);
     const int err = finish();
     if (err) return err;
   }
@@ -824,14 +1019,18 @@ int lt_block_mix(int dtype, const void* x0, int p0, const void* x1, int p1,
 
 int lt_block_grams(int dtype, const void* x0, int p0, const void* x1, int p1,
                    const void* x2, int p2, const void* x3, int p3,
-                   const void* z, int p, long long S, void* partial,
-                   int nblocks, void* out, void* stream) {
+                   const void* z, int p, long long S, int tile_r, int tile_c,
+                   int vec, void* partial, int nblocks, void* ticket,
+                   void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? block_grams<float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
-                                  partial, nblocks, out, st)
-             : block_grams<double>(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
-                                   partial, nblocks, out, st);
+             ? gram<float, float, float>(x0, p0, x1, p1, x2, p2, x3, p3, z,
+                                         p, S, tile_r, tile_c, vec, partial,
+                                         nblocks, ticket, out, st)
+             : gram<double, double, double>(x0, p0, x1, p1, x2, p2, x3, p3,
+                                            z, p, S, tile_r, tile_c, vec,
+                                            partial, nblocks, ticket, out,
+                                            st);
 }
 
 int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
@@ -858,12 +1057,14 @@ int lt_fdtd_step(int dtype, const void* u, void* out, const void* wz,
 
 int lt_block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
                                const void* x2, int p2, const void* x3, int p3,
-                               const void* z, int p, long long S,
-                               void* partial, int nblocks, void* out,
+                               const void* z, int p, long long S, int tile_r,
+                               int tile_c, int vec, void* partial,
+                               int nblocks, void* ticket, void* out,
                                void* stream) {
-  return block_grams_compensated(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
-                                 partial, nblocks, out,
-                                 static_cast<cudaStream_t>(stream));
+  return gram<float, double, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
+                                    tile_r, tile_c, vec, partial, nblocks,
+                                    ticket, out,
+                                    static_cast<cudaStream_t>(stream));
 }
 
 int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
@@ -872,9 +1073,13 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0 ? windowed_spmm<float>(data, lidx, off, wb, x, y, p, ppc,
                                            cpg, n128, st)
-                    : windowed_spmm<double>(data, lidx, off, wb, x, y, p, ppc,
-                                            cpg, n128, st);
+                    : windowed_spmm<double>(data, lidx, off, wb, x, y, p,
+                                            ppc, cpg, n128, st);
 }
+
+// Blocks of the Gram kernel an SM holds, the grid's cap per SM
+// (build.gram_grid_cap).
+int lt_gram_blocks_per_sm() { return kGramBlocksPerSM; }
 
 int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
                      const void* wp, const int* taps, int p, int zc,

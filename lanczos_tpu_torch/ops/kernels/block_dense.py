@@ -17,9 +17,12 @@ operand once:
   H100 an f32 x f32 product is exact in f64, so the kernel accumulates in
   f64 and rounds the total to f32 once.
 
-On CUDA tensors they launch block_mix_kernel, block_grams_kernel and
-block_grams_compensated_kernel of `csrc/lanczos_kernels.cu`; on CPU
-tensors they run the plain versions.
+On CUDA tensors they launch block_mix_kernel and gram_kernel (K3, and K7
+with f64 sums) of `csrc/lanczos_kernels.cu`; on CPU tensors they run the
+plain versions.  The Gram launch is set by pure functions of the call:
+`gram_tile` (the register tile, from (K, p)), `gram_vector_width` (16-byte
+or scalar loads, from S and the operands' alignment) and `gram_blocks`
+(the grid, from S and the card's cap, `build.gram_grid_cap`).
 """
 
 from __future__ import annotations
@@ -122,10 +125,55 @@ def _gram_operands(name, xs, z, include_zz):
     return xs
 
 
+def gram_tile(K: int, p: int) -> tuple[int, int]:
+    """The (R, C) register tile of gram_kernel for a (K, p) Gram: exact at
+    the fused recurrence's calls (K = p or 2p at p = 1 and p = 4), so none
+    of them carries a dead accumulator; the 12 x 4 tile for every other
+    shape, repeated over the grid's y/z axes when K > 12 or p > 4.  Each
+    exact tile beats 12 x 4 on its call (PERF.md, `probes --gram-tiles`)."""
+    if p == 1 and K <= 2:
+        return K, 1
+    if p == 4 and K in (4, 8):
+        return K, 4
+    return 12, 4
+
+
+def gram_vector_width(S: int, itemsize: int, ptrs) -> int:
+    """Elements per load of gram_kernel: 16 bytes' worth (4 f32, 2 f64)
+    when every operand row starts on a 16-byte boundary (each operand's
+    pointer is aligned and a row of S elements is a multiple of 16 bytes),
+    else 1, the scalar instantiation."""
+    if (S * itemsize) % 16 == 0 and all(ptr % 16 == 0 for ptr in ptrs):
+        return 16 // itemsize
+    return 1
+
+
+def gram_blocks(S: int, max_blocks: int) -> int:
+    """Blocks of gram_kernel's grid, a function of S on a given card (so
+    the sums add in the same order on every run): one block per 1024
+    elements (256 threads, 4 elements each), at most `max_blocks`."""
+    return max(1, min(-(-S // 1024), max_blocks))
+
+
+_tickets: dict = {}
+
+
+def _ticket(z: torch.Tensor) -> torch.Tensor:
+    """The word gram_kernel's blocks take their ticket from, one per
+    (device, stream).  Zeroed here once, at the first launch on the
+    stream; every launch's last block sets it back to 0, and launches on
+    one stream run in order, so no call needs a memset of its own."""
+    key = (z.device, build.stream_handle(z))
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=z.device)
+    return _tickets[key]
+
+
 def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
     """Shared launch of the two Gram kernels through the C entry point
     `entry` (its leading arguments `lead`): the (K, p) result from
-    per-block partial sums in `acc`, added in block order."""
+    per-block partial sums in `acc`, added in block order by the grid's
+    last block."""
     build.require_cuda(name, z, *xs)
     p = z.shape[0]
     ops = list(xs) + ([z] if include_zz else [])
@@ -133,13 +181,16 @@ def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
     rows = [x.shape[0] for x in ops] + [0] * (4 - len(ops))
     K = sum(rows)
     S = z[0].numel()
-    nblocks = build.grid_blocks(S)
+    tile_r, tile_c = gram_tile(K, p)
+    vec = gram_vector_width(S, z.element_size(),
+                            [x.data_ptr() for x in (*xs, z)])
+    nblocks = gram_blocks(S, build.gram_grid_cap(z.device))
     partial = torch.empty((nblocks, K, p), dtype=acc, device=z.device)
     out = torch.empty((K, p), dtype=out_dtype, device=z.device)
     err = getattr(build.library(), entry)(
         *lead, ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2], rows[2], ptrs[3],
-        rows[3], z.data_ptr(), p, S, partial.data_ptr(), nblocks,
-        out.data_ptr(), build.stream_handle(z),
+        rows[3], z.data_ptr(), p, S, tile_r, tile_c, vec, partial.data_ptr(),
+        nblocks, _ticket(z).data_ptr(), out.data_ptr(), build.stream_handle(z),
     )
     build.LAUNCHES[name] += 1
     build.check(err, name)

@@ -53,16 +53,21 @@ _SIGNATURES = {
     "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
     "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _P),
     "lt_block_grams": (
-        _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
+        _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I,
+        _P, _P, _P,
     ),
     "lt_stencil_pair_gram": (
         _I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _I, _P, _P,
     ),
     "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
     "lt_block_grams_compensated": (
-        _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _P, _I, _P, _P,
+        _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P,
+        _P, _P,
     ),
-    "lt_windowed_spmm": (_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P),
+    "lt_windowed_spmm": (
+        _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P,
+    ),
+    "lt_gram_blocks_per_sm": (),
     "lt_apply_stencil": (
         _I, _P, _P, _P, _P, _IP, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P,
     ),
@@ -70,6 +75,7 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 build_log = ""
+_gram_grid_caps: dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -164,6 +170,17 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
     dtype_code(tensors[0])
+
+
+def gram_grid_cap(device: torch.device) -> int:
+    """The most blocks of the Gram kernel's grid on `device`: the kernel's
+    blocks per SM (kGramBlocksPerSM of the .cu) times the card's SMs, so
+    the grid runs in whole waves (528 on an H100).  Read once a device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _gram_grid_caps:
+        sms = torch.cuda.get_device_properties(index).multi_processor_count
+        _gram_grid_caps[index] = library().lt_gram_blocks_per_sm() * sms
+    return _gram_grid_caps[index]
 
 
 def grid_blocks(n: int) -> int:

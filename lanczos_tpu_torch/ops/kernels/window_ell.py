@@ -11,21 +11,26 @@ Rows up to n128 = C_pad*128 are written, the zero pad included.
 
 The Pallas kernel stages each group's band of x in VMEM with a double-
 buffered DMA and rebuilds the gather from two 128-lane register selects,
-because the TPU cannot gather.  A GPU gathers natively, and the band
-(~1.4 MB per group at p=8 on the 10.5M-row slice) fits the 50 MB L2 but
-not shared memory, so K8 is not that block structure: one thread per
-output row reads each plane value and uint8 index once (coalesced across
-the warp) and uses them for all p columns, the plane's offset is one
-warp-uniform load, and the gathered x goes through the read-only path
-with no bounds logic (the planner keeps every column below n128; empty
-slots are value 0 at offset 0).  Device memory bounds it: the planes,
-their indices and offsets, and one read of X and one write of Y.
+because the TPU cannot gather.  A GPU gathers natively: windowed_spmm_kernel
+gives a warp one 128-row chunk and a lane four of its rows, reads each
+plane's values and uint8 indices as 16-byte and 4-byte loads, issues the
+next planes' loads before this plane's gathers, and gathers x through the
+read-only path, where L1 and L2 serve a plane's 256-wide window; one launch
+covers up to 8 columns.  It has no bounds logic: the plan keeps every
+column in the group's band, below n128 (`WindowedEllMatrix` checks it once
+per plan); empty slots are value 0 at index 0.  Device memory bounds it:
+the planes, their indices and offsets, and one read of X and one write of
+Y.  On the 10.5M-row slice (PERF.md; NVIDIA H100 80GB HBM3, 700 W) p=1
+takes 0.303 ms against a 0.262 ms bound and cuSPARSE's 0.467, p=8 0.784 ms
+against 0.438.  Staging the band in shared memory, which fits one f32
+column there, was measured slower (0.319 ms at p=1) and is not used.
 
 f32 states accumulate in f32, as the Pallas kernel does; f64 states in
 f64 (the Pallas kernel casts f64 planes to f32 and sums in f32).
 
 On a CUDA tensor `windowed_spmm` launches windowed_spmm_kernel of
-`csrc/lanczos_kernels.cu`; on a CPU tensor it runs `windowed_spmm_plain`.
+`csrc/lanczos_kernels.cu` and counts each launch in `build.LAUNCHES`; on a
+CPU tensor it runs `windowed_spmm_plain`.
 """
 
 from __future__ import annotations
@@ -93,11 +98,17 @@ def windowed_spmm(A, X: torch.Tensor, out: torch.Tensor | None = None
         if t.device != X.device or not t.is_contiguous():
             raise ValueError("windowed_spmm: plane arrays must be contiguous "
                              f"on {X.device}")
+    # the kernel reads a lane's four values as 16 bytes and its four
+    # indices as one 4-byte word (always so for the plan's own buffers)
+    if A.planes_data.data_ptr() % 16 or A.planes_lidx.data_ptr() % 4:
+        raise ValueError("windowed_spmm: plane arrays must be 16-byte "
+                         "(values) and 4-byte (indices) aligned")
+    p = X.shape[0]
     err = build.library().lt_windowed_spmm(
         build.dtype_code(X), A.planes_data.data_ptr(), A.planes_lidx.data_ptr(),
         A.planes_off.data_ptr(), A.wb.data_ptr(), X.data_ptr(), out.data_ptr(),
-        X.shape[0], A.ppc, A.cpb * A.spg, A.n128, build.stream_handle(X),
+        p, A.ppc, A.cpb * A.spg, A.n128, build.stream_handle(X),
     )
-    build.LAUNCHES["windowed_spmm"] += -(-X.shape[0] // SPMM_COLS)
+    build.LAUNCHES["windowed_spmm"] += -(-p // SPMM_COLS)
     build.check(err, "windowed_spmm")
     return out

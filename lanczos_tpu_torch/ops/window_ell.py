@@ -408,6 +408,16 @@ class WindowedEllMatrix(LinearOperator):
                 or c_pad * LANES != self.n128
                 or c_pad != self.ng * self.chunks_per_group):
             raise ValueError("plane arrays do not fit the geometry")
+        # K8 gathers x[wb + off * 128 + lidx] with no bounds logic, so
+        # every slot must fall in its group's band and every band below
+        # n128: lidx < 256, so (off + 2) * 128 <= wsz suffices.  Checked
+        # once here.
+        if self.planes_off.numel() and (
+                int(self.planes_off.min()) < 0
+                or (int(self.planes_off.max()) + 2) * LANES > self.wsz
+                or int(self.wb.min()) < 0
+                or int(self.wb.max()) + self.wsz > self.n128):
+            raise ValueError("plane offsets or window bases leave the band")
 
     @classmethod
     def from_arrays(cls, planes_data, planes_lidx, planes_off, wb, perm, *,

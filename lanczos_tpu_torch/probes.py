@@ -3,6 +3,8 @@
     python -m lanczos_tpu_torch.probes
     python -m lanczos_tpu_torch.probes --p1-variants
     python -m lanczos_tpu_torch.probes --assembled
+    python -m lanczos_tpu_torch.probes --ab OLD.cu
+    python -m lanczos_tpu_torch.probes --gram-tiles
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -38,6 +40,23 @@ of one `block_lanczos_eigsh` run on its padded windowed operator (p=8,
 m=12, k=5, reorth full, TSQR, breakdown_eps 1e-4, replace_dead,
 compute_vectors) and of 50 FDTD steps of the ELL slice's operator
 (`--operator ell`, N=48, p=4).
+
+With --ab OLD.cu it prints only this, a same-call A/B of the Gram and
+SpMM kernels: OLD.cu is an earlier `csrc/lanczos_kernels.cu` with the C
+interface those kernels had before their redesign (K3 and K7 as a
+partial-sum kernel plus a second pass; K8 one row a thread), built and
+loaded beside the current library.  K3 (q,), v, include_zz at p=1 and p=4
+and K7 at p=4 on N=160 Maxwell-sized states (f32), and K8 at p=1 and p=8
+on the 10,485,760-row synthetic matrix of the assembled slice, each timed
+old, new, new, old (CUDA events, 20 calls after 2 warm-up calls), with the
+largest difference between the two results.  The source before the
+redesign is `git show 4cc30dd:lanczos_tpu_torch/csrc/lanczos_kernels.cu`.
+
+With --gram-tiles it prints only this: K3 at the fused recurrence's calls
+(`(), b` and `(q,), v`, include_zz: K = p and 2p) at p=1 and p=4, and K7 at
+p=4, on N=160 Maxwell-sized states (f32), each on the register tile
+`block_dense.gram_tile` picks and on the 12 x 4 tile, timed in turns
+(picked, 12 x 4, 12 x 4, picked).
 """
 
 from __future__ import annotations
@@ -144,6 +163,20 @@ def probe_profile(label, run_once, dev) -> None:
               "(the trace holds no device events)", flush=True)
 
 
+def _ms(fn, iters=20, warmup=2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def _p1_variants(src: str) -> dict[str, str]:
     rolled = "#pragma unroll 1\n    for (int c = 0; c < 6; ++c)"
     to_p4 = {f"p == 1 ? {k}<T, 1>": f"p == 0 ? {k}<T, 1>"
@@ -188,18 +221,7 @@ def probe_p1_variants(dev) -> None:
     u4 = torch.randn((P,) + op.state_shape, generator=g, device=dev)
     out1, out4 = torch.empty_like(u1), torch.empty_like(u4)
 
-    def ms(fn, iters=50):
-        for _ in range(3):
-            fn()
-        torch.cuda.synchronize(dev)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize(dev)
-        return start.elapsed_time(end) / iters
+    ms = lambda fn: _ms(fn, iters=50, warmup=3)  # noqa: E731
 
     source, ref, regs = build.SOURCE, None, {}
     variants = _p1_variants(source.read_text())
@@ -223,6 +245,136 @@ def probe_p1_variants(dev) -> None:
                       flush=True)
     finally:
         build.SOURCE, build._lib = source, None
+
+
+# the C interface of the Gram and SpMM entry points before their redesign
+_OLD_SIGNATURES = {
+    "lt_block_grams": ("I", "P", "I", "P", "I", "P", "I", "P", "I", "P", "I",
+                       "LL", "P", "I", "P", "P"),
+    "lt_block_grams_compensated": ("P", "I", "P", "I", "P", "I", "P", "I",
+                                   "P", "I", "LL", "P", "I", "P", "P"),
+    "lt_windowed_spmm": ("I", "P", "P", "P", "P", "P", "P", "I", "I", "I",
+                         "LL", "P"),
+}
+
+
+def _old_library(path: str):
+    import ctypes
+    from pathlib import Path
+
+    types = {"I": ctypes.c_int, "P": ctypes.c_void_p, "LL": ctypes.c_longlong}
+    source = build.SOURCE
+    try:
+        build.SOURCE = Path(path).resolve()
+        lib = ctypes.CDLL(str(build.build()))
+    finally:
+        build.SOURCE = source
+    for name, sig in _OLD_SIGNATURES.items():
+        getattr(lib, name).argtypes = [types[t] for t in sig]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _ab(label, old_fn, new_fn, names=("old", "new")) -> None:
+    """old, new, new, old; each call leaves its result in a buffer of its
+    own, compared after the first round."""
+    got_old, got_new = old_fn(), new_fn()
+    torch.cuda.synchronize()
+    diff = (got_old.double() - got_new.double()).abs().max().item()
+    t = [_ms(f) for f in (old_fn, new_fn, new_fn, old_fn)]
+    a, b = names
+    print(f"ab {label}: {a} {t[0]:.4f} {t[3]:.4f}, {b} {t[1]:.4f} {t[2]:.4f} "
+          f"ms (means {a} {(t[0] + t[3]) / 2:.4f}, {b} {(t[1] + t[2]) / 2:.4f}); "
+          f"max |{a} - {b}| {diff:.3e}", flush=True)
+
+
+def probe_ab(dev, old_path: str) -> None:
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.kernels import block_dense
+    from lanczos_tpu_torch.ops.kernels import window_ell as k8
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    old = _old_library(old_path)
+    build.library()
+    st = torch.cuda.current_stream(dev).cuda_stream
+    S = 6 * 176 * 26624  # one column of the N=160 Maxwell state
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def old_gram(entry, lead, q, v, acc, out_dtype):
+        p, K = v.shape[0], 2 * v.shape[0]
+        nblocks = build.grid_blocks(S)
+        partial = torch.empty((nblocks, K, p), dtype=acc, device=dev)
+        out = torch.empty((K, p), dtype=out_dtype, device=dev)
+
+        def run():
+            build.check(getattr(old, entry)(
+                *lead, q.data_ptr(), p, v.data_ptr(), p, None, 0, None, 0,
+                v.data_ptr(), p, S, partial.data_ptr(), nblocks,
+                out.data_ptr(), st), entry)
+            return out
+        return run
+
+    for p in (1, P):
+        q, v = torch.randn((2, p, S), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        v /= v.norm(dim=1, keepdim=True)
+        _ab(f"K3 (q,), v, include_zz p={p}",
+            old_gram("lt_block_grams", (0,), q, v, torch.float32, torch.float32),
+            lambda: block_dense.block_grams((q,), v, include_zz=True))
+        if p == P:
+            _ab(f"K7 (q,), v, include_zz p={p}",
+                old_gram("lt_block_grams_compensated", (), q, v, torch.float64,
+                         torch.float32),
+                lambda: block_dense.block_grams_compensated((q,), v, include_zz=True))
+        del q, v
+    torch.cuda.empty_cache()
+
+    a = synth_suitesparse_banded(10_485_760)
+    A = windowed_from_scipy(a, reorder="none", device=dev)
+    for p in (1, 8):
+        X = A.pack(torch.randn((p, a.shape[0]), generator=g, device=dev))
+        y_old, y_new = torch.empty_like(X), torch.empty_like(X)
+
+        def old_spmm():
+            build.check(old.lt_windowed_spmm(
+                0, A.planes_data.data_ptr(), A.planes_lidx.data_ptr(),
+                A.planes_off.data_ptr(), A.wb.data_ptr(), X.data_ptr(),
+                y_old.data_ptr(), p, A.ppc, A.cpb * A.spg, A.n128, st),
+                "lt_windowed_spmm")
+            return y_old
+
+        _ab(f"K8 p={p}", old_spmm, lambda: k8.windowed_spmm(A, X, y_new))
+        del X, y_old, y_new
+
+
+def probe_gram_tiles(dev) -> None:
+    from lanczos_tpu_torch.ops.kernels import block_dense
+
+    S = 6 * 176 * 26624  # one column of the N=160 Maxwell state
+    g = torch.Generator(device=dev).manual_seed(0)
+    picked = block_dense.gram_tile
+    for p in (1, P):
+        q, v = torch.randn((2, p, S), generator=g, device=dev)
+        q /= q.norm(dim=1, keepdim=True)
+        v /= v.norm(dim=1, keepdim=True)
+        calls = [("K3 (), v", block_dense.block_grams, ()),
+                 ("K3 (q,), v", block_dense.block_grams, (q,))]
+        if p == P:
+            calls += [("K7 (), v", block_dense.block_grams_compensated, ()),
+                      ("K7 (q,), v", block_dense.block_grams_compensated, (q,))]
+        for label, fn, xs in calls:
+            tile = picked(len(xs) * p + p, p)
+
+            def on(t, fn=fn, xs=xs):
+                block_dense.gram_tile = lambda K, p: t
+                try:
+                    return fn(xs, v, include_zz=True)
+                finally:
+                    block_dense.gram_tile = picked
+            _ab(f"{label} include_zz p={p}", lambda: on(tile), lambda: on((12, 4)),
+                names=(f"{tile[0]}x{tile[1]}", "12x4"))
+        del q, v
+    torch.cuda.empty_cache()
 
 
 def probe_assembled(dev) -> None:
@@ -273,6 +425,12 @@ def main() -> None:
         return
     if "--assembled" in sys.argv[1:]:
         probe_assembled(dev)
+        return
+    if "--ab" in sys.argv[1:]:
+        probe_ab(dev, sys.argv[sys.argv.index("--ab") + 1])
+        return
+    if "--gram-tiles" in sys.argv[1:]:
+        probe_gram_tiles(dev)
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

@@ -174,6 +174,110 @@ def test_grid_is_a_function_of_size_only():
     assert build.grid_blocks(1) == 1
     assert build.grid_blocks(256 * 7) == 7
     assert build.grid_blocks(10**9) == 1024
+    h100 = 4 * 132  # kGramBlocksPerSM blocks on each of 132 SMs
+    assert block_dense.gram_blocks(1, h100) == 1
+    assert block_dense.gram_blocks(1024 * 7, h100) == 7
+    # N=160 Maxwell: 28,114,944 elements a column; whole waves on 132 SMs
+    assert block_dense.gram_blocks(6 * 176 * 26624, h100) == h100
+    assert block_dense.gram_blocks(6 * 176 * 26624, 4 * 114) == 4 * 114
+
+
+# K3/K7's launch: the register tile from (K, p), exact at the main path's
+# calls ((), b and (q,), v with include_zz: K = p and 2p) and the 12 x 4
+# tile elsewhere
+@pytest.mark.parametrize("K,p,tile", [
+    (1, 1, (1, 1)), (2, 1, (2, 1)), (3, 1, (12, 4)), (4, 4, (4, 4)),
+    (8, 4, (8, 4)), (4, 1, (12, 4)), (12, 1, (12, 4)), (13, 1, (12, 4)),
+    (2, 2, (12, 4)), (12, 4, (12, 4)), (6, 3, (12, 4)), (27, 9, (12, 4)),
+])
+def test_gram_tile_is_exact_on_the_main_path(K, p, tile):
+    assert block_dense.gram_tile(K, p) == tile
+
+
+@pytest.mark.parametrize("S,itemsize,offsets,vec", [
+    (6 * 176 * 26624, 4, (0, 0), 4),  # N=160 Maxwell f32: float4 loads
+    (6 * 176 * 26624, 8, (0, 0), 2),  # f64: double2 loads
+    (1001, 4, (0, 0), 1),             # a flat state, n % 4 != 0
+    (1001, 8, (0, 0), 1),             # 8008 bytes a row: not a multiple of 16
+    (1000, 4, (0, 4), 1),             # one operand at an odd element offset
+    (1000, 4, (0, 16), 4),            # offset by a whole 16 bytes
+    (1000, 8, (8, 0), 1),
+])
+def test_gram_vector_width_follows_size_and_alignment(S, itemsize, offsets, vec):
+    ptrs = [4096 + o for o in offsets]
+    assert block_dense.gram_vector_width(S, itemsize, ptrs) == vec
+
+
+def test_gram_vector_width_of_split_views():
+    """Rows of a split buffer start at its row stride: an odd row length
+    misaligns every other row, an odd leading row every row after it."""
+    def width(parts, z):
+        return block_dense.gram_vector_width(
+            z[0].numel(), z.element_size(), [t.data_ptr() for t in (*parts, z)])
+
+    even = torch.zeros((3, 1024))
+    assert width(even.split(1)[:2], even[2:]) == 4
+    odd = torch.zeros((3, 1023))
+    assert width(odd.split(1)[:2], odd[2:]) == 1
+    flat = torch.zeros(1 + 2 * 1024)
+    x, z = flat[1:1025].view(1, 1024), flat[1025:].view(1, 1024)
+    assert width((x,), z) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("name", ["rectangular", "unstructured", "rcm_band",
+                                  "997_rows", "wide_band"])
+def test_k8_plans_keep_every_slot_in_its_band(name, dtype):
+    """What K8 gathers with no bounds logic: every plane slot's column lies
+    in its group's band [wb, wb + wsz), every band below n128, and an empty
+    slot (value 0) reads index 0 of its plane's window; the plain product
+    agrees with scipy's."""
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        plane_columns,
+        windowed_spmm,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    a, kw = _k8_case(name)
+    A = windowed_from_scipy(a, dtype=dtype, ppc_cap=256, device="cpu", **kw)
+    cols = plane_columns(A)
+    C = cols.shape[0]
+    base = A.wb.long()[torch.arange(C) // (A.cpb * A.spg)].view(C, 1, 1)
+    assert bool(((cols >= base) & (cols < base + A.wsz)).all())
+    assert int(A.wb.max()) + A.wsz <= A.n128
+    empty = A.planes_data.view(cols.shape) == 0
+    assert bool((A.planes_lidx.view(cols.shape)[empty] == 0).all())
+    x = np.random.default_rng(2).standard_normal((1, a.shape[1]))
+    X = A.pack(A.permute(torch.from_numpy(x).to(dtype)))
+    y = A.unpermute(A.unpack(windowed_spmm(A, X), 1)).double().numpy()
+    ref = (a @ x.T).T
+    tol = 2e-6 if dtype == torch.float32 else 1e-13
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+def test_plan_check_refuses_slots_outside_the_band():
+    import scipy.sparse as sp
+
+    from lanczos_tpu_torch.ops.window_ell import (
+        WindowedEllMatrix,
+        windowed_from_scipy,
+    )
+
+    A = windowed_from_scipy(sp.identity(300, format="csr"), device="cpu")
+    geom = dict(n_rows_true=A.n_rows_true, n_cols_true=A.n_cols_true,
+                ppc=A.ppc, cpb=A.cpb, spg=A.spg, wsz=A.wsz, n128=A.n128,
+                nnz_true=A.nnz_true, device="cpu")
+    arrays = [t.numpy().copy() for t in (A.planes_data, A.planes_lidx,
+                                         A.planes_off, A.wb)]
+    WindowedEllMatrix(*arrays, None, **geom)
+    bad_off = arrays[2].copy()
+    bad_off[0] = A.wsz // 128 - 1  # its slots would reach past the band
+    with pytest.raises(ValueError, match="band"):
+        WindowedEllMatrix(*arrays[:2], bad_off, arrays[3], None, **geom)
+    bad_wb = arrays[3].copy()
+    bad_wb[0] = A.n128 - A.wsz + 128
+    with pytest.raises(ValueError, match="band"):
+        WindowedEllMatrix(*arrays[:3], bad_wb, None, **geom)
 
 
 # -- on the card: each kernel against its plain version -------------------
@@ -261,6 +365,78 @@ def test_k3_block_grams_vs_plain(cuda, rows, p, include_zz, dtype):
     _close(got, want, dtype)
     # deterministic: the same inputs give the same bits
     assert torch.equal(got, block_dense.block_grams(xs, z, include_zz=include_zz))
+
+
+def _gram_check(xs, z, include_zz, dtype, compensated=False):
+    """K3 (or K7) against its plain version, one launch, bit-equal on a
+    repeat."""
+    name = "block_grams_compensated" if compensated else "block_grams"
+    fn = getattr(block_dense, name)
+    before = build.LAUNCHES[name]
+    got = fn(xs, z, include_zz=include_zz)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[name] == before + 1
+    want = getattr(block_dense, name + "_plain")(xs, z, include_zz=include_zz)
+    if compensated:
+        got64, want64 = got.double().cpu(), want.double().cpu()
+        assert (got64 - want64).abs().max().item() <= K7_RTOL * want64.abs().max().item()
+    else:
+        _close(got, want, dtype)
+    assert torch.equal(got, fn(xs, z, include_zz=include_zz))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("n", [1001, 4099])
+def test_k3_flat_states_of_odd_length(cuda, n, p, dtype):
+    """Flat (p, n) states with n % 4 != 0 (the ELL and matrix operators'
+    states) take the scalar instantiation, on the main path's tiles."""
+    g = torch.Generator(device="cpu").manual_seed(n + p)
+    q, v = (torch.randn((p, n), generator=g, dtype=dtype).to(cuda) for _ in range(2))
+    assert block_dense.gram_vector_width(n, q.element_size(),
+                                         [q.data_ptr(), v.data_ptr()]) == 1
+    _gram_check((q,), v, True, dtype)
+    _gram_check((), v, True, dtype)
+    if dtype == torch.float32:
+        _gram_check((q,), v, True, dtype, compensated=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 4])
+def test_k3_operands_at_an_odd_element_offset(cuda, p, dtype):
+    """q and v split from one buffer with an odd leading row: 16-byte rows
+    (n = 4096) whose pointers are 4 (f32) or 8 (f64) bytes off alignment."""
+    n = 4096
+    g = torch.Generator(device="cpu").manual_seed(7)
+    buf = torch.randn((1 + 2 * p, n), generator=g, dtype=dtype).to(cuda)
+    flat = buf.view(-1)[1 : 1 + 2 * p * n]
+    q, v = flat[: p * n].view(p, n), flat[p * n :].view(p, n)
+    assert block_dense.gram_vector_width(n, q.element_size(),
+                                         [q.data_ptr(), v.data_ptr()]) == 1
+    _gram_check((q,), v, True, dtype)
+    _gram_check((q, q, v), v, False, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 4])
+@pytest.mark.parametrize("K", [1, 2, 3, 12, 20])
+def test_k3_every_tile(cuda, K, p, dtype):
+    """K rows against p columns on the 16-byte path: the exact tiles at
+    K = p, 2p, the 12 x 4 tile otherwise, K = 20 over two tiles of
+    rows."""
+    _, z = _op_state(6, p, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(K)
+    rows = [K // 3, K // 3, K - 2 * (K // 3)]
+    xs = [torch.randn((r,) + tuple(z.shape[1:]), generator=g, dtype=dtype).to(cuda)
+          for r in rows if r]
+    assert block_dense.gram_vector_width(
+        z[0].numel(), z.element_size(), [x.data_ptr() for x in (*xs, z)]) > 1
+    _gram_check(xs, z, False, dtype)
+    if dtype == torch.float32:
+        _gram_check(xs, z, False, dtype, compensated=True)
 
 
 @pytest.mark.cuda
@@ -360,6 +536,13 @@ def _k8_case(name):
     if name == "rcm_band":
         perm = np.random.default_rng(5).permutation(1500)
         return band(1500, 3)[perm][:, perm].tocsr(), dict(reorder="rcm")
+    if name == "wide_band":
+        # unstructured 100k x 100k, one nonzero a row: its band spans the
+        # whole matrix, 100,224 elements
+        n = 100_000
+        rng = np.random.default_rng(11)
+        return sp.csr_matrix((rng.standard_normal(n), (np.arange(n), rng.integers(0, n, n))),
+                             shape=(n, n)), {}
     return band(999, 1)[:997, :999].tocsr(), {}
 
 
@@ -369,7 +552,7 @@ def _k8_case(name):
 @pytest.mark.parametrize("p", [1, 3, 12])
 def test_k8_windowed_spmm_vs_plain_and_scipy(cuda, name, dtype, p):
     """K8 against its plain version (KERNEL_RTOL) and against scipy's f64
-    product (2e-6 of scale in f32, 1e-13 in f64); p=12 takes two column
+    product (2e-6 of scale in f32, 1e-13 in f64).  p=12 takes two column
     groups of the kernel, so two launches."""
     from lanczos_tpu_torch.ops.kernels.window_ell import (
         windowed_spmm,
@@ -393,6 +576,56 @@ def test_k8_windowed_spmm_vs_plain_and_scipy(cuda, name, dtype, p):
     ref = (a @ x.T).T
     tol = 2e-6 if dtype == torch.float32 else 1e-13
     assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 2])
+def test_k8_wide_band_vs_plain_and_scipy(cuda, dtype, p):
+    """An unstructured 100k x 100k matrix, whose band spans every column:
+    held to plain and scipy."""
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        windowed_spmm,
+        windowed_spmm_plain,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    a, kw = _k8_case("wide_band")
+    A = windowed_from_scipy(a, dtype=dtype, ppc_cap=256, device=cuda, **kw)
+    x = np.random.default_rng(1).standard_normal((p, a.shape[1]))
+    X = A.pack(torch.from_numpy(x).to(cuda, dtype))
+    before = build.LAUNCHES["windowed_spmm"]
+    got = windowed_spmm(A, X)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["windowed_spmm"] == before + 1
+    want = windowed_spmm_plain(A, X)
+    assert (got - want).abs().max().item() <= KERNEL_RTOL[dtype] * want.abs().max().item()
+    y = A.unpack(got, p).double().cpu().numpy()
+    ref = (a @ x.T).T
+    tol = 2e-6 if dtype == torch.float32 else 1e-13
+    assert np.abs(y - ref).max() <= tol * np.abs(ref).max()
+
+
+@pytest.mark.cuda
+def test_k8_with_unaligned_x_and_out(cuda):
+    """x at an odd element offset, and y written with scalar stores where
+    it is not 16-byte aligned."""
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        windowed_spmm,
+        windowed_spmm_plain,
+    )
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    a, kw = _k8_case("rcm_band")
+    A = windowed_from_scipy(a, ppc_cap=256, device=cuda, **kw)
+    flat = torch.randn(2 * A.n128 + 2, device=cuda)
+    X = flat[1 : 1 + A.n128].view(1, -1)
+    out = flat[A.n128 + 2 :].view(1, -1)
+    before = build.LAUNCHES["windowed_spmm"]
+    got = windowed_spmm(A, X, out)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["windowed_spmm"] == before + 1
+    _close(got, windowed_spmm_plain(A, X), torch.float32)
 
 
 @pytest.mark.cuda
