@@ -13,10 +13,13 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 3. kernel vs plain: each stencil-path kernel (K1-K5, K7) against its plain
    PyTorch version on the card, at the main paths' shapes (Maxwell N=160
    at p=4, the block slices, and at p=1, the vector slice; K4 and K7 at
-   p=4 only, the vector slice runs neither) and at a small odd geometry
-   (N=11, p=3, f32 and f64; K7 takes f32 only), with the tolerance stated
-   below, and timed against its plain version and against a device copy
-   of the same bytes; K7 also against the f64 Gram on inputs spread over
+   p=4 only, the vector slice runs neither) and at small geometries that
+   K1/K5's strips must handle: N=11 (p=3, f32 and f64; K7 takes f32
+   only), N=3 (a 128-lane plane, narrower than a strip; p=2), a
+   non-cubic 37 x 24 x 11 grid (P=1152, no multiple of the strip; p=3,
+   f64) and p=5 (N=11, f32), with the tolerance stated below; at N=160
+   timed against its plain version and against a device copy of the
+   same bytes; K7 also against the f64 Gram on inputs spread over
    e^+-6, at a bound that K3's f32 sums must miss; K6, the generic
    stencil, against its plain version at small geometries (6 -> 3 fields
    with 27 taps per output, a 7-point 1 -> 1 set, an odd Zc; p=1 and p=3;
@@ -54,7 +57,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    (p, n) states; relative error under 1e-3;
 10. the unpaired pair: A U at N=160 p=4 through `apply_stencil_pair`
     with paired=False on both halves, two K6 launches and no K1, within
-    1e-5 of K1's paired A U, both timed;
+    1e-5 of K1's paired A U, both timed; then K5 (its own kernel, one
+    launch) and K4 (K3 and K6 launches) with the same unpaired specs,
+    each against its plain version;
 11. checkpoint/resume at N=160 p=4: `block_lanczos_checkpointed` (m=6,
     chunk 3) against `block_lanczos(fused=False)`; a run stopped at j=4
     and resumed, and an FDTD run (2000 steps, chunks of 1000) stopped
@@ -73,7 +78,8 @@ is 10^6 steps, the smoke takes 2000 to fit its time budget.
 Output: one JSON line of per-kernel results (launches summed over the
 slices; bound_ms the larger of the bytes over the card's memory rate and
 the operations over its peak rate; K3 and K8 also at p=1, in rows of their
-own that count the launches at p=1), the nvidia-smi line, and as the last
+own that count the launches at p=1, and so K1 and K5, whose p=1 rows
+count the vector slice's launches), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -133,9 +139,19 @@ REPLACES = {
     "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
     "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
 }
-# the kernels with a row of their own at p=1: K3 runs at p=1 in every step
-# of the vector slice, K8 in every step of the assembled vector eigsh
-P1_ROWS = ("block_grams", "windowed_spmm")
+# the kernels with a row of their own at p=1: K1 and K3 run at p=1 in every
+# step of the vector slice and K5 in every step of its FDTD, K8 in every
+# step of the assembled vector eigsh
+P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step")
+# phase 3's geometries: (nx, ny, nz), p, dtype name; the first is timed
+KERNEL_CASES = (
+    ((N_SLICE,) * 3, P_SLICE, "float32"),
+    ((11, 11, 11), 3, "float32"),
+    ((11, 11, 11), 3, "float64"),
+    ((3, 3, 3), 2, "float32"),          # P=128: narrower than a strip
+    ((37, 24, 11), 3, "float64"),       # xc != yc, P=1152
+    ((11, 11, 11), 5, "float32"),       # p=5
+)
 # the unpaired pair (two K6 launches) against K1's factored A U, relative
 # to the result's scale: the factoring changes the rounding only
 UNPAIRED_RTOL = 1e-5
@@ -268,12 +284,11 @@ def phase_kernels(torch, results, failures):
         return err
 
     rows = results.setdefault("rows", {})
-    for n, p, dtype in ((N_SLICE, P_SLICE, torch.float32),
-                        (11, 3, torch.float32), (11, 3, torch.float64)):
-        dname = str(dtype).split(".")[-1]
-        timed = n == N_SLICE
-        log(f"kernels vs plain at N={n} p={p} {dname}")
-        op = PallasMaxwellOperator.create(n, n, n, dtype=dtype, device=dev)
+    for geometry, p, dname in KERNEL_CASES:
+        dtype = getattr(torch, dname)
+        timed = geometry == (N_SLICE,) * 3
+        log(f"kernels vs plain at {'x'.join(map(str, geometry))} p={p} {dname}")
+        op = PallasMaxwellOperator.create(*geometry, dtype=dtype, device=dev)
         shape = (p,) + op.state_shape
         g = torch.Generator(device=dev).manual_seed(0)
 
@@ -322,7 +337,7 @@ def phase_kernels(torch, results, failures):
                 u, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
             record("apply_stencil_pair", "K1 apply_stencil_pair" + tag, op.mm(u),
                    plain_k1(), lambda: op.mm(u), plain_k1, 2 * pbytes,
-                   12 * pk * S)
+                   12 * pk * S, key=None if pk == p else "apply_stencil_pair p=1")
             del u
 
             # K2: block_mix, 1-, 2- and 3-operand, and in place (the mono
@@ -418,7 +433,8 @@ def phase_kernels(torch, results, failures):
                 failures.append("K5 did not write its out buffer")
             record("fdtd_step", f"K5 fdtd_step p={pk}", got, plain_k5(),
                    lambda: a_dt.fdtd_step(u, out), plain_k5,
-                   2 * state_bytes * pk // p, 13 * pk * S)
+                   2 * state_bytes * pk // p, 13 * pk * S,
+                   key=None if pk == p else "fdtd_step p=1")
             if timed and pk == p:
                 # the two passes it replaces: K1 then an in-place add
                 two_ms = cuda_ms(torch, lambda: u.clone().add_(a_dt.mm(u)))
@@ -692,7 +708,8 @@ def phase_vector_slice(torch, build, results, failures):
     log(f"vector slice: python -m lanczos_tpu_torch -N {N_SLICE} -m {M_VECTOR} "
         f"--vector --operator pallas --fdtd-steps {FDTD_STEPS} --lc {LC}")
     out, launches = drive(torch, build, results, "vector", cfg)
-    results.setdefault("p1_launches", {})["block_grams"] = launches["block_grams"]
+    for name in ("block_grams", "apply_stencil_pair", "fdtd_step"):
+        results.setdefault("p1_launches", {})[name] = launches[name]
     # the fused route at p=1: K2 -> K1 -> K3 per step, no mono (K4)
     check_slice(out, launches, {
         "apply_stencil_pair": M_VECTOR, "block_mix": M_VECTOR,
@@ -1081,6 +1098,46 @@ def phase_unpaired_pair(torch, build, results, failures):
     k1_ms = cuda_ms(torch, lambda: op.mm(u))
     log(f"  A U: unpaired via K6 (2 launches) {k6_ms:.4f} ms, paired K1 "
         f"{k1_ms:.4f} ms")
+    unpaired_k4_k5(torch, build, op, u, loose, failures)
+
+
+def unpaired_k4_k5(torch, build, op, u, loose, failures):
+    """K5 and K4 with both halves unpaired at N=160 p=4, each against its
+    plain version: K5 in its own kernel (one launch), K4 as K3, two K6
+    and K3 launches (no K4)."""
+    from lanczos_tpu_torch.ops.kernels import stencil_fdtd, stencil_gram
+
+    a_dt = op.scaled(1.0 / FDTD_STEPS)
+    checks = {}
+    build.reset_launches()
+    got = stencil_fdtd.fdtd_step(u, torch.empty_like(u), a_dt.wz_t,
+                                 a_dt.wplane_s, *loose)
+    torch.cuda.synchronize()
+    checks["K5 unpaired"] = (dict(build.LAUNCHES), {"fdtd_step": 1}, got,
+                             stencil_fdtd.fdtd_step_plain(
+                                 u, torch.empty_like(u), a_dt.wz_t,
+                                 a_dt.wplane_s, *loose))
+    dst = torch.randn_like(u)
+    want_v, want_g3 = stencil_gram.apply_stencil_pair_gram_plain(
+        u, dst.clone(), op.wz_t, op.wplane_s, *loose)
+    build.reset_launches()
+    v, g3 = stencil_gram.apply_stencil_pair_gram(u, dst, op.wz_t, op.wplane_s,
+                                                 *loose)
+    torch.cuda.synchronize()
+    k4_launches = dict(build.LAUNCHES)
+    checks["K4 unpaired v"] = (k4_launches, {"block_grams": 2, "apply_stencil": 2},
+                               v, want_v)
+    checks["K4 unpaired g3"] = (k4_launches, {"block_grams": 2, "apply_stencil": 2},
+                                g3, want_g3)
+    for label, (launches, want_launches, got, want) in checks.items():
+        err, rel, ok = compare(torch, got, want, KERNEL_RTOL["float32"])
+        nonzero = {k: c for k, c in launches.items() if c}
+        log(f"  {label} vs plain: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+            f"{KERNEL_RTOL['float32']:.0e}) {'ok' if ok else 'FAIL'}; launches "
+            f"{nonzero}")
+        if not ok or nonzero != want_launches:
+            failures.append(f"{label}: rel {rel:.3e}, launches {nonzero}, "
+                            f"expected {want_launches}")
 
 
 def phase_checkpoint(torch, build, results, failures):

@@ -16,16 +16,17 @@
 // K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
 // (Zc, P) fields), and do a handful of flops per element, so device memory
 // bounds them all; so it does K8, the windowed-ELL SpMM of assembled
-// matrices (see its section).  At
-// the main path's shape (Maxwell N=160, p=4: Zc=176, P=26624) one block
-// state is 449.8 MB; the bytes each moves per call are noted at each
-// kernel.  K1, K2 and K4-K6 are plain first versions: one element (or one
-// position across the block) per thread in a grid-stride loop,
-// neighbouring threads on neighbouring addresses, no shared-memory
-// staging, no TMA or wgmma.  K3 (with K7, which shares its kernel) and K8
-// were redesigned for the card: exact-size register tiles, 16-byte loads
-// and a one-launch Gram; K8 16-byte plane loads, four rows a lane, with
-// the next planes' loads in flight before this plane's gathers (see their
+// matrices (see its section).  At the main path's shape (Maxwell N=160,
+// p=4: Zc=176, P=26624) one block state is 449.8 MB; the bytes each moves
+// per call are noted at each kernel.  K2, K4 and K6 are plain first
+// versions: one element (or one position across the block) per thread in
+// a grid-stride loop, neighbouring threads on neighbouring addresses, no
+// shared-memory staging, no TMA or wgmma.  The others were redesigned for
+// the card: K1 and K5 stage strips of rows in shared memory with cp.async
+// and keep their plane weights in registers along z; K3 (with K7, which
+// shares its kernel) takes exact-size register tiles, 16-byte loads and a
+// one-launch Gram; K8 16-byte plane loads, four rows a lane, with the next
+// planes' loads in flight before this plane's gathers (see their
 // sections).
 //
 // Cross-block sums (K3, K4, K7) are deterministic: each block writes its
@@ -52,9 +53,11 @@ struct CompTaps {
   int r[kMaxTaps];     // lane roll in [0, P): reads lane (l - r) mod P
 };
 
-// Taps come in (z-pair | plane-pair) twos: StencilSpec.paired.
+// Taps of the six output components.  A paired half's come in (z-pair |
+// plane-pair) twos (StencilSpec.paired); K4 takes paired halves only.
 struct StencilTaps {
   CompTaps comp[6];
+  int paired[2];  // per half
 };
 
 struct Geometry {
@@ -65,7 +68,7 @@ struct Geometry {
 };
 
 // Host int layout (see stencil_kernel.py tap_table): per output
-// component, n, t[4], ic[4], dz[4], r[4].
+// component, n, t[4], ic[4], dz[4], r[4]; then paired[2].
 StencilTaps unpack_taps(const int* h) {
   StencilTaps s;
   const int* c = h;
@@ -79,6 +82,8 @@ StencilTaps unpack_taps(const int* h) {
     }
     c += 1 + 4 * kMaxTaps;
   }
+  s.paired[0] = c[0];
+  s.paired[1] = c[1];
   return s;
 }
 
@@ -169,76 +174,314 @@ __global__ void sum_partials_kernel(const T* __restrict__ partial,
 }
 
 // ---------------------------------------------------------------------------
-// K1: out = A u over p block columns.
-// Replaces apply_stencil_pair (lanczos_tpu/ops/pallas/stencil_kernel.py:70),
-// vmapped over p by PallasMaxwellOperator.mm.
-// Bound: device memory.  One read and one write of the state, 2 * 449.8 MB
-// at N=160 p=4, plus 2.6 MB of plane weights; the 4 tap reads of an output
-// hit its neighbours (+-1 lane, +-xc lanes, +-1 z-row of the opposite half),
-// which L1/L2 serve.  One thread per (z, l) position, looping over the six
-// components and the p block columns, four per pass (one when p = 1;
-// stencil_pair_body), keeps every load and store coalesced along the lane
-// axis and decodes the position once.
-// The body K1 and K5 share: out = A u, plus u itself when kAddInput, for
-// output component c at (z, l) over the p block columns, COLS per pass.
-// taps is the block's shared-memory copy.
-template <typename T, bool kAddInput, int COLS>
-__device__ __forceinline__ void stencil_comp(
+// K1 and K5: the curl pair on strips of lanes staged in shared memory.
+// K1, stencil_pair_kernel: out = A u over p block columns.  Replaces
+// apply_stencil_pair (lanczos_tpu/ops/pallas/stencil_kernel.py:70), vmapped
+// over p by PallasMaxwellOperator.mm.
+// K5, fdtd_step_kernel: out = u + (dt A) u, one forward-Euler step.
+// Replaces fdtd_step_inplace (lanczos_tpu/ops/pallas/stencil_fdtd.py:50).
+// Bound: device memory.  One read and one write of the state, 2 * 112.5 MB
+// at N=160 p=1 and 2 * 449.8 MB at p=4 (0.0671 and 0.2686 ms at 3.35
+// TB/s); the ~12 flops an output element are far below the card's rate.
+// The first versions (one thread a position, every tap read through L1/L2,
+// plane weights re-read for every z-row) ran at 23-25% of that bound at p=1
+// and 45-51% at p=4.  What this design does about it:
+// * a block of 256 threads owns a strip of W = 512 lanes (two a thread,
+//   256 apart; f64: 256 lanes, one a thread) of all six components over a
+//   range of z-rows, and marches along z.  It reads its strip's plane
+//   weights once, into registers, and keeps them for every row and block
+//   column of its range; a row's z-weights are fetched once into shared
+//   memory and read as 16-byte words;
+// * input rows are staged once, in shared memory: a ring of kStencilSlots
+//   rows (z-1, z, z+1, two ahead and one behind) of the six components
+//   over the strip and its halo, filled with 16-byte cp.async whose
+//   sources each thread works out once.  Every tap, and K5's identity
+//   term, reads shared memory, so device memory sees each input element
+//   once, plus the halo's share (22% more reads at N=160, mostly from L2).
+//   The halo comes from the tap table's rolls, per input component and
+//   side (+-1 lane for the x-pairs, xc lanes on one side for the y-pairs),
+//   rounded to 16 bytes; its lanes wrap mod P.  Rows outside [0, Zc) are
+//   staged as zeros, so no tap ever reads a slot that was not written
+//   (NaN * 0 is NaN).  One barrier a row;
+// * the grid is strips x z-chunks, which the wrapper sizes to whole waves
+//   (stencil_kernel.stencil_plan: at N=160 f32, 52 x 5 blocks of 36 rows,
+//   two an SM); a block loops over the block columns and keeps its
+//   weights.  A warp stores 32 consecutive lanes: 128 contiguous bytes in
+//   f32.  A pair's form (z-pair or plane-pair) is a uniform branch.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700.00 W; PERF.md): K1
+// 0.116 ms at p=1 and 0.431 at p=4, K5 0.118 and 0.437, 57-62% of the
+// bound, against 0.263/0.529 (K1) and 0.292/0.593 (K5) for the first
+// versions.  256-lane
+// strips (four blocks an SM, more halo) run slower (probes
+// --stencil-tiles).  What is left is inside the SM: the
+// kernel without its taps and without its staging each take most of its
+// time, and the two overlap only in part at two blocks an SM (probes
+// --stencil-parts; PERF.md).
+// A paired half sums (v0 w0 + v1 w1) ws per tap pair, the Pallas kernel's
+// factored form; an unpaired half (v wp) wz per tap, in spec order (K5
+// only: K1's wrapper sends unpaired specs to K6).  K5 adds u to the tap sum
+// (the plain version's order; the Pallas kernel starts its sum at u, which
+// differs in rounding only).  The Pallas K5 updates u in place, which the
+// TPU's in-order grid and a VMEM delay ring make safe; CUDA blocks run in
+// no order and would overwrite rows a neighbour still stages, so out is a
+// second buffer (the caller swaps the two), never u.  No sum crosses a
+// block: the result repeats bit for bit.
+
+// staged rows: z-1, z, z+1, two ahead, and the row the slowest warp may
+// still read while the others stage the next one
+constexpr int kStencilSlots = 6;
+constexpr int kStencilAhead = kStencilSlots - 4;
+constexpr int kStageCopies = 8;  // 16-byte copies a thread stages a row
+constexpr int kRowWeights = 6 * kMaxTaps;  // z-weights of one row, (c, k)
+
+// What a launch of K1/K5 knows, built on the host from the tap table and
+// the wrapper's plan.  Indexed with compile-time indices only, so it stays
+// in the parameter space.
+struct StripArgs {
+  int zc, plane, nt, p;
+  int width;            // W: lanes a block owns
+  int zchunk;           // z-rows a block owns
+  long long state;      // 6 * zc * plane: elements of one block column
+  int row;              // elements of one staged row (six components)
+  int off[6];           // component c's lanes start at off[c] of a row
+  int left[6];          // staged lanes left of the strip, component c
+  int n[6];             // taps of output component c
+  int t[6][kMaxTaps];   // weight column of each tap
+  int dz[6][kMaxTaps];  // z-row offset in {-1, 0, 1}
+  // staged element that lane 0 of the strip reads for each tap:
+  // off[ic] + left[ic] - s, s the roll as a signed shift in (-P/2, P/2]
+  int soff[6][kMaxTaps];
+  int paired[2];        // per half: the factored form
+};
+
+// Blocks of 256 threads an SM must hold, for __launch_bounds__ (mirrored
+// by stencil_kernel.STENCIL_MIN_BLOCKS): four blocks leave 64 registers a
+// thread, for one f32 lane a thread; two 128.
+template <typename T, int LPT>
+struct StripTraits {
+  static constexpr int kMinBlocks = LPT == 1 && sizeof(T) == 4 ? 4 : 2;
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Four consecutive T of shared memory (16-byte aligned) into v.
+template <typename T>
+__device__ __forceinline__ void lds4(const T* p, T* v) {
+  if constexpr (sizeof(T) == 4) {
+    const float4 f = *reinterpret_cast<const float4*>(p);
+    v[0] = f.x;
+    v[1] = f.y;
+    v[2] = f.z;
+    v[3] = f.w;
+  } else {
+    const double2 a = reinterpret_cast<const double2*>(p)[0];
+    const double2 b = reinterpret_cast<const double2*>(p)[1];
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = b.x;
+    v[3] = b.y;
+  }
+}
+
+// out = A u, plus u itself when kAddInput, on this block's strip and
+// z-range for every block column, LPT lanes a thread, 256 apart.  The
+// staged rows' lane mapping is the same for every row, so it is worked out
+// once: copy m of a row lands at element (threadIdx.x + 256 m) * V of the
+// slot, from offset src[m] of the row's z-plane.  Thread j < kRowWeights
+// fetches each row's z-weight (c, k) = (j / 4, j % 4) into wrow (two
+// buffers, by the row's parity), which every thread then reads as 16-byte
+// words.  One barrier a row: a thread may stage a row, or fetch the next
+// row's z-weights, while a slower warp still computes the previous row,
+// whose slots and z-weight buffer the new ones do not touch.
+template <typename T, bool kAddInput, int LPT>
+__device__ __forceinline__ void strip_stencil_body(
     const T* __restrict__ u, T* __restrict__ out, const T* __restrict__ wz,
-    const T* __restrict__ wp, const StencilTaps& taps, const Geometry& g,
-    int p, int c, int z, int l, int s) {
-  const int h = c / 3;
-  const T* wzr = wz + ((long long)h * g.zc + z) * g.nt;
-  const T* wpl = wp + (long long)h * g.nt * g.plane + l;
-  const int e0 = c * g.zc * g.plane + s;  // < 2^30, checked by the wrapper
-  for (int b0 = 0; b0 < p; b0 += COLS) {
-    T acc[COLS];
-    stencil_cols<T, COLS>(u + b0 * g.state, g.state, p - b0, taps.comp[c],
-                          wzr, wpl, z, l, g, acc);
+    const T* __restrict__ wp, const StripArgs& a) {
+  constexpr int V = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char stencil_smem[];
+  T* ring = reinterpret_cast<T*>(stencil_smem);
+  T* wrows = ring + kStencilSlots * a.row;  // 16-byte aligned: row % V == 0
+  const int l0 = blockIdx.x * a.width;
+  const int w = min(a.width, a.plane - l0);
+  const int z0 = blockIdx.y * a.zchunk;
+  const int z1 = min(z0 + a.zchunk, a.zc);
+  const int nr = z1 - z0 + 2;  // staged rows a column: z0 - 1 .. z1
+  const int items = a.p * nr;
+  const int comp = a.zc * a.plane;  // < 2^30, checked by the wrapper
+
+  // where this thread's staging copies come from, within a z-plane
+  int src[kStageCopies];
 #pragma unroll
-    for (int b = 0; b < COLS; ++b) {
-      if (b0 + b < p) {
-        const long long e = (b0 + b) * g.state + e0;
-        out[e] = kAddInput ? u[e] + acc[b] : acc[b];
+  for (int m = 0; m < kStageCopies; ++m) {
+    const int e = (threadIdx.x + m * kThreads) * V;
+    int c = 0, off = a.off[0], left = a.left[0];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) {
+      if (e >= a.off[k]) {
+        c = k;
+        off = a.off[k];
+        left = a.left[k];
+      }
+    }
+    int g = (l0 - left + e - off) % a.plane;
+    if (g < 0) g += a.plane;
+    src[m] = e < a.row ? c * comp + g : -1;
+  }
+  // the z-weight this thread fetches for each row
+  int wcol = -1, wh = 0;
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+#pragma unroll
+    for (int k = 0; k < kMaxTaps; ++k)
+      if (threadIdx.x == c * kMaxTaps + k && k < a.n[c]) {
+        wcol = a.t[c][k];
+        wh = c / 3;
+      }
+  // the strip's plane weights, kept for every row and column
+  T wpr[6][kMaxTaps][LPT];
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    const T* wph = wp + (long long)(c / 3) * a.nt * a.plane + l0;
+#pragma unroll
+    for (int k = 0; k < kMaxTaps; ++k) {
+#pragma unroll
+      for (int j = 0; j < LPT; ++j) {
+        const int i = threadIdx.x + j * kThreads;
+        wpr[c][k][j] = k < a.n[c] && i < w
+                           ? __ldg(wph + (long long)a.t[c][k] * a.plane + i)
+                           : T(0);
       }
     }
   }
-}
 
-// One thread owns one (z, l) position and writes all six output
-// components there: a block then reads each input row's neighbourhood for
-// all the taps that need it, and K5's identity read of u, close together
-// in time, so L1 serves the repeats and device memory sees one read of u.
-// The position is decoded once for all components and columns.  p = 1
-// takes a one-column instantiation: the four-column one spends registers
-// and predicated loads on three empty columns.  The component loop stays
-// rolled: unrolled, it costs more occupancy than its overlapped loads gain
-// (158 registers and 2.4x the time at p = 1 on the H100; PERF.md).
-template <typename T, bool kAddInput, int COLS>
-__device__ __forceinline__ void stencil_pair_body(
-    const T* __restrict__ u, T* __restrict__ out, const T* __restrict__ wz,
-    const T* __restrict__ wp, const StencilTaps& taps, const Geometry& g,
-    int p) {
-  const int comp = g.zc * g.plane;  // elements of one component
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < comp;
-       s += gridDim.x * blockDim.x) {
-    const int l = s % g.plane;
-    const int z = s / g.plane;
-#pragma unroll 1
-    for (int c = 0; c < 6; ++c)
-      stencil_comp<T, kAddInput, COLS>(u, out, wz, wp, taps, g, p, c, z, l, s);
+  // item s of the staging sequence is row z0 - 1 + s % nr of column s / nr,
+  // in slot s % kStencilSlots
+  int issued = 0;
+  for (int b = 0; b < a.p; ++b) {
+    for (int z = z0; z < z1; ++z) {
+      const int sc = b * nr + (z - z0 + 1);  // this row's item
+      T* wrow = wrows + (sc & 1) * kRowWeights;
+      // items up to sc + 1 + kStencilAhead go into the slots of items
+      // before sc - 2, whose last reader finished before the last barrier;
+      // a new column's first row skips two items, so it waits for the
+      // previous row's readers too
+      if (z == z0 && b > 0) __syncthreads();
+      for (; issued <= sc + 1 + kStencilAhead; ++issued) {
+        if (issued < items) {
+          const int bb = issued / nr;
+          const int zz = z0 - 1 + issued - bb * nr;
+          T* slot = ring + (issued % kStencilSlots) * a.row;
+          if (zz < 0 || zz >= a.zc) {
+            for (int e = threadIdx.x; e < a.row; e += kThreads) slot[e] = T(0);
+          } else {
+            const T* plane = u + bb * a.state + (long long)zz * a.plane;
+#pragma unroll
+            for (int m = 0; m < kStageCopies; ++m)
+              if (src[m] >= 0)
+                cp_async16(slot + (threadIdx.x + m * kThreads) * V,
+                           plane + src[m]);
+          }
+        }
+        cp_async_commit();  // one group an item, empty past the end
+      }
+      if (threadIdx.x < kRowWeights)
+        wrow[threadIdx.x] =
+            wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + z) * a.nt + wcol)
+                      : T(0);
+      cp_async_wait<kStencilAhead>();  // items up to sc + 1 have landed
+      __syncthreads();  // ... for every thread, with zeros and z-weights
+      const int rm = ((sc - 1) % kStencilSlots) * a.row;
+      const int r0 = (sc % kStencilSlots) * a.row;
+      const int rp = ((sc + 1) % kStencilSlots) * a.row;
+      T* ob = out + b * a.state + (long long)z * a.plane + l0;
+#pragma unroll
+      for (int c = 0; c < 6; ++c) {
+        const int h = c / 3;
+        T wzv[kMaxTaps];
+        lds4(wrow + c * kMaxTaps, wzv);
+        // each tap's staged row at this thread's first lane; lane j is
+        // j * kThreads elements on
+        const T* rt[kMaxTaps];
+#pragma unroll
+        for (int k = 0; k < kMaxTaps; ++k) {
+          const int d = a.dz[c][k];
+          rt[k] = ring + (d < 0 ? rm : d == 0 ? r0 : rp) + a.soff[c][k] +
+                  threadIdx.x;
+        }
+        // every lane of the strip reads staged lanes (a plane narrower
+        // than the strip is staged wrapped); only the stores stop at w
+        auto tap = [&](int k, int j) { return rt[k][j * kThreads]; };
+        T acc[LPT];
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) acc[j] = T(0);
+        if (a.paired[h]) {
+#pragma unroll
+          for (int k = 0; k + 1 < kMaxTaps; k += 2) {
+            if (k + 1 >= a.n[c]) break;
+            // the pair's form is uniform: a branch, not a select a lane
+            if (a.dz[c][k] != a.dz[c][k + 1]) {  // z-pair: one plane weight
+#pragma unroll
+              for (int j = 0; j < LPT; ++j)
+                acc[j] += (tap(k, j) * wzv[k] + tap(k + 1, j) * wzv[k + 1]) *
+                          wpr[c][k][j];
+            } else {  // plane-pair: one z-weight
+#pragma unroll
+              for (int j = 0; j < LPT; ++j)
+                acc[j] += (tap(k, j) * wpr[c][k][j] +
+                           tap(k + 1, j) * wpr[c][k + 1][j]) *
+                          wzv[k];
+            }
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < kMaxTaps; ++k) {
+            if (k >= a.n[c]) break;
+#pragma unroll
+            for (int j = 0; j < LPT; ++j)
+              acc[j] += (tap(k, j) * wpr[c][k][j]) * wzv[k];
+          }
+        }
+        const T* center = ring + r0 + a.off[c] + a.left[c] + threadIdx.x;
+        T* oc = ob + (long long)c * comp + threadIdx.x;
+#pragma unroll
+        for (int j = 0; j < LPT; ++j) {
+          if (threadIdx.x + j * kThreads < w)
+            oc[j * kThreads] = kAddInput ? center[j * kThreads] + acc[j] : acc[j];
+        }
+      }
+    }
   }
+  cp_async_wait<0>();  // only empty groups can still be open
 }
 
-template <typename T, int COLS>
-__global__ void __launch_bounds__(kThreads)
+template <typename T, int LPT>
+__global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
     stencil_pair_kernel(const T* __restrict__ u, T* __restrict__ out,
                         const T* __restrict__ wz, const T* __restrict__ wp,
-                        StencilTaps taps, Geometry g, int p) {
-  __shared__ StencilTaps s_taps;
-  if (threadIdx.x == 0) s_taps = taps;
-  __syncthreads();
-  stencil_pair_body<T, false, COLS>(u, out, wz, wp, s_taps, g, p);
+                        const __grid_constant__ StripArgs a) {
+  strip_stencil_body<T, false, LPT>(u, out, wz, wp, a);
+}
+
+template <typename T, int LPT>
+__global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
+    fdtd_step_kernel(const T* __restrict__ u, T* __restrict__ out,
+                     const T* __restrict__ wz, const T* __restrict__ wp,
+                     const __grid_constant__ StripArgs a) {
+  strip_stencil_body<T, true, LPT>(u, out, wz, wp, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -519,29 +762,6 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// K5: out = u + (dt A) u over p block columns, one forward-Euler step.
-// Replaces fdtd_step_inplace (lanczos_tpu/ops/pallas/stencil_fdtd.py:50).
-// Bound: device memory.  One read of u and one write of out: 2 * 112.5 MB
-// at N=160 p=1, 2 * 449.8 MB at p=4, against five passes for K1 and a
-// separate add.  It is K1's body with the identity term added to the tap
-// sum (the plain version's order; the Pallas kernel starts its sum at u,
-// which differs in rounding only).  The Pallas kernel updates u in place,
-// which the TPU's in-order grid and a VMEM delay ring make safe; CUDA
-// blocks run in no order and would overwrite z-halo rows and +-xc lanes a
-// neighbour still reads, so out is a second buffer (the caller swaps the
-// two), never u.
-template <typename T, int COLS>
-__global__ void __launch_bounds__(kThreads)
-    fdtd_step_kernel(const T* __restrict__ u, T* __restrict__ out,
-                     const T* __restrict__ wz, const T* __restrict__ wp,
-                     StencilTaps taps, Geometry g, int p) {
-  __shared__ StencilTaps s_taps;
-  if (threadIdx.x == 0) s_taps = taps;
-  __syncthreads();
-  stencil_pair_body<T, true, COLS>(u, out, wz, wp, s_taps, g, p);
-}
-
-// ---------------------------------------------------------------------------
 // K7: gram(cat(x0..x3), z) of float32 operands with float64 sums.
 // Replaces block_grams_compensated (lanczos_tpu/ops/pallas/block_dense.py:361).
 // The TPU has no f64, so the JAX kernel carries Dekker TwoProd/TwoSum
@@ -819,30 +1039,155 @@ int sum_partials(const T* partial, int nblocks, int nout, TOut* out,
   return finish();
 }
 
+// The plan of a K1/K5 launch, from the wrapper (stencil_kernel.StencilPlan):
+// width, lanes a thread, z-chunk, strips, chunks, shared-memory bytes
+// (kStencilSlots rows and two rows' kRowWeights z-weights), then the
+// staged lanes left of the strip and right of it per input component.
+//
+// StripArgs of a launch; a plan or tap table the kernel cannot run
+// (a halo short of a tap's roll, a grid that misses a lane or a row, a
+// shared-memory size that is not the plan's) gives cudaErrorInvalidValue.
 template <typename T>
-int stencil_pair(const void* u, void* out, const void* wz, const void* wp,
-                 const int* taps, int p, int zc, int plane, int nt,
-                 int nblocks, cudaStream_t st) {
-  const Geometry g{zc, plane, nt, 6LL * zc * plane};
-  auto kernel = p == 1 ? stencil_pair_kernel<T, 1> : stencil_pair_kernel<T, 4>;
-  kernel<<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(u), static_cast<T*>(out),
-      static_cast<const T*>(wz), static_cast<const T*>(wp), unpack_taps(taps),
-      g, p);
-  return finish();
+int strip_args(const int* taps, const int* plan, int p, int zc, int plane,
+               int nt, StripArgs& a, dim3& grid, size_t& smem, int& lpt) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int bad = (int)cudaErrorInvalidValue;
+  const StencilTaps tp = unpack_taps(taps);
+  a.zc = zc;
+  a.plane = plane;
+  a.nt = nt;
+  a.p = p;
+  a.width = plan[0];
+  lpt = plan[1];
+  a.zchunk = plan[2];
+  grid = dim3(plan[3], plan[4]);
+  a.state = 6LL * zc * plane;
+  if (p < 1 || (lpt != 1 && lpt != 2) || a.width != kThreads * lpt ||
+      plane % V || a.zchunk < 1 ||
+      (long long)grid.x * a.width < plane ||
+      (long long)(grid.x - 1) * a.width >= plane ||
+      (long long)grid.y * a.zchunk < zc ||
+      (long long)(grid.y - 1) * a.zchunk >= zc)
+    return bad;
+  int row = 0;
+  int right[6];
+  for (int c = 0; c < 6; ++c) {
+    a.left[c] = plan[6 + c];
+    right[c] = plan[12 + c];
+    if (a.left[c] < 0 || right[c] < 0 || a.left[c] % V || right[c] % V)
+      return bad;
+    a.off[c] = row;
+    row += a.width + a.left[c] + right[c];
+  }
+  a.row = row;
+  smem = ((size_t)kStencilSlots * row + 2 * kRowWeights) * sizeof(T);
+  if (row > kStageCopies * kThreads * V || smem != (size_t)plan[5]) return bad;
+  for (int h = 0; h < 2; ++h) a.paired[h] = tp.paired[h];
+  for (int c = 0; c < 6; ++c) {
+    const CompTaps& ct = tp.comp[c];
+    if (ct.n < 0 || ct.n > kMaxTaps || (a.paired[c / 3] && ct.n % 2))
+      return bad;
+    a.n[c] = ct.n;
+    for (int k = 0; k < kMaxTaps; ++k) {
+      a.t[c][k] = a.dz[c][k] = a.soff[c][k] = 0;
+      if (k >= ct.n) continue;
+      const int ic = ct.ic[k], r = ct.r[k];
+      const int s = r <= plane / 2 ? r : r - plane;  // reads lane l - s
+      if (ic < 0 || ic >= 6 || ct.t[k] < 0 || ct.t[k] >= nt || r < 0 ||
+          r >= plane || ct.dz[k] < -1 || ct.dz[k] > 1 || s > a.left[ic] ||
+          -s > right[ic])
+        return bad;
+      a.t[c][k] = ct.t[k];
+      a.dz[c][k] = ct.dz[k];
+      a.soff[c][k] = a.off[ic] + a.left[ic] - s;
+    }
+  }
+  return 0;
 }
 
-template <typename T>
-int fdtd_step(const void* u, void* out, const void* wz, const void* wp,
-              const int* taps, int p, int zc, int plane, int nt, int nblocks,
-              cudaStream_t st) {
-  const Geometry g{zc, plane, nt, 6LL * zc * plane};
-  auto kernel = p == 1 ? fdtd_step_kernel<T, 1> : fdtd_step_kernel<T, 4>;
-  kernel<<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(u), static_cast<T*>(out),
-      static_cast<const T*>(wz), static_cast<const T*>(wp), unpack_taps(taps),
-      g, p);
-  return finish();
+// Lets `kernel` take up to the device's opt-in shared memory, and asks
+// for the largest shared-memory carveout of the SM's L1 (so as many
+// blocks fit as the shared memory allows), once per device (the bit of
+// `done`), not per launch.
+template <typename Kernel>
+int allow_shared_memory(Kernel kernel, unsigned long long& done) {
+  int dev = 0;
+  int err = (int)cudaGetDevice(&dev);
+  if (err) return err;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (done >> dev & 1ull) return 0;
+  int optin = 0;
+  err = (int)cudaDeviceGetAttribute(
+      &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  if (!err)
+    err = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  if (!err) done |= 1ull << dev;
+  return err;
+}
+
+// K1/K5 (kAddInput) blocks an SM holds at `smem` bytes of shared memory,
+// by the occupancy calculator; -1 on an error.
+// One K1/K5 instantiation: its launch, and its blocks an SM by the
+// occupancy calculator (-1 on an error).  The shared-memory attributes
+// are set once per device.
+template <typename T, bool kAddInput, int LPT>
+struct Strip {
+  static auto kernel() {
+    return kAddInput ? fdtd_step_kernel<T, LPT> : stencil_pair_kernel<T, LPT>;
+  }
+
+  static int prepare() {
+    static unsigned long long configured = 0;  // devices, one bit each
+    return allow_shared_memory(kernel(), configured);
+  }
+
+  static int launch(const void* u, void* out, const void* wz, const void* wp,
+                    const StripArgs& a, dim3 grid, size_t smem,
+                    cudaStream_t st) {
+    const int err = prepare();
+    if (err) return err;
+    kernel()<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(u), static_cast<T*>(out),
+        static_cast<const T*>(wz), static_cast<const T*>(wp), a);
+    return finish();
+  }
+
+  static int occupancy(size_t smem) {
+    int blocks = 0;
+    if (prepare() || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                         &blocks, kernel(), kThreads, smem))
+      return -1;
+    return blocks;
+  }
+};
+
+template <typename T, bool kAddInput>
+int strip_stencil(const void* u, void* out, const void* wz, const void* wp,
+                  const int* taps, const int* plan, int p, int zc, int plane,
+                  int nt, cudaStream_t st) {
+  StripArgs a;
+  dim3 grid;
+  size_t smem = 0;
+  int lpt = 0;
+  const int err = strip_args<T>(taps, plan, p, zc, plane, nt, a, grid, smem,
+                                lpt);
+  if (err) return err;
+  return lpt == 1 ? Strip<T, kAddInput, 1>::launch(u, out, wz, wp, a, grid,
+                                                   smem, st)
+                  : Strip<T, kAddInput, 2>::launch(u, out, wz, wp, a, grid,
+                                                   smem, st);
+}
+
+template <typename T, bool kAddInput>
+int strip_occupancy(int lpt, size_t smem) {
+  if (lpt == 1) return Strip<T, kAddInput, 1>::occupancy(smem);
+  if (lpt == 2) return Strip<T, kAddInput, 2>::occupancy(smem);
+  return -1;
 }
 
 template <typename T, int MAXPO>
@@ -998,13 +1343,13 @@ int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
 extern "C" {
 
 int lt_stencil_pair(int dtype, const void* u, void* out, const void* wz,
-                    const void* wp, const int* taps, int p, int zc, int plane,
-                    int nt, int nblocks, void* stream) {
+                    const void* wp, const int* taps, const int* plan, int p,
+                    int zc, int plane, int nt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? stencil_pair<float>(u, out, wz, wp, taps, p, zc, plane,
-                                          nt, nblocks, st)
-                    : stencil_pair<double>(u, out, wz, wp, taps, p, zc, plane,
-                                           nt, nblocks, st);
+  return dtype == 0 ? strip_stencil<float, false>(u, out, wz, wp, taps, plan,
+                                                  p, zc, plane, nt, st)
+                    : strip_stencil<double, false>(u, out, wz, wp, taps, plan,
+                                                   p, zc, plane, nt, st);
 }
 
 int lt_block_mix(int dtype, const void* x0, int p0, const void* x1, int p1,
@@ -1046,13 +1391,13 @@ int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
 }
 
 int lt_fdtd_step(int dtype, const void* u, void* out, const void* wz,
-                 const void* wp, const int* taps, int p, int zc, int plane,
-                 int nt, int nblocks, void* stream) {
+                 const void* wp, const int* taps, const int* plan, int p,
+                 int zc, int plane, int nt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? fdtd_step<float>(u, out, wz, wp, taps, p, zc, plane,
-                                       nt, nblocks, st)
-                    : fdtd_step<double>(u, out, wz, wp, taps, p, zc, plane,
-                                        nt, nblocks, st);
+  return dtype == 0 ? strip_stencil<float, true>(u, out, wz, wp, taps, plan,
+                                                 p, zc, plane, nt, st)
+                    : strip_stencil<double, true>(u, out, wz, wp, taps, plan,
+                                                  p, zc, plane, nt, st);
 }
 
 int lt_block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
@@ -1080,6 +1425,19 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
 // Blocks of the Gram kernel an SM holds, the grid's cap per SM
 // (build.gram_grid_cap).
 int lt_gram_blocks_per_sm() { return kGramBlocksPerSM; }
+
+// Blocks of K1 (add_input 0) or K5 (1) an SM holds on the current device
+// with `lpt` lanes a thread and `smem` bytes of shared memory (what the
+// plan assumes; probes print it); -1 on an error.
+int lt_stencil_blocks_per_sm(int dtype, int add_input, int lpt,
+                             long long smem) {
+  const size_t b = (size_t)smem;
+  if (dtype == 0)
+    return add_input ? strip_occupancy<float, true>(lpt, b)
+                     : strip_occupancy<float, false>(lpt, b);
+  return add_input ? strip_occupancy<double, true>(lpt, b)
+                   : strip_occupancy<double, false>(lpt, b);
+}
 
 int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
                      const void* wp, const int* taps, int p, int zc,

@@ -93,13 +93,12 @@ def block_mix(coeffs: torch.Tensor, xs, inplace: bool = False) -> torch.Tensor:
     ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_OPERANDS - len(xs))
     rows = ps + [0] * (MAX_OPERANDS - len(xs))
     S = xs[0][0].numel()
-    err = build.library().lt_block_mix(
-        build.dtype_code(xs[0]), ptrs[0], rows[0], ptrs[1], rows[1],
-        ptrs[2], rows[2], cf.data_ptr(), out.data_ptr(), p_out, S,
-        build.grid_blocks(S), build.stream_handle(out),
+    build.launch(
+        "block_mix", out, "lt_block_mix", build.dtype_code(xs[0]), ptrs[0],
+        rows[0], ptrs[1], rows[1], ptrs[2], rows[2], cf.data_ptr(),
+        out.data_ptr(), p_out, S, build.grid_blocks(S),
+        build.stream_handle(out),
     )
-    build.LAUNCHES["block_mix"] += 1
-    build.check(err, "block_mix")
     return out
 
 
@@ -187,13 +186,12 @@ def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
     nblocks = gram_blocks(S, build.gram_grid_cap(z.device))
     partial = torch.empty((nblocks, K, p), dtype=acc, device=z.device)
     out = torch.empty((K, p), dtype=out_dtype, device=z.device)
-    err = getattr(build.library(), entry)(
-        *lead, ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2], rows[2], ptrs[3],
-        rows[3], z.data_ptr(), p, S, tile_r, tile_c, vec, partial.data_ptr(),
-        nblocks, _ticket(z).data_ptr(), out.data_ptr(), build.stream_handle(z),
+    build.launch(
+        name, z, entry, *lead, ptrs[0], rows[0], ptrs[1], rows[1], ptrs[2],
+        rows[2], ptrs[3], rows[3], z.data_ptr(), p, S, tile_r, tile_c, vec,
+        partial.data_ptr(), nblocks, _ticket(z).data_ptr(), out.data_ptr(),
+        build.stream_handle(z),
     )
-    build.LAUNCHES[name] += 1
-    build.check(err, name)
     return out
 
 

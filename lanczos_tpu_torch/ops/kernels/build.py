@@ -8,9 +8,11 @@ a hash of the source and flags, so an edit rebuilds and an unchanged tree
 reuses the library.  A failed build raises.  Nothing here runs at import:
 CPU-only installs import every module and never build.
 
-`LAUNCHES` counts kernel launches by wrapper name.  Each wrapper adds one
-right where it launches its kernel and nowhere else, so a run can show
-that its main path went through the kernels.
+Every launch goes through `launch`: it enters the tensor's device, calls
+the C entry point, adds to `LAUNCHES` (kernel launches by wrapper name)
+and raises on the entry point's error.  So a launch runs on the card that
+holds its tensors, as JAX places work by the array's device, and a run
+can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -50,7 +52,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
-    "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
+    "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
     "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _P),
     "lt_block_grams": (
         _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I,
@@ -59,7 +61,7 @@ _SIGNATURES = {
     "lt_stencil_pair_gram": (
         _I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _I, _P, _P,
     ),
-    "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _I, _P),
+    "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
     "lt_block_grams_compensated": (
         _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P,
         _P, _P,
@@ -68,6 +70,7 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P,
     ),
     "lt_gram_blocks_per_sm": (),
+    "lt_stencil_blocks_per_sm": (_I, _I, _I, _LL),
     "lt_apply_stencil": (
         _I, _P, _P, _P, _P, _IP, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P,
     ),
@@ -75,7 +78,7 @@ _SIGNATURES = {
 
 _lib: ctypes.CDLL | None = None
 build_log = ""
-_gram_grid_caps: dict[int, int] = {}
+_sm_counts: dict[int, int] = {}
 
 
 def reset_launches() -> None:
@@ -144,6 +147,17 @@ def check(err: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} at launch")
 
 
+def launch(name: str, t: torch.Tensor, entry: str, *args, count: int = 1) -> None:
+    """Calls the C entry point `entry` with `args` on t's device (its
+    launches go to that card's stream, which the caller passes in args),
+    adds `count` kernel launches to LAUNCHES[name] and raises on the
+    entry point's error."""
+    with torch.cuda.device(t.device):
+        err = getattr(library(), entry)(*args)
+    LAUNCHES[name] += count
+    check(err, name)
+
+
 def stream_handle(t: torch.Tensor) -> int:
     """PyTorch's current stream on t's device, as the kernels take it."""
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -172,15 +186,19 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     dtype_code(tensors[0])
 
 
+def sm_count(device: torch.device) -> int:
+    """The SMs of the card `device` names; read once a device."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
 def gram_grid_cap(device: torch.device) -> int:
     """The most blocks of the Gram kernel's grid on `device`: the kernel's
     blocks per SM (kGramBlocksPerSM of the .cu) times the card's SMs, so
-    the grid runs in whole waves (528 on an H100).  Read once a device."""
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    if index not in _gram_grid_caps:
-        sms = torch.cuda.get_device_properties(index).multi_processor_count
-        _gram_grid_caps[index] = library().lt_gram_blocks_per_sm() * sms
-    return _gram_grid_caps[index]
+    the grid runs in whole waves (528 on an H100)."""
+    return library().lt_gram_blocks_per_sm() * sm_count(device)
 
 
 def grid_blocks(n: int) -> int:

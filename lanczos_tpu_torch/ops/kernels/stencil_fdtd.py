@@ -13,10 +13,14 @@ overwrite the z-halo rows and +-xc lanes another block still reads.  This
 step writes into a second buffer instead (ping-pong; `methods/fdtd.py`
 swaps the two): the same bytes, one more state of memory.  The Pallas
 plan's VMEM gate (p <= 2, f32 only) is a TPU limit and is not ported:
-the step takes every p and both float types the operator takes.
+the step takes every p and both float types the operator takes, and
+paired or unpaired halves, as the Pallas kernel does (an unpaired half
+sums its taps one at a time, (v * wp) * wz in spec order).
 
 On a CUDA tensor `fdtd_step` launches fdtd_step_kernel of
-`csrc/lanczos_kernels.cu`; on a CPU tensor it runs `fdtd_step_plain`.
+`csrc/lanczos_kernels.cu`, K1's strip kernel with the identity term
+(`stencil_kernel.launch_pair`); on a CPU tensor it runs `fdtd_step_plain`.
+A step checks its tensors and reuses the cached tap table and plan.
 """
 
 from __future__ import annotations
@@ -28,8 +32,7 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair_plain,
     check_geometry,
-    require_paired,
-    tap_table,
+    launch_pair,
 )
 
 
@@ -48,9 +51,7 @@ def fdtd_step(
 ) -> torch.Tensor:
     """out = u + A u for u, out (p, 6, Zc, P), A the curl pair of the
     (dt-scaled) weights.  out must be another buffer than u; returns out.
-    Takes paired specs only (the JAX kernel's unpaired branch has no
-    caller)."""
-    require_paired(spec_a, spec_b, "fdtd_step (K5)")
+    Either half may be paired or not."""
     if u.ndim != 4 or u.shape != out.shape:
         raise ValueError(
             f"u/out must be (p,6,Zc,P), got {tuple(u.shape)}/{tuple(out.shape)}"
@@ -64,13 +65,6 @@ def fdtd_step(
         return fdtd_step_plain(u, out, wz_t, wplane, spec_a, spec_b)
     build.require_cuda("fdtd_step", u, out, wz_t, wplane)
     nt = check_geometry(u, wz_t, wplane, spec_a)
-    taps = tap_table(spec_a, spec_b)
-    positions = spec_a.zc * spec_a.plane  # one thread per (z, l)
-    err = build.library().lt_fdtd_step(
-        build.dtype_code(u), u.data_ptr(), out.data_ptr(), wz_t.data_ptr(),
-        wplane.data_ptr(), taps, u.shape[0], spec_a.zc, spec_a.plane, nt,
-        build.grid_blocks(positions), build.stream_handle(u),
-    )
-    build.LAUNCHES["fdtd_step"] += 1
-    build.check(err, "fdtd_step")
+    launch_pair("fdtd_step", "lt_fdtd_step", u, out, wz_t, wplane, spec_a,
+                spec_b, nt)
     return out

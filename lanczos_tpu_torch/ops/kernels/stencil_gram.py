@@ -15,6 +15,11 @@ nothing.  The returned v is dst itself.
 
 The Pallas version's lane-chunk/halo/VMEM planning is a TPU artifact and
 is not ported: `supports` only asks for what the kernel takes.
+
+The kernel takes paired halves.  With an unpaired half the wrapper
+composes hand kernels, as the Pallas kernel's unpaired branch computes
+the same product: gram(dst, q) by K3 first, then A q written into dst by
+two K6 launches (one a half), then [gram(q, v); gram(v, v)] by K3.
 """
 
 from __future__ import annotations
@@ -22,12 +27,12 @@ from __future__ import annotations
 import torch
 
 from lanczos_tpu_torch.ops.kernels import build
-from lanczos_tpu_torch.ops.kernels.block_dense import gram_plain
+from lanczos_tpu_torch.ops.kernels.block_dense import block_grams, gram_plain
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair_plain,
     check_geometry,
-    require_paired,
+    stencil_into,
     tap_table,
 )
 
@@ -59,9 +64,9 @@ def apply_stencil_pair_gram(
     """q, dst: (p, 6, Zc, P).  Returns (v, g3): v = A q written into dst's
     buffer (v is dst); g3 = [gram(q,v); gram(v,v); gram(dst_old,q)]
     (3p, p), gram(x,y)[k,j] = <x_k, y_j> over the whole state, accumulated
-    in the state's type.  dst's old contents are gone afterwards.  Takes
-    paired specs only (the JAX kernel's unpaired branch has no caller)."""
-    require_paired(spec_a, spec_b, "apply_stencil_pair_gram (K4)")
+    in the state's type.  dst's old contents are gone afterwards.  Either
+    half may be paired or not; on the card an unpaired half runs K3 and K6
+    instead of K4 (`_unpaired_gram`)."""
     if q.ndim != 4 or q.shape != dst.shape:
         raise ValueError(
             f"q/dst must be (p,6,Zc,P), got {tuple(q.shape)}/{tuple(dst.shape)}"
@@ -75,16 +80,30 @@ def apply_stencil_pair_gram(
     if not 1 <= p <= MAX_P:
         raise ValueError(f"CUDA stencil_gram takes 1 <= p <= {MAX_P}, got {p}")
     nt = check_geometry(q, wz_t, wplane, spec_a)
+    if not (spec_a.paired and spec_b.paired):
+        return _unpaired_gram(q, dst, wz_t, wplane, spec_a, spec_b)
     taps = tap_table(spec_a, spec_b)
     state = 6 * spec_a.zc * spec_a.plane
     nblocks = build.grid_blocks(state)
     partial = torch.empty((nblocks, 3 * p, p), dtype=q.dtype, device=q.device)
     g3 = torch.empty((3 * p, p), dtype=q.dtype, device=q.device)
-    err = build.library().lt_stencil_pair_gram(
+    build.launch(
+        "apply_stencil_pair_gram", q, "lt_stencil_pair_gram",
         build.dtype_code(q), q.data_ptr(), dst.data_ptr(), wz_t.data_ptr(),
         wplane.data_ptr(), taps, p, spec_a.zc, spec_a.plane, nt,
         partial.data_ptr(), nblocks, g3.data_ptr(), build.stream_handle(q),
     )
-    build.LAUNCHES["apply_stencil_pair_gram"] += 1
-    build.check(err, "apply_stencil_pair_gram")
     return dst, g3
+
+
+def _unpaired_gram(q, dst, wz_t, wplane, spec_a, spec_b):
+    """K4's result from hand kernels when a half is unpaired: gram(dst, q)
+    (K3) before dst is overwritten, A q into dst (K6, a launch a half; a
+    paired half sums its taps unfactored, which differs from the factored
+    form in rounding only), then [gram(q, v); gram(v, v)] (K3)."""
+    g_dq = block_grams((dst,), q)
+    for h, spec in enumerate((spec_a, spec_b)):
+        base = 3 * (1 - h)
+        stencil_into(q[:, base : base + 3], dst[:, 3 * h : 3 * h + 3],
+                     wz_t[h].T, wplane[h], spec)
+    return dst, torch.cat([block_grams((q,), dst, include_zz=True), g_dq])

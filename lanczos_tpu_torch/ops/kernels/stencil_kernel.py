@@ -18,6 +18,14 @@ writes components 3h..3h+2 from the opposite half's three, and with
 costs three multiplies.  A pair with an unpaired half is two K6 launches,
 one per half, reading and writing component slices of the same tensors.
 
+K1's kernel (shared with K5, `stencil_fdtd.py`) gives a block a strip of
+lanes over a range of z-rows and stages the input rows, with a halo of
+lanes on either side, in shared memory.  `stencil_plan` picks the strip
+width, the z-range and the shared-memory bytes from the geometry and the
+halo that `stencil_halos` reads off the taps' rolls; `tap_table` and the
+plan are cached per spec pair, so a loop of launches (the FDTD oracle's
+10^6 steps) rebuilds neither.
+
 A z-row outside [0, Zc) reads as 0 in both versions below.  The Pallas
 kernels read a clamped neighbour block there instead: the two agree
 wherever the z-weights of rows 0 and Zc-1 are zero, which every operator
@@ -26,13 +34,14 @@ constructor guarantees.  Lane rolls wrap circularly, as `jnp.roll` does.
 On a CUDA tensor the wrappers launch the hand-written kernels
 (`csrc/lanczos_kernels.cu`, stencil_pair_kernel and apply_stencil_kernel);
 on a CPU tensor they run the plain versions, the same arithmetic in torch
-ops.
+ops.  Every launch goes through `build.launch`, on the tensor's device.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -42,6 +51,21 @@ from lanczos_tpu_torch.ops.kernels import build
 MAX_TAPS_PER_COMP = 4  # csrc kMaxTaps
 MAX_COMPS = 6  # csrc kGenComps: K6's components in and out
 MAX_GENERIC_TAPS = 27  # csrc kGenTaps: K6's taps per output component
+# K1/K5's strips (csrc strip_stencil_body)
+STENCIL_THREADS = 256  # csrc kThreads: threads a block
+STENCIL_SLOTS = 6  # csrc kStencilSlots: staged rows (z-1..z+1, two ahead, one behind)
+STENCIL_ROW_WEIGHTS = 6 * MAX_TAPS_PER_COMP  # csrc kRowWeights: a row's z-weights
+STENCIL_STAGE_COPIES = 8  # csrc kStageCopies: 16-byte copies a thread a row
+# lanes a block owns, by itemsize: two a thread in f32, one in f64 (the
+# f32 pick is `probes --stencil-tiles`'s, PERF.md)
+STENCIL_WIDTH = {4: 512, 8: 256}
+# csrc StripTraits::kMinBlocks, by (itemsize, lanes a thread): the blocks an
+# SM holds by registers (__launch_bounds__); csrc instantiates these
+STENCIL_MIN_BLOCKS = {(4, 1): 4, (4, 2): 2, (8, 1): 2, (8, 2): 2}
+SM_THREADS = 2048  # resident threads an SM (Hopper)
+SM_SHARED_BYTES = 233_472  # shared memory an SM (228 KB)
+BLOCK_SHARED_BYTES = 232_448  # the most one block may opt in to (227 KB)
+BLOCK_SHARED_RESERVED = 1024  # the runtime's own shared memory a block
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,7 +87,9 @@ class StencilSpec:
     # sharing (out, in) with EQUAL shared separable factors: a z-pair
     # (dz differs) shares its wplane row, a plane-pair (roll differs)
     # shares its wz row — enabling the factored 3-multiply form (K1, K4,
-    # K5).  An unpaired pair stencil runs as two K6 launches.
+    # K5).  An unpaired half sums its taps one at a time: on the card K5
+    # takes it in its own kernel, K1 as two K6 launches, K4 as K3 and K6
+    # launches.
     paired: bool = False
 
 
@@ -78,12 +104,6 @@ def _check_pair(spec_a: StencilSpec, spec_b: StencilSpec) -> None:
         raise ValueError("halves must have equal tap counts")
     if (spec_a.n_in, spec_a.n_out, spec_b.n_in, spec_b.n_out) != (3, 3, 3, 3):
         raise ValueError("pair kernel is specialized to 3-in/3-out halves")
-
-
-def require_paired(spec_a: StencilSpec, spec_b: StencilSpec, name: str) -> None:
-    """K1's tap table, K4 and K5 take the factored (paired) form only."""
-    if not (spec_a.paired and spec_b.paired):
-        raise ValueError(f"{name} takes paired specs only")
 
 
 def _tap_input(u: torch.Tensor, ic: int, dz: int, r: int) -> torch.Tensor:
@@ -199,14 +219,13 @@ def stencil_into(u, out, wz, wplane, spec: StencilSpec) -> torch.Tensor:
         raise ValueError("apply_stencil: out must not share u's buffer")
     if max(spec.n_in, spec.n_out) * spec.zc * spec.plane > 2**30:
         raise ValueError("one block column must hold <= 2^30 elements")
-    err = build.library().lt_apply_stencil(
-        build.dtype_code(u), u.data_ptr(), out.data_ptr(), wz.data_ptr(),
-        wplane.data_ptr(), generic_tap_table(spec), p, spec.zc, spec.plane,
-        u.stride(0), out.stride(0), wz.stride(0), wz.stride(1),
+    build.launch(
+        "apply_stencil", u, "lt_apply_stencil", build.dtype_code(u),
+        u.data_ptr(), out.data_ptr(), wz.data_ptr(), wplane.data_ptr(),
+        generic_tap_table(spec), p, spec.zc, spec.plane, u.stride(0),
+        out.stride(0), wz.stride(0), wz.stride(1),
         build.grid_blocks(spec.zc * spec.plane), build.stream_handle(u),
     )
-    build.LAUNCHES["apply_stencil"] += 1
-    build.check(err, "apply_stencil")
     return out
 
 
@@ -271,29 +290,158 @@ def apply_stencil_pair_plain(
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def tap_table(spec_a: StencilSpec, spec_b: StencilSpec):
-    """The paired kernels' tap table (csrc StencilTaps) as a ctypes int
+    """The pair kernels' tap table (csrc StencilTaps) as a ctypes int
     array: per output component 0..5, n, t[4], ic[4], dz[4], r[4], with ic
-    the global input component and r reduced to [0, P)."""
+    the global input component and r reduced to [0, P); then each half's
+    paired flag.  A paired half takes an even count of taps a component,
+    an unpaired one 1..4.  Cached per spec pair; the kernels only read
+    it."""
     _check_pair(spec_a, spec_b)
-    require_paired(spec_a, spec_b, "the paired stencil kernels (K1, K4, K5)")
     vals = []
     for h, spec in enumerate((spec_a, spec_b)):
         for oc in range(3):
             idx = _comp_taps(spec, oc)
-            if len(idx) > MAX_TAPS_PER_COMP or len(idx) % 2:
+            if len(idx) > MAX_TAPS_PER_COMP or (spec.paired and len(idx) % 2):
                 raise ValueError(
-                    f"CUDA stencil takes an even count <= {MAX_TAPS_PER_COMP} "
-                    f"of taps per output component, got {len(idx)}"
+                    f"CUDA stencil takes <= {MAX_TAPS_PER_COMP} taps per output "
+                    f"component, an even count when paired; got {len(idx)}"
                 )
-            pad = [0] * (MAX_TAPS_PER_COMP - len(idx))
             taps = [spec.taps[t] for t in idx]
+            if any(not (0 <= tp[1] < 3 and tp[2] in (-1, 0, 1)) for tp in taps):
+                raise ValueError(f"tap out of range in {taps}")
+            pad = [0] * (MAX_TAPS_PER_COMP - len(idx))
             vals.append(len(idx))
             vals += idx + pad
             vals += [3 * (1 - h) + tp[1] for tp in taps] + pad
             vals += [tp[2] for tp in taps] + pad
             vals += [tp[3] % spec.plane for tp in taps] + pad
+    vals += [int(spec_a.paired), int(spec_b.paired)]
     return (ctypes.c_int * len(vals))(*vals)
+
+
+def _signed_roll(r: int, plane: int) -> int:
+    """A roll by r lanes reads lane l - s: s, in (-P/2, P/2], is r mod P
+    taken as the shorter way round."""
+    r %= plane
+    return r if r <= plane // 2 else r - plane
+
+
+def stencil_halos(spec_a: StencilSpec, spec_b: StencilSpec):
+    """(left, right): the lanes each input component 0..5 (global; half h
+    reads the opposite half's) must be staged beyond a strip on either
+    side, so that every tap's roll reads inside the staged row."""
+    left, right = [0] * 6, [0] * 6
+    for h, spec in enumerate((spec_a, spec_b)):
+        for _, ic, _, r in spec.taps:
+            c = 3 * (1 - h) + ic
+            s = _signed_roll(r, spec.plane)
+            left[c], right[c] = max(left[c], s), max(right[c], -s)
+    return tuple(left), tuple(right)
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilPlan:
+    """A K1/K5 launch: blocks of STENCIL_THREADS threads own `width` lanes
+    (`lanes_per_thread` a thread, 256 apart) by `zchunk` z-rows, on a grid
+    of strips x chunks, with STENCIL_SLOTS staged rows of `row` elements
+    (each component's strip plus its left/right halo, rounded to 16
+    bytes) and two rows' STENCIL_ROW_WEIGHTS z-weights in `smem_bytes` of
+    shared memory."""
+
+    width: int
+    lanes_per_thread: int
+    zchunk: int
+    strips: int
+    chunks: int
+    smem_bytes: int
+    left: tuple[int, ...]
+    right: tuple[int, ...]
+    row: int
+
+    @functools.cached_property
+    def ints(self):
+        """The plan as the csrc launcher reads it (strip_args), a ctypes int
+        array made once."""
+        vals = [self.width, self.lanes_per_thread, self.zchunk, self.strips,
+                self.chunks, self.smem_bytes, *self.left, *self.right]
+        return (ctypes.c_int * len(vals))(*vals)
+
+
+def _waves_cost(strips: int, k: int, zc: int, slots: int) -> int:
+    """Row steps of the slowest block over the grid's waves: k z-chunks of
+    ceil(zc / k) rows, each staging two more."""
+    return -(-strips * k // slots) * (-(-zc // k) + 2)
+
+
+def stencil_plan(zc: int, plane: int, halo_left, halo_right, p: int,
+                 itemsize: int, sms: int, *, width: int | None = None,
+                 zchunk: int | None = None) -> StencilPlan:
+    """K1/K5's launch for a (p, 6, zc, plane) state of `itemsize`-byte
+    elements on a card of `sms` SMs; halo_left/right per input component
+    (`stencil_halos`).  The strip is STENCIL_WIDTH lanes, one or two on
+    each of the block's threads (a plane narrower than the strip is staged
+    wrapped, and only its own lanes are stored), the halos are rounded up
+    to 16 bytes, and the z-chunk is the one whose grid of strips x chunks
+    finishes soonest in whole waves (`_waves_cost`, fewer chunks on a
+    tie), given the blocks an SM holds by threads, shared memory and
+    registers.  `width` and
+    `zchunk` override the pick (`probes --stencil-tiles`).  A pure
+    function of its arguments; the block columns loop inside a block, so
+    p only has to be >= 1."""
+    if p < 1 or itemsize not in (4, 8):
+        raise ValueError(f"stencil_plan takes p >= 1 and 4- or 8-byte "
+                         f"elements, got p={p}, itemsize={itemsize}")
+    vec = 16 // itemsize  # elements of a 16-byte copy
+    if plane % vec:
+        raise ValueError(f"plane {plane} is no multiple of 16 bytes")
+    width = STENCIL_WIDTH[itemsize] if width is None else width
+    lpt = width // STENCIL_THREADS
+    if width != lpt * STENCIL_THREADS or (itemsize, lpt) not in STENCIL_MIN_BLOCKS:
+        raise ValueError(f"no K1/K5 strip of {width} lanes")
+    left = tuple(-(-h // vec) * vec for h in halo_left)
+    right = tuple(-(-h // vec) * vec for h in halo_right)
+    row = sum(width + a + b for a, b in zip(left, right))
+    smem = (STENCIL_SLOTS * row + 2 * STENCIL_ROW_WEIGHTS) * itemsize
+    copies = STENCIL_STAGE_COPIES * STENCIL_THREADS * vec  # elements a row
+    if smem > BLOCK_SHARED_BYTES or row > copies:
+        raise ValueError(f"K1/K5 staging needs {smem} bytes of shared memory "
+                         f"a block (at most {BLOCK_SHARED_BYTES}) and rows of "
+                         f"{row} elements (at most {copies})")
+    strips = -(-plane // width)
+    if zchunk is None:
+        resident = min(SM_THREADS // STENCIL_THREADS,
+                       SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
+                       STENCIL_MIN_BLOCKS[itemsize, lpt])
+        slots = resident * sms
+        k = min(range(1, zc + 1), key=lambda k: (_waves_cost(strips, k, zc, slots), k))
+        zchunk = -(-zc // k)
+    return StencilPlan(width, lpt, zchunk, strips, -(-zc // zchunk), smem,
+                       left, right, row)
+
+
+@functools.lru_cache(maxsize=64)
+def pair_plan(spec_a: StencilSpec, spec_b: StencilSpec, p: int, itemsize: int,
+              sms: int) -> StencilPlan:
+    """`stencil_plan` for the pair's geometry and halos, cached."""
+    left, right = stencil_halos(spec_a, spec_b)
+    return stencil_plan(spec_a.zc, spec_a.plane, left, right, p, itemsize, sms)
+
+
+def launch_pair(name: str, entry: str, u, out, wz_t, wplane, spec_a, spec_b,
+                nt: int) -> None:
+    """K1 or K5 (`entry`) from u into out, both (p, 6, Zc, P) on the card:
+    the cached tap table and plan, 16-byte staging copies."""
+    if u.data_ptr() % 16:
+        raise ValueError(f"{name}: u must start on a 16-byte boundary")
+    p = u.shape[0]
+    plan = pair_plan(spec_a, spec_b, p, u.element_size(), build.sm_count(u.device))
+    build.launch(
+        name, u, entry, build.dtype_code(u), u.data_ptr(), out.data_ptr(),
+        wz_t.data_ptr(), wplane.data_ptr(), tap_table(spec_a, spec_b),
+        plan.ints, p, spec_a.zc, spec_a.plane, nt, build.stream_handle(u),
+    )
 
 
 def check_geometry(u: torch.Tensor, wz_t, wplane, spec: StencilSpec) -> int:
@@ -337,15 +485,6 @@ def apply_stencil_pair(
             stencil_into(u[:, base : base + 3], out[:, 3 * h : 3 * h + 3],
                          wz_t[h].T, wplane[h], spec)
         return out
-    taps = tap_table(spec_a, spec_b)
-    lib = build.library()
-    positions = spec_a.zc * spec_a.plane  # one thread per (z, l)
-    err = lib.lt_stencil_pair(
-        build.dtype_code(u), u.data_ptr(), out.data_ptr(),
-        wz_t.data_ptr(), wplane.data_ptr(), taps, u.shape[0],
-        spec_a.zc, spec_a.plane, nt, build.grid_blocks(positions),
-        build.stream_handle(u),
-    )
-    build.LAUNCHES["apply_stencil_pair"] += 1
-    build.check(err, "apply_stencil_pair")
+    launch_pair("apply_stencil_pair", "lt_stencil_pair", u, out, wz_t, wplane,
+                spec_a, spec_b, nt)
     return out

@@ -104,11 +104,11 @@ def windowed_spmm(A, X: torch.Tensor, out: torch.Tensor | None = None
         raise ValueError("windowed_spmm: plane arrays must be 16-byte "
                          "(values) and 4-byte (indices) aligned")
     p = X.shape[0]
-    err = build.library().lt_windowed_spmm(
-        build.dtype_code(X), A.planes_data.data_ptr(), A.planes_lidx.data_ptr(),
+    build.launch(
+        "windowed_spmm", X, "lt_windowed_spmm", build.dtype_code(X),
+        A.planes_data.data_ptr(), A.planes_lidx.data_ptr(),
         A.planes_off.data_ptr(), A.wb.data_ptr(), X.data_ptr(), out.data_ptr(),
         p, A.ppc, A.cpb * A.spg, A.n128, build.stream_handle(X),
+        count=-(-p // SPMM_COLS),  # a launch a group of SPMM_COLS columns
     )
-    build.LAUNCHES["windowed_spmm"] += -(-p // SPMM_COLS)
-    build.check(err, "windowed_spmm")
     return out

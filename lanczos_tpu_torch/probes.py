@@ -1,7 +1,8 @@
 """Timing probes of the port on one CUDA card, beyond `chip_smoke.py`.
 
     python -m lanczos_tpu_torch.probes
-    python -m lanczos_tpu_torch.probes --p1-variants
+    python -m lanczos_tpu_torch.probes --stencil-tiles
+    python -m lanczos_tpu_torch.probes --stencil-parts
     python -m lanczos_tpu_torch.probes --assembled
     python -m lanczos_tpu_torch.probes --ab OLD.cu
     python -m lanczos_tpu_torch.probes --gram-tiles
@@ -24,14 +25,13 @@ f32), prints the card's name and power limit, then:
    kernel, and the device's idle share, 1 - device / wall, with the wall
    time of an untraced run (the profiler slows the host).
 
-With --p1-variants it prints only this, the probe behind the shape of the
-stencil body's component loop: K1 and K5 at p=1 and K5 at p=4 (N=160,
-f32), each built from a variant of `csrc/lanczos_kernels.cu` (the loop over
-the six components rolled, as the source stands; unrolled by 2, 3 or fully;
-and p=1 on the four-column instantiation), with each variant's registers
-from `-Xptxas -v` and its largest difference from the source's K5 p=1
-result.  Device ms per call (CUDA events, 50 calls after 3 warm-up calls),
-two rounds over all variants so that drift falls on all alike.
+With --stencil-tiles it prints only this: K1 and K5 at p=1 and p=4 on
+N=160 (f32), each on the plan `stencil_kernel.stencil_plan` picks and on
+its neighbours (half and twice the strip width, each with the z-chunk the
+plan picks for it; one z-chunk more and one fewer at the picked width),
+timed in turns (picked, other, other, picked; CUDA events, 20 calls after
+2 warm-up calls), with each plan's blocks an SM by the occupancy
+calculator and its shared memory.
 
 With --assembled it prints only this, the breakdown of the assembled
 slice of `chip_smoke.py`: the host seconds to build the 10,485,760-row
@@ -41,16 +41,20 @@ m=12, k=5, reorth full, TSQR, breakdown_eps 1e-4, replace_dead,
 compute_vectors) and of 50 FDTD steps of the ELL slice's operator
 (`--operator ell`, N=48, p=4).
 
-With --ab OLD.cu it prints only this, a same-call A/B of the Gram and
-SpMM kernels: OLD.cu is an earlier `csrc/lanczos_kernels.cu` with the C
-interface those kernels had before their redesign (K3 and K7 as a
-partial-sum kernel plus a second pass; K8 one row a thread), built and
-loaded beside the current library.  K3 (q,), v, include_zz at p=1 and p=4
-and K7 at p=4 on N=160 Maxwell-sized states (f32), and K8 at p=1 and p=8
-on the 10,485,760-row synthetic matrix of the assembled slice, each timed
-old, new, new, old (CUDA events, 20 calls after 2 warm-up calls), with the
-largest difference between the two results.  The source before the
-redesign is `git show 4cc30dd:lanczos_tpu_torch/csrc/lanczos_kernels.cu`.
+With --stencil-parts it prints only this: K1 and K5 at p=1 and p=4 on
+N=160 (f32) built three ways from `csrc/lanczos_kernels.cu`: as it stands,
+without the taps (each output is 0 for K1, u for K5: staging, barriers and
+stores only) and without the staging copies (the taps read whatever the
+ring holds), each timed as above, to show which part sets the time.
+
+With --ab OLD.cu it prints only this, a same-call A/B of the stencil
+kernels K1 and K5: OLD.cu is an earlier `csrc/lanczos_kernels.cu` with the
+C interface they had before their redesign (one thread a position, a grid
+of at most 1024 blocks), built and loaded beside the current library.  K1
+and K5 at p=1 and p=4 on N=160 (f32), each timed old, new, new, old (CUDA
+events, 20 calls after 2 warm-up calls), with the largest difference
+between the two results.  The source before the redesign is `git show
+259eb3c:lanczos_tpu_torch/csrc/lanczos_kernels.cu`.
 
 With --gram-tiles it prints only this: K3 at the fused recurrence's calls
 (`(), b` and `(q,), v`, include_zz: K = p and 2p) at p=1 and p=4, and K7 at
@@ -61,7 +65,6 @@ p=4, on N=160 Maxwell-sized states (f32), each on the register tile
 
 from __future__ import annotations
 
-import re
 import subprocess
 import sys
 import time
@@ -177,84 +180,10 @@ def _ms(fn, iters=20, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _p1_variants(src: str) -> dict[str, str]:
-    rolled = "#pragma unroll 1\n    for (int c = 0; c < 6; ++c)"
-    to_p4 = {f"p == 1 ? {k}<T, 1>": f"p == 0 ? {k}<T, 1>"
-             for k in ("stencil_pair_kernel", "fdtd_step_kernel")}
-    if src.count(rolled) != 1 or any(src.count(k) != 1 for k in to_p4):
-        raise RuntimeError("the kernel source no longer has the shape the "
-                           "p=1 variants edit")
-    out = {"rolled": src}
-    for n, pragma in (("2", "#pragma unroll 2"), ("3", "#pragma unroll 3"),
-                      ("full", "#pragma unroll")):
-        out[f"unroll {n}"] = src.replace(rolled, rolled.replace(
-            "#pragma unroll 1", pragma))
-    cols4 = src
-    for old, new in to_p4.items():
-        cols4 = cols4.replace(old, new)
-    out["p=1 on 4 columns"] = cols4
-    # a line of its own makes each variant a build of its own, so its
-    # registers are in the build log
-    return {name: f"// p=1 variant: {name}\n{text}" for name, text in out.items()}
-
-
-def _stencil_registers(log: str) -> str:
-    """Registers of the f32 instantiations the p=1 variants time."""
-    timed = {"stencil_pair_kernel<f,1>", "fdtd_step_kernel<f,1>",
-             "fdtd_step_kernel<f,4>"}
-    regs, name = [], None
-    for ln in log.splitlines():
-        m = re.search(r"(stencil_pair_kernel|fdtd_step_kernel)I([fd])Li(\d)E", ln)
-        if "Compiling entry function" in ln:
-            name = f"{m.group(1)}<{m.group(2)},{m.group(3)}>" if m else None
-        m = re.search(r"Used (\d+) registers", ln)
-        if m and name in timed:
-            regs.append(f"{name} {m.group(1)}")
-    return ", ".join(regs)
-
-
-def probe_p1_variants(dev) -> None:
-    op = PallasMaxwellOperator.create(N, N, N, device=dev)
-    a_dt = op.scaled(1.0 / FDTD_STEPS)
-    g = torch.Generator(device=dev).manual_seed(0)
-    u1 = torch.randn((1,) + op.state_shape, generator=g, device=dev)
-    u4 = torch.randn((P,) + op.state_shape, generator=g, device=dev)
-    out1, out4 = torch.empty_like(u1), torch.empty_like(u4)
-
-    ms = lambda fn: _ms(fn, iters=50, warmup=3)  # noqa: E731
-
-    source, ref, regs = build.SOURCE, None, {}
-    variants = _p1_variants(source.read_text())
-    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    try:
-        for rnd in range(2):
-            for name, text in variants.items():
-                path = build.BUILD_DIR / f"p1_variant_{name.replace(' ', '_')}.cu"
-                path.write_text(text)
-                build.SOURCE, build._lib = path, None
-                build.library()
-                # the log is the last nvcc run's: round 0 builds each variant
-                regs.setdefault(name, _stencil_registers(build.build_log))
-                got = a_dt.fdtd_step(u1, out1).clone()
-                ref = got if ref is None else ref
-                print(f"round {rnd} {name}: K5 p=1 "
-                      f"{ms(lambda: a_dt.fdtd_step(u1, out1)):.4f} ms, K1 p=1 "
-                      f"{ms(lambda: op.mm(u1)):.4f} ms, K5 p={P} "
-                      f"{ms(lambda: a_dt.fdtd_step(u4, out4)):.4f} ms, max diff "
-                      f"{(got - ref).abs().max().item():.1e}; registers {regs[name]}",
-                      flush=True)
-    finally:
-        build.SOURCE, build._lib = source, None
-
-
-# the C interface of the Gram and SpMM entry points before their redesign
+# the C interface of K1 and K5 before their redesign
 _OLD_SIGNATURES = {
-    "lt_block_grams": ("I", "P", "I", "P", "I", "P", "I", "P", "I", "P", "I",
-                       "LL", "P", "I", "P", "P"),
-    "lt_block_grams_compensated": ("P", "I", "P", "I", "P", "I", "P", "I",
-                                   "P", "I", "LL", "P", "I", "P", "P"),
-    "lt_windowed_spmm": ("I", "P", "P", "P", "P", "P", "P", "I", "I", "I",
-                         "LL", "P"),
+    name: ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "I", "I", "P")
+    for name in ("lt_stencil_pair", "lt_fdtd_step")
 }
 
 
@@ -262,7 +191,8 @@ def _old_library(path: str):
     import ctypes
     from pathlib import Path
 
-    types = {"I": ctypes.c_int, "P": ctypes.c_void_p, "LL": ctypes.c_longlong}
+    types = {"I": ctypes.c_int, "P": ctypes.c_void_p,
+             "IP": ctypes.POINTER(ctypes.c_int)}
     source = build.SOURCE
     try:
         build.SOURCE = Path(path).resolve()
@@ -289,62 +219,132 @@ def _ab(label, old_fn, new_fn, names=("old", "new")) -> None:
 
 
 def probe_ab(dev, old_path: str) -> None:
-    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
-    from lanczos_tpu_torch.ops.kernels import block_dense
-    from lanczos_tpu_torch.ops.kernels import window_ell as k8
-    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import tap_table
 
     old = _old_library(old_path)
     build.library()
     st = torch.cuda.current_stream(dev).cuda_stream
-    S = 6 * 176 * 26624  # one column of the N=160 Maxwell state
+    op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    a_dt = op.scaled(1.0 / FDTD_STEPS)
+    taps = tap_table(op.spec_e, op.spec_h)  # the old kernels read its head
+    zc, plane, nt = op.spec.zc, op.spec.plane, op.wz_t.shape[-1]
     g = torch.Generator(device=dev).manual_seed(0)
-
-    def old_gram(entry, lead, q, v, acc, out_dtype):
-        p, K = v.shape[0], 2 * v.shape[0]
-        nblocks = build.grid_blocks(S)
-        partial = torch.empty((nblocks, K, p), dtype=acc, device=dev)
-        out = torch.empty((K, p), dtype=out_dtype, device=dev)
-
-        def run():
-            build.check(getattr(old, entry)(
-                *lead, q.data_ptr(), p, v.data_ptr(), p, None, 0, None, 0,
-                v.data_ptr(), p, S, partial.data_ptr(), nblocks,
-                out.data_ptr(), st), entry)
-            return out
-        return run
-
     for p in (1, P):
-        q, v = torch.randn((2, p, S), generator=g, device=dev)
-        q /= q.norm(dim=1, keepdim=True)
-        v /= v.norm(dim=1, keepdim=True)
-        _ab(f"K3 (q,), v, include_zz p={p}",
-            old_gram("lt_block_grams", (0,), q, v, torch.float32, torch.float32),
-            lambda: block_dense.block_grams((q,), v, include_zz=True))
-        if p == P:
-            _ab(f"K7 (q,), v, include_zz p={p}",
-                old_gram("lt_block_grams_compensated", (), q, v, torch.float64,
-                         torch.float32),
-                lambda: block_dense.block_grams_compensated((q,), v, include_zz=True))
-        del q, v
+        u = torch.randn((p,) + op.state_shape, generator=g, device=dev)
+        outs = [torch.empty_like(u) for _ in range(4)]
+
+        def old_call(entry, a, out):
+            def run():
+                build.check(getattr(old, entry)(
+                    0, u.data_ptr(), out.data_ptr(), a.wz_t.data_ptr(),
+                    a.wplane_s.data_ptr(), taps, p, zc, plane, nt,
+                    build.grid_blocks(zc * plane), st), entry)
+                return out
+            return run
+
+        _ab(f"K1 apply_stencil_pair p={p}", old_call("lt_stencil_pair", op, outs[0]),
+            lambda: op.mm(u))
+        _ab(f"K5 fdtd_step p={p}", old_call("lt_fdtd_step", a_dt, outs[1]),
+            lambda: a_dt.fdtd_step(u, outs[2]))
+        del u, outs
     torch.cuda.empty_cache()
 
-    a = synth_suitesparse_banded(10_485_760)
-    A = windowed_from_scipy(a, reorder="none", device=dev)
-    for p in (1, 8):
-        X = A.pack(torch.randn((p, a.shape[0]), generator=g, device=dev))
-        y_old, y_new = torch.empty_like(X), torch.empty_like(X)
 
-        def old_spmm():
-            build.check(old.lt_windowed_spmm(
-                0, A.planes_data.data_ptr(), A.planes_lidx.data_ptr(),
-                A.planes_off.data_ptr(), A.wb.data_ptr(), X.data_ptr(),
-                y_old.data_ptr(), p, A.ppc, A.cpb * A.spg, A.n128, st),
-                "lt_windowed_spmm")
-            return y_old
+def _neighbour_plans(picked, plan):
+    """The plans beside `picked` that the kernel can run: half and twice
+    its strip width (each with the z-chunk the plan picks for it), and one
+    z-chunk more and one fewer at its width."""
+    zc = picked.zchunk * picked.chunks
+    kws = [dict(width=picked.width // 2), dict(width=2 * picked.width),
+           dict(width=picked.width, zchunk=-(-zc // (picked.chunks + 1)))]
+    if picked.chunks > 1:
+        kws.append(dict(width=picked.width, zchunk=-(-zc // (picked.chunks - 1))))
+    out = []
+    for kw in kws:
+        try:
+            out.append(plan(**kw))
+        except ValueError:  # no such strip (over two lanes a thread)
+            pass
+    return out
 
-        _ab(f"K8 p={p}", old_spmm, lambda: k8.windowed_spmm(A, X, y_new))
-        del X, y_old, y_new
+
+# string edits of the strip kernel that drop one part of its work
+_STENCIL_PARTS = {
+    "as built": ("", ""),
+    "no taps": ("        if (a.paired[h]) {",
+                "        if (true) {} else if (a.paired[h]) {"),
+    "no staging": ("                cp_async16(slot",
+                   "                if (false) cp_async16(slot"),
+}
+
+
+def probe_stencil_parts(dev) -> None:
+    op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    a_dt = op.scaled(1.0 / FDTD_STEPS)
+    g = torch.Generator(device=dev).manual_seed(0)
+    us = {p: torch.randn((p,) + op.state_shape, generator=g, device=dev)
+          for p in (1, P)}
+    outs = {p: torch.empty_like(u) for p, u in us.items()}
+    source = build.SOURCE
+    text = source.read_text()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    try:
+        for name, (old, new) in _STENCIL_PARTS.items():
+            if old and text.count(old) != 1:
+                raise RuntimeError(f"the kernel source no longer has {old!r}")
+            path = build.BUILD_DIR / f"stencil_part_{name.replace(' ', '_')}.cu"
+            # a line of its own makes each part a build of its own
+            path.write_text(f"// stencil part: {name}\n" + text.replace(old, new))
+            build.SOURCE, build._lib = path, None
+            times = []
+            for p in (1, P):
+                u, out = us[p], outs[p]
+                times.append(f"K1 p={p} {_ms(lambda: op.mm(u)):.4f} ms, K5 p={p} "
+                             f"{_ms(lambda: a_dt.fdtd_step(u, out)):.4f} ms")
+            print(f"stencil part {name}: " + ", ".join(times), flush=True)
+    finally:
+        build.SOURCE, build._lib = source, None
+
+
+def probe_stencil_tiles(dev) -> None:
+    from lanczos_tpu_torch.ops.kernels import stencil_kernel as sk
+
+    op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    a_dt = op.scaled(1.0 / FDTD_STEPS)
+    left, right = sk.stencil_halos(op.spec_e, op.spec_h)
+    zc, plane = op.spec.zc, op.spec.plane
+    sms = build.sm_count(dev)
+    picked_fn = sk.pair_plan
+    g = torch.Generator(device=dev).manual_seed(0)
+    for p in (1, P):
+        u = torch.randn((p,) + op.state_shape, generator=g, device=dev)
+        out, out2 = torch.empty_like(u), torch.empty_like(u)
+        picked = picked_fn(op.spec_e, op.spec_h, p, 4, sms)
+
+        others = _neighbour_plans(
+            picked, lambda **kw: sk.stencil_plan(zc, plane, left, right, p, 4,
+                                                 sms, **kw))
+
+        def name(pl):
+            occ = [build.library().lt_stencil_blocks_per_sm(
+                0, k, pl.lanes_per_thread, pl.smem_bytes) for k in (0, 1)]
+            return (f"W{pl.width}xZ{pl.zchunk} ({pl.strips}x{pl.chunks} blocks, "
+                    f"{pl.smem_bytes} B, K1/K5 {occ[0]}/{occ[1]} a SM)")
+
+        def on(pl, fn):
+            sk.pair_plan = lambda *args: pl
+            try:
+                return fn()
+            finally:
+                sk.pair_plan = picked_fn
+        for other in others:
+            names = (name(picked), name(other))
+            _ab(f"K1 p={p}", lambda: on(picked, lambda: op.mm(u)),
+                lambda: on(other, lambda: op.mm(u)), names=names)
+            _ab(f"K5 p={p}", lambda: on(picked, lambda: a_dt.fdtd_step(u, out)),
+                lambda: on(other, lambda: a_dt.fdtd_step(u, out2)), names=names)
+        del u, out, out2
+    torch.cuda.empty_cache()
 
 
 def probe_gram_tiles(dev) -> None:
@@ -420,8 +420,11 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
-    if "--p1-variants" in sys.argv[1:]:
-        probe_p1_variants(dev)
+    if "--stencil-parts" in sys.argv[1:]:
+        probe_stencil_parts(dev)
+        return
+    if "--stencil-tiles" in sys.argv[1:]:
+        probe_stencil_tiles(dev)
         return
     if "--assembled" in sys.argv[1:]:
         probe_assembled(dev)

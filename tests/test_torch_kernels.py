@@ -6,6 +6,8 @@ The kernel tests carry the `cuda` marker and skip without a card; run
 them there with `python -m pytest tests/test_torch_kernels.py -m cuda`.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -18,12 +20,17 @@ from lanczos_tpu_torch.ops.kernels import (
     stencil_gram,
 )
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
+    BLOCK_SHARED_BYTES,
     MAX_TAPS_PER_COMP,
+    STENCIL_SLOTS,
     StencilSpec,
     apply_stencil,
     apply_stencil_pair,
     apply_stencil_pair_plain,
     apply_stencil_plain,
+    pair_plan,
+    stencil_halos,
+    stencil_plan,
     tap_table,
 )
 
@@ -80,7 +87,10 @@ def _k6_case(kind, p, dtype, device, zc=16, plane=256, seed=0):
 
 
 def _op_state(n, p, dtype, device, seed=0):
-    op = PallasMaxwellOperator.create(n, n, n, dtype=dtype, device=device)
+    """The operator of an N^3 grid (n an int) or an (nx, ny, nz) grid, and
+    a packed random (p, 6, Zc, P) state."""
+    op = PallasMaxwellOperator.create(*((n,) * 3 if isinstance(n, int) else n),
+                                      dtype=dtype, device=device)
     rng = np.random.default_rng(seed)
     x = torch.from_numpy(rng.standard_normal((p, op.n))).to(dtype)
     return op, op.pack(x.to(device))
@@ -149,25 +159,103 @@ def test_tap_table_encodes_the_specs():
 
 
 def test_unpaired_specs_are_refused():
-    """The paired kernels (K1's tap table, K4, K5) refuse unpaired specs on
-    every device; the pair stencil itself takes them (two K6 launches on
-    the card, K6's plain version here)."""
+    """What the pair kernels' tap table still refuses: a paired half with
+    an odd count of taps a component, and more than four.  Unpaired specs
+    are no longer refused: the table encodes each half's paired flag, and
+    K1, K4 and K5 take unpaired halves (K5 in its own kernel on the card;
+    here their plain versions, the unfactored form)."""
     import dataclasses
 
     op = PallasMaxwellOperator.create(3, 3, 3, device="cpu")
     loose = dataclasses.replace(op.spec_e, paired=False)
-    u = torch.zeros((1,) + op.state_shape)
-    with pytest.raises(ValueError, match="paired"):
-        tap_table(loose, op.spec_h)
-    with pytest.raises(ValueError, match="paired"):
-        stencil_gram.apply_stencil_pair_gram(u, u.clone(), op.wz_t, op.wplane_s,
-                                             op.spec_e, loose)
-    with pytest.raises(ValueError, match="paired"):
-        stencil_fdtd.fdtd_step(u, u.clone(), op.wz_t, op.wplane_s, loose,
-                               op.spec_h)
+    tab = list(tap_table(loose, op.spec_h))
+    assert tab[-2:] == [0, 1]
+    # component 0 gives its first tap to component 1: 3 and 5 taps
+    moved = ((1,) + op.spec_e.taps[0][1:],) + op.spec_e.taps[1:]
+    odd = dataclasses.replace(op.spec_e, taps=moved)
+    with pytest.raises(ValueError, match="even count"):
+        tap_table(odd, op.spec_h)
+    five = dataclasses.replace(odd, paired=False)  # component 1's 5 taps
+    with pytest.raises(ValueError, match="<= 4 taps"):
+        tap_table(five, op.spec_h)
     x = torch.randn((2,) + op.state_shape, generator=torch.Generator().manual_seed(0))
     got = apply_stencil_pair(x, op.wz_t, op.wplane_s, loose, op.spec_h)
     torch.testing.assert_close(got, op.mm(x), rtol=1e-6, atol=1e-6)
+    a = op.scaled(0.1)
+    step = stencil_fdtd.fdtd_step(x, torch.empty_like(x), a.wz_t, a.wplane_s,
+                                  loose, op.spec_h)
+    torch.testing.assert_close(step, a.fdtd_step(x, torch.empty_like(x)),
+                               rtol=1e-6, atol=1e-6)
+    dst = torch.randn_like(x)
+    v, g3 = stencil_gram.apply_stencil_pair_gram(x, dst.clone(), op.wz_t,
+                                                 op.wplane_s, loose,
+                                                 dataclasses.replace(op.spec_h, paired=False))
+    v_ref, g3_ref = op.stencil_gram(x, dst.clone())
+    torch.testing.assert_close(v, v_ref, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(g3, g3_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_launch_enters_the_tensors_device(monkeypatch):
+    """build.launch: the entry point runs inside torch.cuda.device(t.device),
+    the launch is counted once (or `count` times), and an error raises
+    after the count."""
+    import contextlib
+
+    entered, calls = [], []
+
+    @contextlib.contextmanager
+    def device(d):
+        entered.append(d)
+        yield
+        entered.append("exit")
+
+    class FakeLib:
+        def lt_fake(self, *args):
+            calls.append((tuple(entered), args))
+            return 0
+
+        def lt_broken(self, *args):
+            return 700
+
+    class OnCard:  # stands in for a tensor on the second card
+        device = torch.device("cuda", 1)
+
+    monkeypatch.setattr(torch.cuda, "device", device)
+    monkeypatch.setattr(build, "library", lambda: FakeLib())
+    monkeypatch.setattr(build, "LAUNCHES", {"block_mix": 0, "windowed_spmm": 0})
+    build.launch("block_mix", OnCard(), "lt_fake", 1, 2)
+    assert calls == [((torch.device("cuda", 1),), (1, 2))]
+    assert entered == [torch.device("cuda", 1), "exit"]
+    assert build.LAUNCHES["block_mix"] == 1
+    build.launch("windowed_spmm", OnCard(), "lt_fake", count=2)
+    assert build.LAUNCHES["windowed_spmm"] == 2
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        build.launch("block_mix", OnCard(), "lt_broken")
+    assert build.LAUNCHES["block_mix"] == 2
+
+
+def test_every_launch_goes_through_the_device_guard():
+    """No wrapper in ops/kernels/ reaches the kernel library itself: the
+    only `library()` calls and `lt_*` attributes are build.py's, inside
+    `launch` (and the Gram's blocks-per-SM query, which launches
+    nothing)."""
+    import ast
+    from pathlib import Path
+
+    kernels = Path(build.__file__).parent
+    for path in sorted(kernels.glob("*.py")):
+        tree = ast.parse(path.read_text())
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Attribute) and node.attr.startswith("lt_"):
+                assert path.name == "build.py", f"{path.name}: .{node.attr}"
+            if (isinstance(node, ast.Call) and isinstance(node.func, ast.Attribute)
+                    and node.func.attr == "library"):
+                raise AssertionError(f"{path.name} calls build.library()")
+        if path.name == "build.py":
+            funcs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
+            users = {name for name, f in funcs.items() for n in ast.walk(f)
+                     if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "library"}
+            assert users == {"launch", "gram_grid_cap"}
 
 
 def test_grid_is_a_function_of_size_only():
@@ -180,6 +268,88 @@ def test_grid_is_a_function_of_size_only():
     # N=160 Maxwell: 28,114,944 elements a column; whole waves on 132 SMs
     assert block_dense.gram_blocks(6 * 176 * 26624, h100) == h100
     assert block_dense.gram_blocks(6 * 176 * 26624, 4 * 114) == 4 * 114
+
+
+# K1/K5's plan on the geometries the card runs: N=3 (P=128, narrower than
+# a strip), N=11, N=160 (the main path), and a non-cubic grid whose P=1152
+# is no multiple of the strip width
+PLAN_GEOMETRIES = [(3, 3, 3), (11, 11, 11), (160, 160, 160), (37, 24, 11)]
+
+
+@functools.lru_cache(maxsize=None)
+def _specs(geometry):
+    from lanczos_tpu_torch.models.maxwell_pallas import _host_taps
+
+    return _host_taps(*geometry, np.float32)[0]
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("geometry", PLAN_GEOMETRIES)
+def test_stencil_plan_covers_every_position_once(geometry, itemsize, p):
+    """What K1/K5 rely on: the strips x z-chunks cover every (z, l) exactly
+    once; each component's staged halo covers every tap's roll that reads
+    it, in 16-byte units; the ring of staged rows fits a block's shared
+    memory (227 KB) and is the plan's byte count."""
+    spec_a, spec_b = _specs(geometry)
+    zc, plane = spec_a.zc, spec_a.plane
+    plan = pair_plan(spec_a, spec_b, p, itemsize, 132)
+    count = np.zeros((zc, plane), np.int64)
+    for s in range(plan.strips):
+        for k in range(plan.chunks):
+            l0, z0 = s * plan.width, k * plan.zchunk
+            count[z0 : min(z0 + plan.zchunk, zc), l0 : min(l0 + plan.width, plane)] += 1
+    assert (count == 1).all()
+    vec = 16 // itemsize
+    assert plan.width % vec == 0 and plan.width == 256 * plan.lanes_per_thread
+    assert all(h % vec == 0 for h in plan.left + plan.right)
+    for h, spec in enumerate((spec_a, spec_b)):
+        for _, ic, _, r in spec.taps:
+            c = 3 * (1 - h) + ic
+            s = r if r <= plane // 2 else r - plane  # the tap reads lane l - s
+            # the strip's lanes i in [0, width) read staged [left - s + i]
+            assert 0 <= plan.left[c] - s
+            assert plan.left[c] - s + plan.width <= plan.width + plan.left[c] + plan.right[c]
+    assert plan.row == sum(plan.width + a + b for a, b in zip(plan.left, plan.right))
+    assert plan.smem_bytes == (STENCIL_SLOTS * plan.row + 48) * itemsize <= BLOCK_SHARED_BYTES
+    assert plan.row <= 8 * 256 * vec  # the copies a thread stages a row
+    assert list(plan.ints) == [plan.width, plan.lanes_per_thread, plan.zchunk,
+                               plan.strips, plan.chunks, plan.smem_bytes,
+                               *plan.left, *plan.right]
+
+
+def test_stencil_plan_at_the_main_path():
+    """N=160 f32 on 132 SMs: 52 strips of 512 lanes (two a thread), in
+    five z-chunks of 36 rows, 260 blocks in one wave of 2 blocks an SM;
+    the halos are the y-pairs' xc=163 lanes, one side each half, rounded
+    to 164.  f64 takes strips of 256."""
+    spec_a, spec_b = _specs((160, 160, 160))
+    left, right = stencil_halos(spec_a, spec_b)
+    assert left == (163, 1, 163, 0, 0, 0) and right == (0, 0, 0, 163, 1, 163)
+    plan = stencil_plan(176, 26624, left, right, 1, 4, 132)
+    assert (plan.width, plan.lanes_per_thread, plan.strips) == (512, 2, 52)
+    assert (plan.zchunk, plan.chunks) == (36, 5)
+    assert plan.left == (164, 4, 164, 0, 0, 0)
+    assert plan.smem_bytes == (6 * (6 * 512 + 4 * 164 + 2 * 4) + 48) * 4
+    assert stencil_plan(176, 26624, left, right, 4, 4, 132) == plan
+    f64 = stencil_plan(176, 26624, left, right, 1, 8, 132)
+    assert (f64.width, f64.lanes_per_thread, f64.strips) == (256, 1, 104)
+    narrow = stencil_plan(176, 26624, left, right, 1, 4, 132, width=256, zchunk=44)
+    assert (narrow.lanes_per_thread, narrow.strips, narrow.chunks) == (1, 104, 4)
+    with pytest.raises(ValueError, match="strip"):
+        stencil_plan(176, 26624, left, right, 1, 4, 132, width=768)
+    with pytest.raises(ValueError, match="shared memory"):
+        stencil_plan(176, 26624, [26624 // 2] * 6, right, 1, 8, 132, width=512)
+
+
+def test_tap_table_and_plan_are_cached():
+    """A loop of K1/K5 launches rebuilds neither its tap table nor its
+    plan."""
+    spec_a, spec_b = _specs((11, 11, 11))
+    assert tap_table(spec_a, spec_b) is tap_table(spec_a, spec_b)
+    plan = pair_plan(spec_a, spec_b, 1, 4, 132)
+    assert plan is pair_plan(spec_a, spec_b, 1, 4, 132)
+    assert plan.ints is plan.ints
 
 
 # K3/K7's launch: the register tile from (K, p), exact at the main path's
@@ -283,9 +453,16 @@ def test_plan_check_refuses_slots_outside_the_band():
 # -- on the card: each kernel against its plain version -------------------
 
 
+# K1/K5's strip kernel on the card: the main path (N=160, p=4 and 1), a
+# plane narrower than a strip (N=3, P=128), a non-cubic grid whose P=1152
+# is no multiple of the strip, and p=5
+STRIP_CASES = [(6, 4), (11, 3), (3, 1), (3, 2), ((37, 24, 11), 3), (6, 5),
+               (160, 1), (160, 4)]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (3, 1)])
+@pytest.mark.parametrize("n,p", STRIP_CASES)
 def test_k1_stencil_kernel_vs_plain(cuda, n, p, dtype):
     op, u = _op_state(n, p, dtype, cuda)
     before = build.LAUNCHES["apply_stencil_pair"]
@@ -294,6 +471,7 @@ def test_k1_stencil_kernel_vs_plain(cuda, n, p, dtype):
     assert build.LAUNCHES["apply_stencil_pair"] == before + 1
     want = apply_stencil_pair_plain(u, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
     _close(got, want, dtype)
+    assert torch.equal(got, op.mm(u))  # no cross-block sums: the same bits
 
 
 @pytest.mark.cuda
@@ -457,7 +635,7 @@ def test_k4_stencil_gram_vs_plain(cuda, n, p, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (3, 1), (6, 1), (6, 5)])
+@pytest.mark.parametrize("n,p", STRIP_CASES + [(6, 1)])
 def test_k5_fdtd_step_vs_plain(cuda, n, p, dtype):
     op, u = _op_state(n, p, dtype, cuda)
     a = op.scaled(0.01)
@@ -472,8 +650,56 @@ def test_k5_fdtd_step_vs_plain(cuda, n, p, dtype):
     want = stencil_fdtd.fdtd_step_plain(u, torch.empty_like(u), a.wz_t,
                                         a.wplane_s, a.spec_e, a.spec_h)
     _close(got, want, dtype)
+    assert torch.equal(got, a.fdtd_step(u, torch.empty_like(u)))
     with pytest.raises(ValueError, match="out must not be u"):
         a.fdtd_step(u, u)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loose", ["e", "h", "both"])
+@pytest.mark.parametrize("n,p", [(6, 3), (3, 1), ((37, 24, 11), 2)])
+def test_k5_unpaired_vs_plain(cuda, n, p, loose, dtype):
+    """K5 with an unpaired half sums that half's taps one at a time in its
+    own kernel: one launch, held to the plain version."""
+    import dataclasses
+
+    op, u = _op_state(n, p, dtype, cuda)
+    a = op.scaled(0.01)
+    specs = [dataclasses.replace(s, paired=loose not in (k, "both"))
+             for k, s in (("e", a.spec_e), ("h", a.spec_h))]
+    build.reset_launches()
+    got = stencil_fdtd.fdtd_step(u, torch.empty_like(u), a.wz_t, a.wplane_s, *specs)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fdtd_step"] == 1
+    want = stencil_fdtd.fdtd_step_plain(u, torch.empty_like(u), a.wz_t,
+                                        a.wplane_s, *specs)
+    _close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("loose", ["e", "h", "both"])
+@pytest.mark.parametrize("n,p", [(6, 4), (11, 3)])
+def test_k4_unpaired_vs_plain(cuda, n, p, loose, dtype):
+    """K4 with an unpaired half: K3, then two K6 launches into dst, then
+    K3, and no K4; v is dst and matches the plain version, g3 too."""
+    import dataclasses
+
+    op, q = _op_state(n, p, dtype, cuda)
+    _, dst = _op_state(n, p, dtype, cuda, seed=5)
+    specs = [dataclasses.replace(s, paired=loose not in (k, "both"))
+             for k, s in (("e", op.spec_e), ("h", op.spec_h))]
+    want_v, want_g3 = stencil_gram.apply_stencil_pair_gram_plain(
+        q, dst.clone(), op.wz_t, op.wplane_s, *specs)
+    build.reset_launches()
+    v, g3 = stencil_gram.apply_stencil_pair_gram(q, dst, op.wz_t, op.wplane_s, *specs)
+    torch.cuda.synchronize()
+    assert v.data_ptr() == dst.data_ptr()
+    assert {k: c for k, c in build.LAUNCHES.items() if c} == {
+        "block_grams": 2, "apply_stencil": 2}
+    _close(v, want_v, dtype)
+    _close(g3, want_g3, dtype)
 
 
 @pytest.mark.cuda

@@ -1,6 +1,8 @@
 """K6, the port's generic separable stencil (`apply_stencil`, its plain
 version on the CPU), against the JAX package's `apply_stencil` (Pallas in
-interpret mode) on numpy-seeded inputs, and the unpaired curl pair.
+interpret mode) on numpy-seeded inputs, and the unpaired curl pair: K1,
+and K4 and K5 with paired=False on either half, against JAX's
+`apply_stencil_pair`, `apply_stencil_pair_gram` and `fdtd_step_inplace`.
 
 The Pallas kernel reads a clamped neighbour block where a z-shift leaves
 the state; the port reads 0.  The two agree wherever a dz=-1 tap's z-weight
@@ -20,8 +22,12 @@ from lanczos_tpu.models.maxwell_pallas import PallasMaxwellOperator as JaxOp
 from lanczos_tpu.ops.pallas import StencilSpec as JaxSpec
 from lanczos_tpu.ops.pallas import apply_stencil as jax_apply_stencil
 from lanczos_tpu.ops.pallas import apply_stencil_pair as jax_apply_stencil_pair
+from lanczos_tpu.ops.pallas.stencil_fdtd import fdtd_step_inplace as jax_fdtd_step
+from lanczos_tpu.ops.pallas.stencil_gram import (
+    apply_stencil_pair_gram as jax_stencil_gram,
+)
 from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
-from lanczos_tpu_torch.ops.kernels import build
+from lanczos_tpu_torch.ops.kernels import build, stencil_fdtd, stencil_gram
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     MAX_COMPS,
     MAX_GENERIC_TAPS,
@@ -181,6 +187,54 @@ def test_unpaired_pair_matches_jax(unpaired, dtype, rng):
                                       jop.wplane_s, *jspecs, interpret=True)
         _close(got[b].numpy(), want, dtype)
     _close(got.numpy(), top.mm(u).numpy(), dtype)
+
+
+def _loose_pair(unpaired, n, dtype):
+    """The JAX and port operators of an n^3 grid and both packages' specs
+    with paired=False on the E half, the H half or both."""
+    jop = JaxOp.create(n, n, n, dtype=JNP[dtype])
+    top = PallasMaxwellOperator.create(n, n, n, dtype=dtype, device="cpu")
+    specs = [dataclasses.replace(s, paired=unpaired not in ("both", k))
+             for k, s in (("e", top.spec_e), ("h", top.spec_h))]
+    jspecs = [dataclasses.replace(s, paired=t.paired)
+              for s, t in zip((jop.spec_e, jop.spec_h), specs)]
+    return jop, top, specs, jspecs
+
+
+@pytest.mark.parametrize("unpaired", ["both", "e", "h"])
+def test_unpaired_fdtd_step_matches_jax(unpaired, rng):
+    """K5's unpaired branch: out = u + (dt A) u with an unpaired half
+    summed tap by tap, against JAX's fdtd_step_inplace (interpret mode),
+    f32.  JAX starts each component's sum at u and the port adds u last:
+    rounding of the same terms, so 1e-6 of the result's scale."""
+    jop, top, specs, jspecs = _loose_pair(unpaired, 4, torch.float32)
+    dt = np.float32(0.01)
+    js, ts = jop.scaled(jnp.asarray(dt)), top.scaled(torch.tensor(dt))
+    u = top.pack(torch.from_numpy(rng.standard_normal((2, top.n)).astype(np.float32)))
+    got = stencil_fdtd.fdtd_step(u, torch.empty_like(u), ts.wz_t, ts.wplane_s, *specs)
+    want = jax_fdtd_step(jnp.asarray(u.numpy()), js.wz_t, js.wplane_s, *jspecs,
+                         interpret=True)
+    _close(got.numpy(), want, torch.float32)
+    # the unfactored half moves the result by rounding only
+    _close(got.numpy(), ts.fdtd_step(u, torch.empty_like(u)).numpy(), torch.float32)
+
+
+@pytest.mark.parametrize("unpaired", ["both", "e", "h"])
+def test_unpaired_stencil_gram_matches_jax(unpaired, rng):
+    """K4's unpaired branch: v = A q into dst and [gram(q,v); gram(v,v);
+    gram(dst,q)], against JAX's apply_stencil_pair_gram (interpret mode),
+    f32; the Grams to 2e-6 of their scale (sums in another order)."""
+    jop, top, specs, jspecs = _loose_pair(unpaired, 4, torch.float32)
+    q, dst = (top.pack(torch.from_numpy(rng.standard_normal((2, top.n)).astype(np.float32)))
+              for _ in range(2))
+    keep = dst.clone()
+    v, g3 = stencil_gram.apply_stencil_pair_gram(q, dst, top.wz_t, top.wplane_s, *specs)
+    assert v.data_ptr() == dst.data_ptr()
+    vj, g3j = jax_stencil_gram(jnp.asarray(q.numpy()), jnp.asarray(keep.numpy()),
+                               jop.wz_t, jop.wplane_s, *jspecs, interpret=True)
+    _close(v.numpy(), vj, torch.float32)
+    g3j = np.asarray(g3j, np.float64)
+    np.testing.assert_allclose(g3.numpy(), g3j, rtol=0, atol=2e-6 * np.abs(g3j).max())
 
 
 def test_generic_tap_table_layout():
