@@ -20,10 +20,14 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    f64) and p=5 (N=11, f32), with the tolerance stated below; at N=160
    timed against its plain version and against a device copy of the
    same bytes; K7 also against the f64 Gram on inputs spread over
-   e^+-6, at a bound that K3's f32 sums must miss; K6, the generic
-   stencil, against its plain version at small geometries (6 -> 3 fields
-   with 27 taps per output, a 7-point 1 -> 1 set, an odd Zc; p=1 and p=3;
-   f32 and f64), then at the Maxwell N=160 p=4 half-call, timed;
+   e^+-6, at a bound that K3's f32 sums must miss; K4 launched twice on
+   the same inputs (v and g3 bit-equal), and at a wide plane (317 x 49 x
+   4, p=2) and at N=160 p=8 against its plain version; K6, the generic
+   stencil, against its plain version at every small geometry above (the
+   unpaired pair, two half-calls) and at small geometries of its own
+   (6 -> 3 fields with 27 taps per output, a 7-point 1 -> 1 set, an odd
+   Zc; p=1 and p=3; f32 and f64), then at the Maxwell N=160 p=4
+   half-call, timed;
 4. K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
    random matrix, a 500x500 unstructured one, an RCM-permuted band, 997
    rows of a band; p=3 and p=1, f32 and f64), then at the assembled
@@ -57,9 +61,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    (p, n) states; relative error under 1e-3;
 10. the unpaired pair: A U at N=160 p=4 through `apply_stencil_pair`
     with paired=False on both halves, two K6 launches and no K1, within
-    1e-5 of K1's paired A U, both timed; then K5 (its own kernel, one
-    launch) and K4 (K3 and K6 launches) with the same unpaired specs,
-    each against its plain version;
+    1e-5 of K1's paired A U, both timed; then K5 and K4 with the same
+    unpaired specs, each one launch of its own kernel, against its plain
+    version;
 11. checkpoint/resume at N=160 p=4: `block_lanczos_checkpointed` (m=6,
     chunk 3) against `block_lanczos(fused=False)`; a run stopped at j=4
     and resumed, and an FDTD run (2000 steps, chunks of 1000) stopped
@@ -88,6 +92,7 @@ result.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -208,13 +213,14 @@ def phase_build(build):
     build.library()
     log(f"build: {time.perf_counter() - t0:.2f} s")
     # ptxas -v: registers and spills per kernel instantiation, e.g.
-    # "stencil_gram_kernel<f,4>: 98 registers, 0 bytes spill stores" or
-    # "gram_kernel<f,d,f,8,4,4>" (operand, sum and output types, R, C, VEC)
+    # "stencil_gram_kernel<f,4,0,1>: 127 registers, 0 bytes spill stores"
+    # (type, MAXP, TILED, FULL) or "gram_kernel<f,d,f,8,4,4>" (operand,
+    # sum and output types, R, C, VEC)
     name, spills = None, ""
     for ln in build.build_log.splitlines():
-        m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I([fd]+)((?:Li\d+E)*)E)?", ln)
+        m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I([fd]+)((?:L[ib]\d+E)*)E)?", ln)
         if "Compiling entry function" in ln and m:
-            args = list(m.group(2) or "") + re.findall(r"Li(\d+)E", m.group(3) or "")
+            args = list(m.group(2) or "") + re.findall(r"L[ib](\d+)E", m.group(3) or "")
             name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -269,6 +275,7 @@ def phase_kernels(torch, results, failures):
         stencil_gram,
     )
     from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
+        apply_stencil_pair,
         apply_stencil_pair_plain,
     )
 
@@ -411,6 +418,15 @@ def phase_kernels(torch, results, failures):
             failures.append("K4 v does not alias dst")
         check("K4 apply_stencil_pair_gram v", "apply_stencil_pair_gram", dname,
               got_v, want_v)
+        # a second launch on the same inputs: the same bits (no float
+        # atomics; the blocks' partials add in block order)
+        again = dst.clone()
+        v2, g3_2 = op.stencil_gram(q, again)
+        same = torch.equal(v2, got_v) and torch.equal(g3_2, got_g3)
+        log(f"  K4 twice on the same inputs: v and g3 bit-equal {same}")
+        if not same:
+            failures.append("K4: two launches on the same inputs differ")
+        del again, v2, g3_2
         scratch = dst.clone()
         record("apply_stencil_pair_gram", "K4 apply_stencil_pair_gram g3",
                got_g3, want_g3, lambda: op.stencil_gram(q, work),
@@ -418,6 +434,16 @@ def phase_kernels(torch, results, failures):
                    q, scratch, op.wz_t, op.wplane_s, op.spec_e, op.spec_h),
                3 * state_bytes, 12 * p * S + 3 * 2 * p * p * S)
         del q, dst, work, scratch, want_v, want_g3, got_v, got_g3
+
+        # K6 on this geometry: the unpaired pair, one launch a half
+        if not timed:
+            u = rand()
+            loose = [dataclasses.replace(sp, paired=False)
+                     for sp in (op.spec_e, op.spec_h)]
+            check("K6 unpaired pair (two half-calls)", "apply_stencil", dname,
+                  apply_stencil_pair(u, op.wz_t, op.wplane_s, *loose),
+                  apply_stencil_pair_plain(u, op.wz_t, op.wplane_s, *loose))
+            del u
 
         # K5: out = u + (dt A) u into a second buffer, at the block width
         # and, on the slice's geometry, at p=1 (the vector slice)
@@ -468,7 +494,48 @@ def phase_kernels(torch, results, failures):
                 log("  K7 refuses f64 states: ok")
         del op
         torch.cuda.empty_cache()
+    k4_wide_and_p8(torch, failures)
     k6_vs_plain(torch, rows, failures)
+
+
+def k4_wide_and_p8(torch, failures):
+    """K4 against its plain version beyond the slice's shape: a wide plane
+    (317 x 49 x 4: y-halos of 320 lanes) at p=2, and N=160 at p=8 (every
+    column staged at once, the MAXP=8 instantiation), f32; v aliases dst,
+    one launch each, the same bits on a repeat."""
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.ops.kernels import build, stencil_gram
+
+    dev = torch.device("cuda")
+    for geometry, p in (((317, 49, 4), 2), ((N_SLICE,) * 3, 8)):
+        op = PallasMaxwellOperator.create(*geometry, device=dev)
+        g = torch.Generator(device=dev).manual_seed(8)
+        q, dst = (op.pack(torch.randn((p, op.n), generator=g, device=dev))
+                  for _ in range(2))
+        q /= q.flatten(1).norm(dim=1).view(-1, 1, 1, 1)
+        dst /= dst.flatten(1).norm(dim=1).view(-1, 1, 1, 1)
+        again = dst.clone()
+        want_v, want_g3 = stencil_gram.apply_stencil_pair_gram_plain(
+            q, dst.clone(), op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
+        before = build.LAUNCHES["apply_stencil_pair_gram"]
+        v, g3 = op.stencil_gram(q, dst)
+        v2, g3_2 = op.stencil_gram(q, again)
+        torch.cuda.synchronize()
+        label = f"K4 at {'x'.join(map(str, geometry))} p={p} float32"
+        ok = (v.data_ptr() == dst.data_ptr()
+              and build.LAUNCHES["apply_stencil_pair_gram"] == before + 2
+              and torch.equal(v, v2) and torch.equal(g3, g3_2))
+        for part, got, want in (("v", v, want_v), ("g3", g3, want_g3)):
+            err, rel, close = compare(torch, got, want, KERNEL_RTOL["float32"])
+            log(f"  {label} {part}: max_abs_err {err:.3e} rel {rel:.3e} (tol "
+                f"{KERNEL_RTOL['float32']:.0e}) {'ok' if close else 'FAIL'}")
+            ok = ok and close
+        log(f"  {label}: aliases dst, one launch a call, bit-equal repeat: {ok}")
+        if not ok:
+            failures.append(f"{label} disagrees with its plain version or "
+                            "does not repeat")
+        del op, q, dst, again, v, v2, g3, g3_2, want_v, want_g3
+        torch.cuda.empty_cache()
 
 
 def k6_spec(kind, zc, plane):
@@ -1103,8 +1170,7 @@ def phase_unpaired_pair(torch, build, results, failures):
 
 def unpaired_k4_k5(torch, build, op, u, loose, failures):
     """K5 and K4 with both halves unpaired at N=160 p=4, each against its
-    plain version: K5 in its own kernel (one launch), K4 as K3, two K6
-    and K3 launches (no K4)."""
+    plain version, each one launch of its own kernel."""
     from lanczos_tpu_torch.ops.kernels import stencil_fdtd, stencil_gram
 
     a_dt = op.scaled(1.0 / FDTD_STEPS)
@@ -1125,9 +1191,9 @@ def unpaired_k4_k5(torch, build, op, u, loose, failures):
                                                  *loose)
     torch.cuda.synchronize()
     k4_launches = dict(build.LAUNCHES)
-    checks["K4 unpaired v"] = (k4_launches, {"block_grams": 2, "apply_stencil": 2},
+    checks["K4 unpaired v"] = (k4_launches, {"apply_stencil_pair_gram": 1},
                                v, want_v)
-    checks["K4 unpaired g3"] = (k4_launches, {"block_grams": 2, "apply_stencil": 2},
+    checks["K4 unpaired g3"] = (k4_launches, {"apply_stencil_pair_gram": 1},
                                 g3, want_g3)
     for label, (launches, want_launches, got, want) in checks.items():
         err, rel, ok = compare(torch, got, want, KERNEL_RTOL["float32"])

@@ -18,25 +18,25 @@
 // bounds them all; so it does K8, the windowed-ELL SpMM of assembled
 // matrices (see its section).  At the main path's shape (Maxwell N=160,
 // p=4: Zc=176, P=26624) one block state is 449.8 MB; the bytes each moves
-// per call are noted at each kernel.  K2, K4 and K6 are plain first
-// versions: one element (or one position across the block) per thread in
-// a grid-stride loop, neighbouring threads on neighbouring addresses, no
-// shared-memory staging, no TMA or wgmma.  The others were redesigned for
-// the card: K1 and K5 stage strips of rows in shared memory with cp.async
-// and keep their plane weights in registers along z; K3 (with K7, which
-// shares its kernel) takes exact-size register tiles, 16-byte loads and a
-// one-launch Gram; K8 16-byte plane loads, four rows a lane, with the next
-// planes' loads in flight before this plane's gathers (see their
-// sections).
+// per call are noted at each kernel.  K2 is a plain first version: one
+// position per thread in a grid-stride loop, neighbouring threads on
+// neighbouring addresses.  The others were redesigned for the card: the
+// stencils (K1 and K5, K4, K6) march strips of lanes along z, staging rows
+// in shared memory with cp.async and keeping their plane weights in
+// registers; K3 (with K7, which shares its kernel) takes exact-size
+// register tiles, 16-byte loads and a one-launch Gram; K8 16-byte plane
+// loads, four rows a lane, with the next planes' loads in flight before
+// this plane's gathers (see their sections).
 //
 // Cross-block sums (K3, K4, K7) are deterministic: each block writes its
-// partial sums into scratch, then they are added in block order (K4: by
-// sum_partials_kernel; K3 and K7: by the grid's last block).  No float
-// atomics, so the Lanczos coefficients repeat run to run.
+// partial sums into scratch, and the grid's last block (an atomic ticket)
+// adds them in block order.  No float atomics, so the Lanczos
+// coefficients repeat run to run.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -54,17 +54,10 @@ struct CompTaps {
 };
 
 // Taps of the six output components.  A paired half's come in (z-pair |
-// plane-pair) twos (StencilSpec.paired); K4 takes paired halves only.
+// plane-pair) twos (StencilSpec.paired); an unpaired half's one at a time.
 struct StencilTaps {
   CompTaps comp[6];
   int paired[2];  // per half
-};
-
-struct Geometry {
-  int zc;           // z capacity
-  int plane;        // folded-plane capacity P
-  int nt;           // taps per half (weight columns)
-  long long state;  // 6 * zc * plane: elements of one block column
 };
 
 // Host int layout (see stencil_kernel.py tap_table): per output
@@ -87,61 +80,10 @@ StencilTaps unpack_taps(const int* h) {
   return s;
 }
 
-// Offset, within one block column, of one tap's input: component ic
-// shifted by dz z-rows and rolled by r lanes.  pltpu.roll follows jnp.roll,
-// out[l] = in[(l - r) mod P]; the weights are zero on every lane a
-// wrapped read reaches.  A z-row outside [0, Zc) gives -1 and reads as 0
-// (the Pallas kernel clamps it; either way it meets only the zero weights
-// of rows 0 and Zc-1).
-__device__ __forceinline__ int tap_offset(int ic, int z, int dz, int l, int r,
-                                          const Geometry& g) {
-  const int zz = z + dz;
-  if (zz < 0 || zz >= g.zc) return -1;
-  int ll = l - r;
-  if (ll < 0) ll += g.plane;
-  return (ic * g.zc + zz) * g.plane + ll;
-}
-
-// acc[b] = (A u)[b, c, z, l] for the block columns b < min(p, MAXP) of u
-// (columns state elements apart).  wzr = wz_t[h, z, :] and wpl =
-// &wplane[h, 0, l] (tap t's plane weight at wpl[t * P]).  The paired form
-// is the Pallas kernel's: a z-pair shares its plane weight, a plane-pair
-// its z weight, so a pair costs three multiplies.  Each pair's weights are
-// loaded once for all columns, and its input loads for all columns are
-// issued together, before any of them is used.
-template <typename T, int MAXP>
-__device__ __forceinline__ void stencil_cols(
-    const T* __restrict__ u, long long state, int p, const CompTaps& ct,
-    const T* __restrict__ wzr, const T* __restrict__ wpl, int z, int l,
-    const Geometry& g, T (&acc)[MAXP]) {
-#pragma unroll
-  for (int b = 0; b < MAXP; ++b) acc[b] = T(0);
-  // unrolled over the (at most two) pairs, so that both pairs' loads can
-  // be in flight together: at p = 1 there is no other parallelism per thread
-#pragma unroll
-  for (int k = 0; k + 1 < kMaxTaps; k += 2) {
-    if (k + 1 >= ct.n) break;
-    const int t0 = ct.t[k], t1 = ct.t[k + 1];
-    const int o0 = tap_offset(ct.ic[k], z, ct.dz[k], l, ct.r[k], g);
-    const int o1 = tap_offset(ct.ic[k + 1], z, ct.dz[k + 1], l, ct.r[k + 1], g);
-    const bool zpair = ct.dz[k] != ct.dz[k + 1];
-    const T w0 = zpair ? wzr[t0] : wpl[(long long)t0 * g.plane];
-    const T w1 = zpair ? wzr[t1] : wpl[(long long)t1 * g.plane];
-    const T ws = zpair ? wpl[(long long)t0 * g.plane] : wzr[t0];
-    T v0[MAXP], v1[MAXP];
-#pragma unroll
-    for (int b = 0; b < MAXP; ++b) {
-      v0[b] = (b < p && o0 >= 0) ? u[b * state + o0] : T(0);
-      v1[b] = (b < p && o1 >= 0) ? u[b * state + o1] : T(0);
-    }
-#pragma unroll
-    for (int b = 0; b < MAXP; ++b) acc[b] += (v0[b] * w0 + v1[b] * w1) * ws;
-  }
-}
-
-// Sums acc[i] over the block, deterministically (fixed shuffle tree, then
-// warps in order).  Afterwards red[i * kWarps] holds the block total.
-template <typename T, int NACC>
+// Sums acc[i] over the block of NW warps, deterministically (fixed shuffle
+// tree, then warps in order).  Afterwards red[i * NW] holds the block
+// total.
+template <typename T, int NACC, int NW = kWarps>
 __device__ __forceinline__ void block_sum(T (&acc)[NACC], T* red) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
 #pragma unroll
@@ -149,28 +91,15 @@ __device__ __forceinline__ void block_sum(T (&acc)[NACC], T* red) {
     T v = acc[i];
 #pragma unroll
     for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-    if (lane == 0) red[i * kWarps + warp] = v;
+    if (lane == 0) red[i * NW + warp] = v;
   }
   __syncthreads();
   for (int i = threadIdx.x; i < NACC; i += blockDim.x) {
-    T s = red[i * kWarps];
-    for (int w = 1; w < kWarps; ++w) s += red[i * kWarps + w];
-    red[i * kWarps] = s;
+    T s = red[i * NW];
+    for (int w = 1; w < NW; ++w) s += red[i * NW + w];
+    red[i * NW] = s;
   }
   __syncthreads();
-}
-
-// Second pass of the cross-block sums: out[i] = sum_b partial[b, i], in
-// block order, in T; rounded to TOut once at the end.
-template <typename T, typename TOut>
-__global__ void sum_partials_kernel(const T* __restrict__ partial,
-                                    int nblocks, int nout,
-                                    TOut* __restrict__ out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= nout) return;
-  T s = T(0);
-  for (int b = 0; b < nblocks; ++b) s += partial[(long long)b * nout + i];
-  out[i] = TOut(s);
 }
 
 // ---------------------------------------------------------------------------
@@ -219,7 +148,7 @@ __global__ void sum_partials_kernel(const T* __restrict__ partial,
 // --stencil-parts; PERF.md).
 // A paired half sums (v0 w0 + v1 w1) ws per tap pair, the Pallas kernel's
 // factored form; an unpaired half (v wp) wz per tap, in spec order (K5
-// only: K1's wrapper sends unpaired specs to K6).  K5 adds u to the tap sum
+// and K4; K1's wrapper sends unpaired specs to K6).  K5 adds u to the tap sum
 // (the plain version's order; the Pallas kernel starts its sum at u, which
 // differs in rounding only).  The Pallas K5 updates u in place, which the
 // TPU's in-order grid and a VMEM delay ring make safe; CUDA blocks run in
@@ -234,9 +163,9 @@ constexpr int kStencilAhead = kStencilSlots - 4;
 constexpr int kStageCopies = 8;  // 16-byte copies a thread stages a row
 constexpr int kRowWeights = 6 * kMaxTaps;  // z-weights of one row, (c, k)
 
-// What a launch of K1/K5 knows, built on the host from the tap table and
-// the wrapper's plan.  Indexed with compile-time indices only, so it stays
-// in the parameter space.
+// What a launch of K1/K5 (and K4) knows, built on the host from the tap
+// table and the wrapper's plan.  Indexed with compile-time indices only, so
+// it stays in the parameter space.
 struct StripArgs {
   int zc, plane, nt, p;
   int width;            // W: lanes a block owns
@@ -251,6 +180,10 @@ struct StripArgs {
   // staged element that lane 0 of the strip reads for each tap:
   // off[ic] + left[ic] - s, s the roll as a signed shift in (-P/2, P/2]
   int soff[6][kMaxTaps];
+  // K4's z-taps (dz != 0, roll 0) read their input at the thread's own
+  // lanes from device memory: ic * Zc * P + dz * P from the tap's row
+  int goff[6][kMaxTaps];
+  int ptile;            // K4: block columns staged at once (a tile)
   int paired[2];        // per half: the factored form
 };
 
@@ -297,6 +230,37 @@ __device__ __forceinline__ void lds4(const T* p, T* v) {
   }
 }
 
+// Where this thread's staging copies of a row come from, within a z-plane
+// of a column (component c's field at c * comp): copy m lands at element
+// (tid + kThreads m) V of the slot (tid: threadIdx.x), the row holding
+// components 0..ncomp-1, component c's strip and halo from off[c] on; -1
+// past the row.  The halo's lanes wrap mod P, so every copy reads inside
+// the plane.
+template <int V>
+__device__ __forceinline__ void stage_sources(const int (&off)[6],
+                                              const int (&left)[6], int ncomp,
+                                              int row, int l0, int plane,
+                                              int comp,
+                                              int (&src)[kStageCopies],
+                                              int tid = threadIdx.x) {
+#pragma unroll
+  for (int m = 0; m < kStageCopies; ++m) {
+    const int e = (tid + m * kThreads) * V;
+    int c = 0, o = off[0], lf = left[0];
+#pragma unroll
+    for (int k = 1; k < 6; ++k) {
+      if (k < ncomp && e >= off[k]) {
+        c = k;
+        o = off[k];
+        lf = left[k];
+      }
+    }
+    int g = (l0 - lf + e - o) % plane;
+    if (g < 0) g += plane;
+    src[m] = e < row ? c * comp + g : -1;
+  }
+}
+
 // out = A u, plus u itself when kAddInput, on this block's strip and
 // z-range for every block column, LPT lanes a thread, 256 apart.  The
 // staged rows' lane mapping is the same for every row, so it is worked out
@@ -323,24 +287,8 @@ __device__ __forceinline__ void strip_stencil_body(
   const int items = a.p * nr;
   const int comp = a.zc * a.plane;  // < 2^30, checked by the wrapper
 
-  // where this thread's staging copies come from, within a z-plane
   int src[kStageCopies];
-#pragma unroll
-  for (int m = 0; m < kStageCopies; ++m) {
-    const int e = (threadIdx.x + m * kThreads) * V;
-    int c = 0, off = a.off[0], left = a.left[0];
-#pragma unroll
-    for (int k = 1; k < 6; ++k) {
-      if (e >= a.off[k]) {
-        c = k;
-        off = a.off[k];
-        left = a.left[k];
-      }
-    }
-    int g = (l0 - left + e - off) % a.plane;
-    if (g < 0) g += a.plane;
-    src[m] = e < a.row ? c * comp + g : -1;
-  }
+  stage_sources<V>(a.off, a.left, 6, a.row, l0, a.plane, comp, src);
   // the z-weight this thread fetches for each row
   int wcol = -1, wh = 0;
 #pragma unroll
@@ -698,67 +646,347 @@ __global__ void __launch_bounds__(kThreads,
 }
 
 // ---------------------------------------------------------------------------
-// K4: v = A q written into dst's buffer, and partial sums of
-// g3 = [gram(q, v); gram(v, v); gram(dst_old, q)], in one pass.
+// K4: v = A q written into dst's buffer, and g3 = [gram(q, v); gram(v, v);
+// gram(dst_old, q)], (3p, p), in one pass and one launch.
 // Replaces apply_stencil_pair_gram (lanczos_tpu/ops/pallas/stencil_gram.py:96).
 // Bound: device memory.  Reads q and dst, writes v: 3 * 449.8 MB at N=160
-// p=4, against 5 passes for K1 followed by a separate Gram.  One thread
-// owns one state position across all p block columns, so it holds q, v and
-// dst_old of every column in registers for the 3 p^2 Gram sums.  It reads
-// dst[e] before it writes v there, and no other thread reads dst[e]: the
-// stencil's neighbour reads come from q only, so the aliasing is race-free.
-template <typename T, int MAXP>
-__global__ void __launch_bounds__(kThreads)
+// p=4 (0.4028 ms at 3.35 TB/s), against 5 passes for K1 followed by a
+// separate Gram; its 3 p^2 multiply-adds a position (12 an element at
+// p=4) are far below the card's rate.  The first version (one thread a
+// position, every tap read through L1/L2, plane weights re-read every row,
+// a second launch for the sums) ran at 37% of the bound.  A Gram needs
+// every column's q, v and dst_old at the same position, so this kernel
+// marches z outermost with the block columns inside (K1 does the
+// opposite):
+// * a block owns a strip of W = 256 lanes of all six components over a
+//   range of z-rows, for every column, with 512 threads at p <= 4: thread
+//   t takes lane t % 256 of the output components of half t / 256 (E:
+//   0..2, H: 3..5), so 16 warps an SM share the arithmetic and each keeps
+//   only its half's plane weights in registers for the whole range (the
+//   Gram sums over components, so the halves' sums meet in the block's
+//   tree); at p = 5..8, 256 threads of both halves (GramShape); a row's
+//   z-weights sit in shared memory;
+// * every device-memory read is a 16-byte cp.async issued a row ahead, so
+//   no load's latency stalls the arithmetic: q's rows, with the lane halo
+//   of the taps' rolls (K1's copies: sources worked out once, lanes
+//   wrapped mod P), in a ring of kGramSlots items (rows z-1, z, z+1, and
+//   z+2 landing), and dst_old's rows at the strip's own lanes in two
+//   buffers (row z read, z+1 landing); every thread issues its share of
+//   both.  One barrier a row;
+// * v is stored into dst after dst_old was staged, and every neighbour
+//   read comes from q, so the in-place write races with nothing;
+// * the 3 p^2 Gram sums stay in registers over the thread's lanes and
+//   rows (gram(v, v) over k <= j, mirrored at the end), then go through a
+//   fixed shuffle tree and the warps in order, and the grid's last block
+//   (K3's atomic ticket) adds every block's partials in block order: one
+//   launch, the same bits on every run.
+// An item is row z of every column where that fits a block (the main
+// path: stencil_kernel.gram_plan).  Where it does not (wide planes, f64,
+// p up to 8), an item is row z of a tile of ptile columns in a ring of
+// kGramTileSlots, and the TILED instantiation reads the z-taps' rows z+-1
+// at the thread's own lane from device memory (in the Maxwell operator,
+// and by the plan's check, every z-tap has roll 0) and takes the Gram's
+// other columns there too: q from device memory, v of earlier tiles back
+// from dst (this thread wrote it); gram(dst_old, q) sums each tile's
+// dst_old before it is overwritten.  p <= 4 runs the MAXP = 4
+// instantiation (42 sums), p = 5..8 MAXP = 8 (164).  A half sums its taps
+// in K1's forms: a paired half (v0 w0 + v1 w1) ws per pair, an unpaired
+// one (v wp) wz per tap, so an unpaired K4 is this one launch too.
+// What sets its time is the arithmetic, not the copies, which it does
+// not fully overlap at one block an SM: instructions removed from the
+// row loop (the FULL instantiation at p == MAXP drops the column guards;
+// lanes past the plane carry zero weights instead of selects) each
+// showed in the time (probes --stencil-parts; PERF.md).
+constexpr int kGramSlots = 4;      // q items staged: z-1, z, z+1, z+2
+constexpr int kGramTileSlots = 2;  // TILED: row z, and z's next tile landing
+
+// Threads of a K4 block: a lane's six output components split over two
+// threads, E's and H's (p <= 4), or all on one, whose 255 registers hold
+// MAXP = 8's sums with fewer spills.  (Three threads a lane, two
+// components each, spill at their 80 registers.)
+template <int MAXP>
+struct GramShape {
+  static constexpr int kGroups = MAXP == 4 ? 2 : 1;  // threads a lane
+  static constexpr int kThreadsPer = kThreads * kGroups;
+  static constexpr int kWarpsPer = kThreadsPer / 32;
+  static constexpr int kComps = 6 / kGroups;  // output components a thread
+};
+
+template <typename T, int MAXP, bool TILED, bool FULL>
+__global__ void __launch_bounds__(GramShape<MAXP>::kThreadsPer, 1)
     stencil_gram_kernel(const T* __restrict__ q, T* __restrict__ dst,
                         const T* __restrict__ wz, const T* __restrict__ wp,
-                        StencilTaps taps, Geometry g, int p,
-                        T* __restrict__ partial) {
+                        const __grid_constant__ StripArgs a,
+                        T* __restrict__ partial, unsigned* __restrict__ ticket,
+                        T* __restrict__ g3) {
+  constexpr int V = 16 / (int)sizeof(T);
   constexpr int PP = MAXP * MAXP;
-  __shared__ StencilTaps s_taps;
-  __shared__ T red[3 * PP * kWarps];
-  if (threadIdx.x == 0) s_taps = taps;
-  __syncthreads();
+  constexpr int kSlots = TILED ? kGramTileSlots : kGramSlots;
+  constexpr int kLag = TILED ? 0 : 1;  // items held either side of row z
+  constexpr int kGroups = GramShape<MAXP>::kGroups;
+  constexpr int kComps = GramShape<MAXP>::kComps;
+  constexpr int kBlock = GramShape<MAXP>::kThreadsPer;
+  // dynamic shared memory only: a static byte more would put the opt-in
+  // size the launcher allows over the card's limit
+  extern __shared__ __align__(16) unsigned char stencil_smem[];
+  const int p = a.p;
+  const int pt = a.ptile;                  // == p unless TILED
+  const int ntiles = (p + pt - 1) / pt;
+  const int slot = pt * a.row;             // one ring item
+  const int dcol = 6 * a.width;            // one column's staged dst_old row
+  T* ring = reinterpret_cast<T*>(stencil_smem);
+  T* dbuf = ring + kSlots * slot;          // two items of dst_old
+  T* wrows = dbuf + 2 * pt * dcol;         // 16-byte aligned: row % V == 0
+  const int l0 = blockIdx.x * a.width;
+  const int w = min(a.width, a.plane - l0);
+  const int z0 = blockIdx.y * a.zchunk;
+  const int z1 = min(z0 + a.zchunk, a.zc);
+  // item m: row z0 - kLag + m / ntiles, tile m % ntiles; rows z0 - 1 and
+  // z1 only as neighbours (kLag = 1, one tile)
+  const int items = (z1 - z0 + 2 * kLag) * ntiles;
+  const int comp = a.zc * a.plane;         // < 2^30, checked by the wrapper
+  const int i = threadIdx.x % kThreads;    // the thread's lane of the strip
+  const int group = threadIdx.x / kThreads;  // its output components' group
+  // lanes past the plane: no store; their plane weights and staged
+  // dst_old are 0, so their v is 0 and they add nothing to the Gram
+  const bool live = i < w;
+
+  // every thread stages q's copies group, group + kGroups, ... of K1's
+  // mapping for its lane, and its share of dst_old's copies (below)
+  int src[kStageCopies];
+  stage_sources<V>(a.off, a.left, 6, a.row, l0, a.plane, comp, src, i);
+  int wcol = -1, wh = 0;
+#pragma unroll
+  for (int c = 0; c < 6; ++c)
+#pragma unroll
+    for (int k = 0; k < kMaxTaps; ++k)
+      if (threadIdx.x == c * kMaxTaps + k && k < a.n[c]) {
+        wcol = a.t[c][k];
+        wh = c / 3;
+      }
+  // runs f(std::integral_constant<int, G>) for the thread's group G
+  auto on_group = [&](auto f) {
+    if (kGroups > 1 && group == 1)
+      f(std::integral_constant<int, 1>{});
+    else
+      f(std::integral_constant<int, 0>{});
+  };
+  // the plane weights of the group's components, c = G * kComps + cc
+  T wpr[kComps][kMaxTaps];
+  on_group([&](auto gc) {
+    constexpr int G = decltype(gc)::value;
+#pragma unroll
+    for (int cc = 0; cc < kComps; ++cc) {
+      const int c = G * kComps + cc;
+      const T* wph = wp + (long long)(c / 3) * a.nt * a.plane + l0 + i;
+#pragma unroll
+      for (int k = 0; k < kMaxTaps; ++k)
+        wpr[cc][k] = k < a.n[c] && live
+                         ? __ldg(wph + (long long)a.t[c][k] * a.plane)
+                         : T(0);
+    }
+  });
   T acc[3 * PP];
 #pragma unroll
-  for (int i = 0; i < 3 * PP; ++i) acc[i] = T(0);
-  const int state = (int)g.state;  // <= 2^30, checked by the wrapper
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < state;
-       s += gridDim.x * blockDim.x) {
-    const int l = s % g.plane;
-    const int rz = s / g.plane;
-    const int z = rz % g.zc;
-    const int c = rz / g.zc;
-    const int h = c / 3;
-    const T* wzr = wz + ((long long)h * g.zc + z) * g.nt;
-    const T* wpl = wp + (long long)h * g.nt * g.plane + l;
-    // every read of dst[e] comes before the write of v there
-    T qv[MAXP], dv[MAXP], vv[MAXP];
-#pragma unroll
-    for (int b = 0; b < MAXP; ++b) {
-      qv[b] = b < p ? q[b * g.state + s] : T(0);
-      dv[b] = b < p ? dst[b * g.state + s] : T(0);
+  for (int m = 0; m < 3 * PP; ++m) acc[m] = T(0);
+
+  // q's rows of item m into ring slot m % kSlots (zeros for a row outside
+  // [0, Zc): it only feeds taps whose z-weight is 0 there)
+  auto stage_q = [&](int m) {
+    if (m >= items) return;
+    const int zz = z0 - kLag + m / ntiles, b0 = (m % ntiles) * pt;
+    const int nb = min(pt, p - b0);
+    T* sl = ring + (m % kSlots) * slot;
+    if (zz < 0 || zz >= a.zc) {
+      for (int e = threadIdx.x; e < nb * a.row; e += kBlock) sl[e] = T(0);
+      return;
     }
-    stencil_cols<T, MAXP>(q, g.state, p, s_taps.comp[c], wzr, wpl, z, l, g,
-                          vv);
+    for (int bb = 0; bb < nb; ++bb) {
+      const T* plane = q + (b0 + bb) * a.state + (long long)zz * a.plane;
+      T* sb = sl + bb * a.row;
 #pragma unroll
-    for (int b = 0; b < MAXP; ++b)
-      if (b < p) dst[b * g.state + s] = vv[b];
+      for (int k = 0; k < kStageCopies; ++k)
+        if (k % kGroups == group && src[k] >= 0)
+          cp_async16(sb + (i + k * kThreads) * V, plane + src[k]);
+    }
+  };
+  // dst_old's rows of item m (a row inside [z0, z1)) at the strip's lanes
+  // into buffer m & 1, column bb's component c at (bb * 6 + c) * W: this
+  // thread copies the same kDstCopies (component, 16-byte chunk) pairs of
+  // every column, whose offsets it works out once (-1: none)
+  constexpr int kChunks = kThreads / V;  // 16-byte copies a component
+  constexpr int kDstCopies = (6 * kChunks + kBlock - 1) / kBlock;
+  int dsrc[kDstCopies], ddst[kDstCopies];
 #pragma unroll
-    for (int k = 0; k < MAXP; ++k) {
+  for (int j = 0; j < kDstCopies; ++j) {
+    const int e = threadIdx.x + j * kBlock;  // c * kChunks + chunk
+    const bool ok = e < 6 * kChunks && (e % kChunks) * V < w;
+    dsrc[j] = ok ? (e / kChunks) * comp + l0 + (e % kChunks) * V : -1;
+    ddst[j] = (e / kChunks) * a.width + (e % kChunks) * V;
+  }
+  auto stage_dst = [&](int m) {
+    if (m >= items - kLag * ntiles) return;
+    const int zz = z0 - kLag + m / ntiles, b0 = (m % ntiles) * pt;
+    const int nb = min(pt, p - b0);
+    T* db = dbuf + (m & 1) * pt * dcol;
+    for (int bb = 0; bb < nb; ++bb) {
+      const T* row = dst + (b0 + bb) * a.state + (long long)zz * a.plane;
 #pragma unroll
-      for (int j = 0; j < MAXP; ++j) {
-        acc[k * MAXP + j] += qv[k] * vv[j];
-        acc[PP + k * MAXP + j] += vv[k] * vv[j];
-        acc[2 * PP + k * MAXP + j] += dv[k] * qv[j];
+      for (int j = 0; j < kDstCopies; ++j)
+        if (dsrc[j] >= 0)
+          cp_async16(db + bb * dcol + ddst[j], row + dsrc[j]);
+    }
+  };
+  auto zweight = [&](int z) {
+    return wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + z) * a.nt + wcol)
+                     : T(0);
+  };
+  // dst_old's lanes past the plane are never staged: zeros, before any copy
+  for (int e = threadIdx.x; e < 2 * pt * dcol; e += kBlock) dbuf[e] = T(0);
+  __syncthreads();
+  const int first = kLag * ntiles;  // the first item whose row is computed
+  for (int m = 0; m <= first + kLag; ++m) stage_q(m);
+  stage_dst(first);
+  cp_async_commit();
+  T wnext = zweight(z0);
+  for (int m = first; m < items - kLag * ntiles; ++m) {
+    const int z = z0 - kLag + m / ntiles, t = m % ntiles;
+    const int b0 = t * pt, b1 = min(p, b0 + pt);  // the tile's columns
+    T* wrow = wrows + (z & 1) * kRowWeights;
+    // the readers of this parity's z-weights (row z - 2) passed the last
+    // barrier
+    if (t == 0 && threadIdx.x < kRowWeights) wrow[threadIdx.x] = wnext;
+    cp_async_wait<0>();  // item m + kLag's q and item m's dst_old landed
+    __syncthreads();     // ... for every thread, with zeros and z-weights
+    // the next group: q of item m + 1 + kLag, whose slot held item m + 1 +
+    // kLag - kSlots (last read in step m - 1), and dst_old of item m + 1,
+    // whose buffer held item m - 1's; both readers passed the barrier
+    stage_q(m + 1 + kLag);
+    stage_dst(m + 1);
+    cp_async_commit();
+    if (t == 0 && z + 1 < z1) wnext = zweight(z + 1);
+    // column b's staged rows at b * a.row from these (rows z-1, z, z+1)
+    const T* rz = ring + (m % kSlots) * slot - b0 * a.row;
+    const T* rm = ring + ((m + kSlots - 1) % kSlots) * slot - b0 * a.row;
+    const T* rp = ring + ((m + 1) % kSlots) * slot - b0 * a.row;
+    const T* ds = dbuf + (m & 1) * pt * dcol - b0 * 6 * a.width + i;
+    const long long zl = (long long)z * a.plane + l0 + i;
+    // FULL: p == MAXP, untiled (the main path), so every column is in
+    auto in_tile = [&](int b) {
+      return TILED ? b >= b0 && b < b1 : FULL || b < p;
+    };
+    // group G's output components at this lane
+    on_group([&](auto gc) {
+      constexpr int G = decltype(gc)::value;
+#pragma unroll
+      for (int cc = 0; cc < kComps; ++cc) {
+        const int c = G * kComps + cc, H = c / 3;
+        T wzv[kMaxTaps];
+        lds4(wrow + c * kMaxTaps, wzv);
+        T* dc = dst + (long long)c * comp + zl;
+        const T* center = rz + a.off[c] + a.left[c] + i;
+        T qv[MAXP], vv[MAXP], dv[MAXP];
+#pragma unroll
+        for (int b = 0; b < MAXP; ++b) {
+          dv[b] = in_tile(b) ? ds[(b * 6 + c) * a.width] : T(0);
+          if (in_tile(b))
+            qv[b] = center[b * a.row];
+          else  // TILED: another tile's column, at this lane
+            qv[b] = b < p && live ? __ldg(q + b * a.state + c * comp + zl)
+                                  : T(0);
+        }
+#pragma unroll
+        for (int b = 0; b < MAXP; ++b) {
+          // the taps' inputs: staged rows z-1..z+1 (TILED: row z staged,
+          // rows z+-1 at this lane from device memory)
+          T x[kMaxTaps];
+#pragma unroll
+          for (int k = 0; k < kMaxTaps; ++k) {
+            const int d = a.dz[c][k];
+            const int o = b * a.row + a.soff[c][k] + i;
+            if (k >= a.n[c] || !in_tile(b))
+              x[k] = T(0);
+            else if (d == 0)
+              x[k] = rz[o];
+            else if (!TILED)
+              x[k] = d < 0 ? rm[o] : rp[o];
+            else
+              x[k] = live && z + d >= 0 && z + d < a.zc
+                         ? __ldg(q + b * a.state + a.goff[c][k] + zl)
+                         : T(0);
+          }
+          T sum = T(0);
+          if (a.paired[H]) {
+#pragma unroll
+            for (int k = 0; k + 1 < kMaxTaps; k += 2) {
+              if (k + 1 >= a.n[c]) break;
+              if (a.dz[c][k] != a.dz[c][k + 1])  // z-pair: one plane weight
+                sum += (x[k] * wzv[k] + x[k + 1] * wzv[k + 1]) * wpr[cc][k];
+              else  // plane-pair: one z-weight
+                sum += (x[k] * wpr[cc][k] + x[k + 1] * wpr[cc][k + 1]) *
+                       wzv[k];
+            }
+          } else {
+#pragma unroll
+            for (int k = 0; k < kMaxTaps; ++k) {
+              if (k >= a.n[c]) break;
+              sum += (x[k] * wpr[cc][k]) * wzv[k];
+            }
+          }
+          if (in_tile(b))
+            vv[b] = sum;
+          else  // TILED: an earlier tile's v, stored by this thread
+            vv[b] = b < b0 && live ? dc[b * a.state] : T(0);
+        }
+#pragma unroll
+        for (int b = 0; b < MAXP; ++b)
+          if (in_tile(b) && live) dc[b * a.state] = vv[b];
+#pragma unroll
+        for (int k = 0; k < MAXP; ++k) {
+#pragma unroll
+          for (int j = 0; j < MAXP; ++j) {
+            if (!TILED || in_tile(j)) {
+              acc[k * MAXP + j] += qv[k] * vv[j];
+              if (k <= j) acc[PP + k * MAXP + j] += vv[k] * vv[j];
+            }
+            if (!TILED || in_tile(k))
+              acc[2 * PP + k * MAXP + j] += dv[k] * qv[j];
+          }
+        }
       }
-    }
+    });
   }
-  block_sum<T, 3 * PP>(acc, red);
-  T* part = partial + (long long)blockIdx.x * 3 * p * p;
-  for (int i = threadIdx.x; i < 3 * PP; i += blockDim.x) {
-    const int blk = i / PP, k = (i / MAXP) % MAXP, j = i % MAXP;
-    if (k < p && j < p) part[(blk * p + k) * p + j] = red[i * kWarps];
+  cp_async_wait<0>();  // only empty groups can still be open
+  __syncthreads();     // the ring is free: it takes the block's sums
+  block_sum<T, 3 * PP, GramShape<MAXP>::kWarpsPer>(acc, ring);
+  const int nout = 3 * p * p;
+  const int nblocks = gridDim.x * gridDim.y;
+  T* part = partial + (long long)(blockIdx.y * gridDim.x + blockIdx.x) * nout;
+  for (int m = threadIdx.x; m < 3 * PP; m += kBlock) {
+    const int g = m / PP, k = (m / MAXP) % MAXP, j = m % MAXP;
+    // gram(v, v) was summed over k <= j: mirror the rest
+    const int from = g == 1 && k > j ? PP + j * MAXP + k : m;
+    if (k < p && j < p)
+      part[(g * p + k) * p + j] = ring[from * GramShape<MAXP>::kWarpsPer];
   }
+  // the last block to finish adds every block's partials, in block order
+  int* last = reinterpret_cast<int*>(wrows);  // the z-weights are done
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) *last = atomicAdd(ticket, 1u) == (unsigned)nblocks - 1;
+  __syncthreads();
+  if (!*last) return;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  for (int o = warp; o < nout; o += GramShape<MAXP>::kWarpsPer) {
+    T sum = T(0);
+    for (int b = lane; b < nblocks; b += 32)
+      sum += __ldcg(partial + (long long)b * nout + o);
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1)
+      sum += __shfl_down_sync(0xffffffffu, sum, d);
+    if (lane == 0) g3[o] = sum;
+  }
+  if (threadIdx.x == 0) *ticket = 0u;
 }
 
 // ---------------------------------------------------------------------------
@@ -930,16 +1158,29 @@ __global__ void __launch_bounds__(kThreads)
 // transposed wz_t[h] needs no copy either.
 // Bound: device memory.  One read of the n_in input and one write of the
 // n_out output fields per column: a Maxwell half-call at N=160 p=4 moves
-// 3 + 3 fields of 18.7 MB per column, 449.8 MB.  The Pallas kernel double-
-// buffers (n_in, tz, P) blocks through VMEM; here, as in K1, one thread
-// owns one (z, l) position for every component and column, its neighbour
-// reads (+-1 z-row, lane rolls) come from L1/L2, and each tap's two weights
-// are loaded once for up to COLS columns, whose input loads go out
-// together.  The tap table (2.6 KB, under the 4 KB parameter limit) is
-// copied into shared memory by the whole block.  Unlike K1's taps, which
-// come in pairs that share a weight row, each tap costs three multiplies.
+// 3 + 3 fields of 18.7 MB per column, 449.8 MB.  The first version (one
+// thread a position, taps and components in loops that were not unrolled,
+// every tap's two weights loaded from device memory at every position)
+// ran at 45% of the bound.  This one is K1's strip march for any spec:
+// * a block of 256 threads owns a strip of W lanes (512 in f32, two a
+//   thread; 256 in f64) of every component over a range of z-rows, loops
+//   over the block columns and marches along z;
+// * the n_in input rows are staged in K1's ring of kStencilSlots items
+//   (z-1, z, z+1 and ahead; 16-byte cp.async, zeros outside [0, Zc), one
+//   barrier a row), each component with the halo its taps' rolls reach
+//   (stencil_kernel.generic_halos), so every tap reads shared memory;
+// * a row's z-weights, one a tap, are fetched once into shared memory;
+// * the plane weights of up to kGenRegTaps taps (the Maxwell half: three
+//   components of four taps) sit in registers for the whole range, and the
+//   tap loop is unrolled; a spec with more taps (a 27-point stencil) runs
+//   the same body with a loop over its taps that reads plane weights
+//   through L1.
+// The launch (strip, z-chunk, halos, shared bytes) is
+// stencil_kernel.generic_plan's; the .cu rechecks it.
 constexpr int kGenComps = 6;  // components in and out
 constexpr int kGenTaps = 27;  // taps per output component: a 3x3x3 stencil
+constexpr int kGenRowWeights = kGenComps * kGenTaps;  // a row's z-weights
+constexpr int kGenRegTaps = 12;  // taps with plane weights in registers
 
 // Host int layout (see stencil_kernel.py generic_tap_table): n_out, then
 // per output component n, t[27], ic[27], dz[27], r[27].
@@ -950,12 +1191,6 @@ struct GenericTaps {
   int ic[kGenComps][kGenTaps];  // input component, local to u
   int dz[kGenComps][kGenTaps];  // z-row offset in {-1, 0, 1}
   int r[kGenComps][kGenTaps];   // lane roll in [0, P)
-};
-
-struct GenericArgs {
-  int zc, plane, p;
-  long long in_stride, out_stride;  // elements between block columns
-  long long wz_tap, wz_z;           // wz[t, z] at t * wz_tap + z * wz_z
 };
 
 GenericTaps unpack_generic_taps(const int* h) {
@@ -975,54 +1210,144 @@ GenericTaps unpack_generic_taps(const int* h) {
   return s;
 }
 
-template <typename T, int COLS>
-__global__ void __launch_bounds__(kThreads)
+// One tap of a K6 launch; taps run in output-component order, each
+// component's in spec order.
+struct GenTap {
+  int w;     // row of the weight arrays
+  int dz;    // z-row offset in {-1, 0, 1}
+  int soff;  // staged element lane 0 of the strip reads: off + left - s
+  int oc;    // output component
+};
+
+// What a K6 launch knows (2.7 KB of kernel parameters).
+struct GenericArgs {
+  int zc, plane, p, n_in, ntap;
+  int width, zchunk, row;
+  int cols;  // block columns staged a step (an item)
+  long long in_stride, out_stride;  // elements between block columns
+  long long wz_tap, wz_z;           // wz[t, z] at t * wz_tap + z * wz_z
+  int off[kGenComps], left[kGenComps];
+  GenTap tap[kGenComps * kGenTaps];
+};
+
+template <typename T, int LPT, int NREG>
+__global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
     apply_stencil_kernel(const T* __restrict__ u, T* __restrict__ out,
                          const T* __restrict__ wz, const T* __restrict__ wp,
-                         GenericTaps taps, GenericArgs a) {
-  __shared__ GenericTaps s;
-  {
-    const int* src = reinterpret_cast<const int*>(&taps);
-    int* dst = reinterpret_cast<int*>(&s);
-    for (int i = threadIdx.x; i < (int)(sizeof(GenericTaps) / sizeof(int));
-         i += blockDim.x)
-      dst[i] = src[i];
-  }
-  __syncthreads();
-  const Geometry g{a.zc, a.plane, 0, 0};
+                         const __grid_constant__ GenericArgs a) {
+  constexpr int V = 16 / (int)sizeof(T);
+  extern __shared__ __align__(16) unsigned char stencil_smem[];
+  T* ring = reinterpret_cast<T*>(stencil_smem);
+  const int slot = a.cols * a.row;  // an item: a row of a.cols columns
+  T* wrows = ring + kStencilSlots * slot;
+  const int l0 = blockIdx.x * a.width;
+  const int w = min(a.width, a.plane - l0);
+  const int z0 = blockIdx.y * a.zchunk;
+  const int z1 = min(z0 + a.zchunk, a.zc);
+  const int nr = z1 - z0 + 2;  // staged rows a column: z0 - 1 .. z1
+  const int groups = (a.p + a.cols - 1) / a.cols;
+  const int items = groups * nr;
   const int comp = a.zc * a.plane;  // n * comp < 2^30, checked by the wrapper
-  for (int pos = blockIdx.x * blockDim.x + threadIdx.x; pos < comp;
-       pos += gridDim.x * blockDim.x) {
-    const int l = pos % a.plane;
-    const int z = pos / a.plane;
-    for (int b0 = 0; b0 < a.p; b0 += COLS) {
-      const T* ub = u + b0 * a.in_stride;
-      T* ob = out + b0 * a.out_stride;
-#pragma unroll 1
-      for (int oc = 0; oc < s.n_out; ++oc) {
-        T acc[COLS];
+
+  int src[kStageCopies];
+  stage_sources<V>(a.off, a.left, a.n_in, a.row, l0, a.plane, comp, src);
+  // thread t < ntap fetches tap t's z-weight of every row
+  const int wt = threadIdx.x < a.ntap ? a.tap[threadIdx.x].w : -1;
+  // the strip's plane weights of the first NREG taps
+  T wpr[NREG > 0 ? NREG : 1][LPT];
 #pragma unroll
-        for (int b = 0; b < COLS; ++b) acc[b] = T(0);
-#pragma unroll 1
-        for (int k = 0; k < s.n[oc]; ++k) {
-          const int t = s.t[oc][k];
-          const int o = tap_offset(s.ic[oc][k], z, s.dz[oc][k], l,
-                                   s.r[oc][k], g);
-          const T w_p = wp[(long long)t * a.plane + l];
-          const T w_z = wz[t * a.wz_tap + z * a.wz_z];
-          T v[COLS];
+  for (int t = 0; t < NREG; ++t)
 #pragma unroll
-          for (int b = 0; b < COLS; ++b)
-            v[b] = (b0 + b < a.p && o >= 0) ? ub[b * a.in_stride + o] : T(0);
+    for (int j = 0; j < LPT; ++j) {
+      const int i = threadIdx.x + j * kThreads;
+      wpr[t][j] = t < a.ntap && i < w
+                      ? __ldg(wp + (long long)a.tap[t].w * a.plane + l0 + i)
+                      : T(0);
+    }
+
+  // item s of the staging sequence is row z0 - 1 + s % nr of the columns
+  // of group s / nr, in slot s % kStencilSlots (K1's ring, a.cols rows a slot)
+  int issued = 0;
+  for (int gr = 0; gr < groups; ++gr) {
+    const int b0 = gr * a.cols, nb = min(a.cols, a.p - b0);
+    for (int z = z0; z < z1; ++z) {
+      const int sc = gr * nr + (z - z0 + 1);  // this row's item
+      T* wrow = wrows + (sc & 1) * kGenRowWeights;
+      if (z == z0 && gr > 0) __syncthreads();
+      for (; issued <= sc + 1 + kStencilAhead; ++issued) {
+        if (issued < items) {
+          const int ig = issued / nr;
+          const int zz = z0 - 1 + issued - ig * nr;
+          const int ib = ig * a.cols, ic = min(a.cols, a.p - ib);
+          T* sl = ring + (issued % kStencilSlots) * slot;
+          if (zz < 0 || zz >= a.zc) {
+            for (int e = threadIdx.x; e < ic * a.row; e += kThreads)
+              sl[e] = T(0);
+          } else {
+            for (int bb = 0; bb < ic; ++bb) {
+              const T* plane =
+                  u + (ib + bb) * a.in_stride + (long long)zz * a.plane;
 #pragma unroll
-          for (int b = 0; b < COLS; ++b) acc[b] += (v[b] * w_p) * w_z;
+              for (int m = 0; m < kStageCopies; ++m)
+                if (src[m] >= 0)
+                  cp_async16(sl + bb * a.row + (threadIdx.x + m * kThreads) * V,
+                             plane + src[m]);
+            }
+          }
         }
+        cp_async_commit();  // one group an item, empty past the end
+      }
+      if (wt >= 0) wrow[threadIdx.x] = __ldg(wz + wt * a.wz_tap + z * a.wz_z);
+      cp_async_wait<kStencilAhead>();  // items up to sc + 1 have landed
+      __syncthreads();  // ... for every thread, with zeros and z-weights
+      // each column of the item in turn
+      for (int bb = 0; bb < nb; ++bb) {
+        const int rm = ((sc - 1) % kStencilSlots) * slot + bb * a.row;
+        const int r0 = (sc % kStencilSlots) * slot + bb * a.row;
+        const int rp = ((sc + 1) % kStencilSlots) * slot + bb * a.row;
+        T* ob = out + (b0 + bb) * a.out_stride + (long long)z * a.plane + l0 +
+                threadIdx.x;
+        T acc[LPT];
 #pragma unroll
-        for (int b = 0; b < COLS; ++b)
-          if (b0 + b < a.p) ob[b * a.out_stride + oc * comp + pos] = acc[b];
+        for (int j = 0; j < LPT; ++j) acc[j] = T(0);
+        // tap t's term, in spec order; the component's last tap stores it
+        auto term = [&](int t, const T (&wpt)[LPT]) {
+          const GenTap& tp = a.tap[t];
+          const T* rt = ring + (tp.dz < 0 ? rm : tp.dz == 0 ? r0 : rp) +
+                        tp.soff + threadIdx.x;
+          const T wzt = wrow[t];
+#pragma unroll
+          for (int j = 0; j < LPT; ++j)
+            acc[j] += (rt[j * kThreads] * wpt[j]) * wzt;
+          if (t + 1 == a.ntap || a.tap[t + 1].oc != tp.oc) {
+            T* oc = ob + (long long)tp.oc * comp;
+#pragma unroll
+            for (int j = 0; j < LPT; ++j) {
+              if (threadIdx.x + j * kThreads < w) oc[j * kThreads] = acc[j];
+              acc[j] = T(0);
+            }
+          }
+        };
+        if constexpr (NREG > 0) {
+#pragma unroll
+          for (int t = 0; t < NREG; ++t)
+            if (t < a.ntap) term(t, wpr[t]);
+        } else {
+          for (int t = 0; t < a.ntap; ++t) {
+            const T* wpl = wp + (long long)a.tap[t].w * a.plane + l0;
+            T wpt[LPT];
+#pragma unroll
+            for (int j = 0; j < LPT; ++j) {
+              const int i = threadIdx.x + j * kThreads;
+              wpt[j] = i < w ? __ldg(wpl + i) : T(0);
+            }
+            term(t, wpt);
+          }
+        }
       }
     }
   }
+  cp_async_wait<0>();  // only empty groups can still be open
 }
 
 // ---------------------------------------------------------------------------
@@ -1030,58 +1355,78 @@ __global__ void __launch_bounds__(kThreads)
 
 inline int finish() { return (int)cudaGetLastError(); }
 
-template <typename T, typename TOut = T>
-int sum_partials(const T* partial, int nblocks, int nout, TOut* out,
-                 cudaStream_t st) {
-  sum_partials_kernel<T, TOut>
-      <<<(nout + kThreads - 1) / kThreads, kThreads, 0, st>>>(partial, nblocks,
-                                                              nout, out);
-  return finish();
+// A strip kernel's plan, from the wrapper (stencil_kernel.StencilPlan):
+// width, lanes a thread, z-chunk, strips, chunks, shared-memory bytes, then
+// the staged lanes left of the strip and right of it per input component
+// (six, zero past K6's n_in).  The geometry every strip kernel shares:
+// lanes a thread, a grid that covers every lane and row exactly once,
+// halos in whole 16-byte copies, and each of the ncomp components' offset
+// in a staged row of at most kStageCopies copies a thread.  0 if the plan
+// is one the kernels can run, else cudaErrorInvalidValue.
+struct StripPlan {
+  int width, lpt, zchunk, row;
+  dim3 grid;
+  int off[6], left[6], right[6];
+};
+
+int strip_plan(const int* plan, int zc, int plane, int ncomp, int vec,
+               StripPlan& s) {
+  const int bad = (int)cudaErrorInvalidValue;
+  s.width = plan[0];
+  s.lpt = plan[1];
+  s.zchunk = plan[2];
+  s.grid = dim3(plan[3], plan[4]);
+  if ((s.lpt != 1 && s.lpt != 2) || s.width != kThreads * s.lpt ||
+      plane % vec || s.zchunk < 1 ||
+      (long long)s.grid.x * s.width < plane ||
+      (long long)(s.grid.x - 1) * s.width >= plane ||
+      (long long)s.grid.y * s.zchunk < zc ||
+      (long long)(s.grid.y - 1) * s.zchunk >= zc)
+    return bad;
+  s.row = 0;
+  for (int c = 0; c < 6; ++c) {
+    s.left[c] = plan[6 + c];
+    s.right[c] = plan[12 + c];
+    if (s.left[c] < 0 || s.right[c] < 0 || s.left[c] % vec ||
+        s.right[c] % vec || (c >= ncomp && s.left[c] + s.right[c]))
+      return bad;
+    s.off[c] = s.row;
+    if (c < ncomp) s.row += s.width + s.left[c] + s.right[c];
+  }
+  return s.row > kStageCopies * kThreads * vec ? bad : 0;
 }
 
-// The plan of a K1/K5 launch, from the wrapper (stencil_kernel.StencilPlan):
-// width, lanes a thread, z-chunk, strips, chunks, shared-memory bytes
-// (kStencilSlots rows and two rows' kRowWeights z-weights), then the
-// staged lanes left of the strip and right of it per input component.
-//
-// StripArgs of a launch; a plan or tap table the kernel cannot run
-// (a halo short of a tap's roll, a grid that misses a lane or a row, a
+// StripArgs of a K1/K5 launch (ring_rows = kStencilSlots, extra = two
+// rows' z-weights) or a K4 launch (its ring and dst_old buffers, and
+// own_lane_z: every z-tap has roll 0, as K4's tiled form reads rows z+-1
+// at the thread's own lanes); a plan or tap table the kernel cannot run (a
+// halo short of a tap's roll, a plan that strip_plan refuses, a
 // shared-memory size that is not the plan's) gives cudaErrorInvalidValue.
 template <typename T>
 int strip_args(const int* taps, const int* plan, int p, int zc, int plane,
-               int nt, StripArgs& a, dim3& grid, size_t& smem, int& lpt) {
+               int nt, int ring_rows, int extra, bool own_lane_z,
+               StripArgs& a, dim3& grid, size_t& smem, int& lpt) {
   constexpr int V = 16 / (int)sizeof(T);
   const int bad = (int)cudaErrorInvalidValue;
   const StencilTaps tp = unpack_taps(taps);
+  StripPlan sp;
+  if (p < 1 || strip_plan(plan, zc, plane, 6, V, sp)) return bad;
   a.zc = zc;
   a.plane = plane;
   a.nt = nt;
   a.p = p;
-  a.width = plan[0];
-  lpt = plan[1];
-  a.zchunk = plan[2];
-  grid = dim3(plan[3], plan[4]);
+  a.width = sp.width;
+  a.zchunk = sp.zchunk;
   a.state = 6LL * zc * plane;
-  if (p < 1 || (lpt != 1 && lpt != 2) || a.width != kThreads * lpt ||
-      plane % V || a.zchunk < 1 ||
-      (long long)grid.x * a.width < plane ||
-      (long long)(grid.x - 1) * a.width >= plane ||
-      (long long)grid.y * a.zchunk < zc ||
-      (long long)(grid.y - 1) * a.zchunk >= zc)
-    return bad;
-  int row = 0;
-  int right[6];
+  a.row = sp.row;
+  grid = sp.grid;
+  lpt = sp.lpt;
   for (int c = 0; c < 6; ++c) {
-    a.left[c] = plan[6 + c];
-    right[c] = plan[12 + c];
-    if (a.left[c] < 0 || right[c] < 0 || a.left[c] % V || right[c] % V)
-      return bad;
-    a.off[c] = row;
-    row += a.width + a.left[c] + right[c];
+    a.off[c] = sp.off[c];
+    a.left[c] = sp.left[c];
   }
-  a.row = row;
-  smem = ((size_t)kStencilSlots * row + 2 * kRowWeights) * sizeof(T);
-  if (row > kStageCopies * kThreads * V || smem != (size_t)plan[5]) return bad;
+  smem = ((size_t)ring_rows * a.row + extra) * sizeof(T);
+  if (smem != (size_t)plan[5]) return bad;
   for (int h = 0; h < 2; ++h) a.paired[h] = tp.paired[h];
   for (int c = 0; c < 6; ++c) {
     const CompTaps& ct = tp.comp[c];
@@ -1089,17 +1434,75 @@ int strip_args(const int* taps, const int* plan, int p, int zc, int plane,
       return bad;
     a.n[c] = ct.n;
     for (int k = 0; k < kMaxTaps; ++k) {
-      a.t[c][k] = a.dz[c][k] = a.soff[c][k] = 0;
+      a.t[c][k] = a.dz[c][k] = a.soff[c][k] = a.goff[c][k] = 0;
       if (k >= ct.n) continue;
       const int ic = ct.ic[k], r = ct.r[k];
       const int s = r <= plane / 2 ? r : r - plane;  // reads lane l - s
       if (ic < 0 || ic >= 6 || ct.t[k] < 0 || ct.t[k] >= nt || r < 0 ||
-          r >= plane || ct.dz[k] < -1 || ct.dz[k] > 1 || s > a.left[ic] ||
-          -s > right[ic])
+          r >= plane || ct.dz[k] < -1 || ct.dz[k] > 1 ||
+          s > sp.left[ic] || -s > sp.right[ic] ||
+          (own_lane_z && ct.dz[k] != 0 && r != 0))
         return bad;
       a.t[c][k] = ct.t[k];
       a.dz[c][k] = ct.dz[k];
       a.soff[c][k] = a.off[ic] + a.left[ic] - s;
+      a.goff[c][k] = ic * zc * plane + ct.dz[k] * plane;
+    }
+  }
+  return 0;
+}
+
+// GenericArgs of a K6 launch: the plan's geometry for n_in components
+// (strip_plan) and the taps in output-component order; a tap or plan the
+// kernel cannot run, or a u or in_stride off 16-byte alignment (the
+// staging copies), gives cudaErrorInvalidValue.
+template <typename T>
+int generic_args(const void* u, const int* taps, const int* plan, int cols,
+                 int p, int n_in, int zc, int plane, long long in_stride,
+                 long long out_stride, long long wz_tap, long long wz_z,
+                 GenericArgs& a, dim3& grid, size_t& smem, int& lpt) {
+  constexpr int V = 16 / (int)sizeof(T);
+  const int bad = (int)cudaErrorInvalidValue;
+  const GenericTaps g = unpack_generic_taps(taps);
+  StripPlan sp;
+  if (p < 1 || n_in < 1 || n_in > kGenComps || g.n_out < 1 ||
+      g.n_out > kGenComps || reinterpret_cast<uintptr_t>(u) % 16 ||
+      in_stride % V || strip_plan(plan, zc, plane, n_in, V, sp))
+    return bad;
+  a.zc = zc;
+  a.plane = plane;
+  a.p = p;
+  a.n_in = n_in;
+  a.width = sp.width;
+  a.zchunk = sp.zchunk;
+  a.in_stride = in_stride;
+  a.out_stride = out_stride;
+  a.wz_tap = wz_tap;
+  a.wz_z = wz_z;
+  grid = sp.grid;
+  lpt = sp.lpt;
+  a.row = sp.row;
+  a.cols = cols;
+  for (int c = 0; c < kGenComps; ++c) {
+    a.off[c] = sp.off[c];
+    a.left[c] = sp.left[c];
+  }
+  if (cols < 1 || cols > p) return bad;
+  smem = ((size_t)kStencilSlots * cols * a.row + 2 * kGenRowWeights) *
+         sizeof(T);
+  if (smem != (size_t)plan[5]) return bad;
+  a.ntap = 0;
+  for (int oc = 0; oc < g.n_out; ++oc) {
+    if (g.n[oc] < 1 || g.n[oc] > kGenTaps) return bad;
+    for (int k = 0; k < g.n[oc]; ++k) {
+      const int ic = g.ic[oc][k], r = g.r[oc][k];
+      const int s = r <= plane / 2 ? r : r - plane;  // reads lane l - s
+      if (ic < 0 || ic >= n_in || g.t[oc][k] < 0 || r < 0 || r >= plane ||
+          g.dz[oc][k] < -1 || g.dz[oc][k] > 1 || s > sp.left[ic] ||
+          -s > sp.right[ic])
+        return bad;
+      a.tap[a.ntap++] = GenTap{g.t[oc][k], g.dz[oc][k],
+                               a.off[ic] + a.left[ic] - s, oc};
     }
   }
   return 0;
@@ -1130,11 +1533,21 @@ int allow_shared_memory(Kernel kernel, unsigned long long& done) {
   return err;
 }
 
-// K1/K5 (kAddInput) blocks an SM holds at `smem` bytes of shared memory,
-// by the occupancy calculator; -1 on an error.
-// One K1/K5 instantiation: its launch, and its blocks an SM by the
-// occupancy calculator (-1 on an error).  The shared-memory attributes
-// are set once per device.
+// Blocks of `kernel` an SM holds at `smem` bytes of shared memory, by the
+// occupancy calculator, after `prepared` (its shared-memory attributes);
+// -1 on an error.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int prepared, size_t smem,
+                  int threads = kThreads) {
+  int blocks = 0;
+  if (prepared || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      &blocks, kernel, threads, smem))
+    return -1;
+  return blocks;
+}
+
+// One K1/K5 instantiation: its launch, and its blocks an SM.  The
+// shared-memory attributes are set once per device.
 template <typename T, bool kAddInput, int LPT>
 struct Strip {
   static auto kernel() {
@@ -1158,11 +1571,7 @@ struct Strip {
   }
 
   static int occupancy(size_t smem) {
-    int blocks = 0;
-    if (prepare() || cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                         &blocks, kernel(), kThreads, smem))
-      return -1;
-    return blocks;
+    return blocks_per_sm(kernel(), prepare(), smem);
   }
 };
 
@@ -1174,8 +1583,8 @@ int strip_stencil(const void* u, void* out, const void* wz, const void* wp,
   dim3 grid;
   size_t smem = 0;
   int lpt = 0;
-  const int err = strip_args<T>(taps, plan, p, zc, plane, nt, a, grid, smem,
-                                lpt);
+  const int err = strip_args<T>(taps, plan, p, zc, plane, nt, kStencilSlots,
+                                2 * kRowWeights, false, a, grid, smem, lpt);
   if (err) return err;
   return lpt == 1 ? Strip<T, kAddInput, 1>::launch(u, out, wz, wp, a, grid,
                                                    smem, st)
@@ -1188,6 +1597,121 @@ int strip_occupancy(int lpt, size_t smem) {
   if (lpt == 1) return Strip<T, kAddInput, 1>::occupancy(smem);
   if (lpt == 2) return Strip<T, kAddInput, 2>::occupancy(smem);
   return -1;
+}
+
+// One K4 instantiation, as Strip.
+template <typename T, int MAXP, bool TILED, bool FULL = false>
+struct GramStrip {
+  static auto kernel() { return stencil_gram_kernel<T, MAXP, TILED, FULL>; }
+
+  static int prepare() {
+    static unsigned long long configured = 0;
+    return allow_shared_memory(kernel(), configured);
+  }
+
+  static int launch(const void* q, void* dst, const void* wz, const void* wp,
+                    const StripArgs& a, void* partial, void* ticket, void* g3,
+                    dim3 grid, size_t smem, cudaStream_t st) {
+    const int err = prepare();
+    if (err) return err;
+    constexpr int kBlock = GramShape<MAXP>::kThreadsPer;
+    kernel()<<<grid, kBlock, smem, st>>>(
+        static_cast<const T*>(q), static_cast<T*>(dst),
+        static_cast<const T*>(wz), static_cast<const T*>(wp), a,
+        static_cast<T*>(partial), static_cast<unsigned*>(ticket),
+        static_cast<T*>(g3));
+    return finish();
+  }
+
+  static int occupancy(size_t smem) {
+    return blocks_per_sm(kernel(), prepare(), smem,
+                         GramShape<MAXP>::kThreadsPer);
+  }
+};
+
+// K4 from the wrapper's plan (stencil_kernel.gram_plan), pt its columns a
+// staged tile: one lane a thread, p <= 8; partial holds a (3p, p) sum for
+// each of the plan's blocks.
+template <typename T>
+int stencil_pair_gram(const void* q, void* dst, const void* wz,
+                      const void* wp, const int* taps, const int* plan,
+                      int pt, int p, int zc, int plane, int nt,
+                      void* partial, void* ticket, void* g3,
+                      cudaStream_t st) {
+  StripArgs a;
+  dim3 grid;
+  size_t smem = 0;
+  int lpt = 0;
+  if (pt < 1 || pt > p || p > 8) return (int)cudaErrorInvalidValue;
+  // the ring of q items, two items of dst_old rows, two rows' z-weights
+  const int slots = pt == p ? kGramSlots : kGramTileSlots;
+  const int err = strip_args<T>(taps, plan, p, zc, plane, nt, slots * pt,
+                                2 * pt * 6 * plan[0] + 2 * kRowWeights, true,
+                                a, grid, smem, lpt);
+  if (err) return err;
+  if (lpt != 1) return (int)cudaErrorInvalidValue;
+  a.ptile = pt;
+  if (p == 4 && pt == p)
+    return GramStrip<T, 4, false, true>::launch(q, dst, wz, wp, a, partial,
+                                                ticket, g3, grid, smem, st);
+  if (p <= 4)
+    return pt == p ? GramStrip<T, 4, false>::launch(q, dst, wz, wp, a, partial,
+                                                    ticket, g3, grid, smem, st)
+                   : GramStrip<T, 4, true>::launch(q, dst, wz, wp, a, partial,
+                                                   ticket, g3, grid, smem, st);
+  return pt == p ? GramStrip<T, 8, false>::launch(q, dst, wz, wp, a, partial,
+                                                  ticket, g3, grid, smem, st)
+                 : GramStrip<T, 8, true>::launch(q, dst, wz, wp, a, partial,
+                                                 ticket, g3, grid, smem, st);
+}
+
+// One K6 instantiation, as Strip.
+template <typename T, int LPT, int NREG>
+struct GenStrip {
+  static auto kernel() { return apply_stencil_kernel<T, LPT, NREG>; }
+
+  static int prepare() {
+    static unsigned long long configured = 0;
+    return allow_shared_memory(kernel(), configured);
+  }
+
+  static int launch(const void* u, void* out, const void* wz, const void* wp,
+                    const GenericArgs& a, dim3 grid, size_t smem,
+                    cudaStream_t st) {
+    const int err = prepare();
+    if (err) return err;
+    kernel()<<<grid, kThreads, smem, st>>>(
+        static_cast<const T*>(u), static_cast<T*>(out),
+        static_cast<const T*>(wz), static_cast<const T*>(wp), a);
+    return finish();
+  }
+};
+
+// K6 from the wrapper's plan (stencil_kernel.generic_plan): the register
+// instantiation when every tap's plane weights fit (kGenRegTaps), else the
+// tap loop.
+template <typename T>
+int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
+                  const int* taps, const int* plan, int cols, int p, int n_in,
+                  int zc,
+                  int plane, long long in_stride, long long out_stride,
+                  long long wz_tap, long long wz_z, cudaStream_t st) {
+  GenericArgs a;
+  dim3 grid;
+  size_t smem = 0;
+  int lpt = 0;
+  const int err =
+      generic_args<T>(u, taps, plan, cols, p, n_in, zc, plane, in_stride,
+                      out_stride, wz_tap, wz_z, a, grid, smem, lpt);
+  if (err) return err;
+  const bool reg = a.ntap <= kGenRegTaps;
+  if (lpt == 1)
+    return reg ? GenStrip<T, 1, kGenRegTaps>::launch(u, out, wz, wp, a, grid,
+                                                     smem, st)
+               : GenStrip<T, 1, 0>::launch(u, out, wz, wp, a, grid, smem, st);
+  return reg ? GenStrip<T, 2, kGenRegTaps>::launch(u, out, wz, wp, a, grid,
+                                                   smem, st)
+             : GenStrip<T, 2, 0>::launch(u, out, wz, wp, a, grid, smem, st);
 }
 
 template <typename T, int MAXPO>
@@ -1274,32 +1798,6 @@ int gram(const void* x0, int p0, const void* x1, int p1, const void* x2,
 }
 
 template <typename T>
-int stencil_pair_gram(const void* q, void* dst, const void* wz,
-                      const void* wp, const int* taps, int p, int zc,
-                      int plane, int nt, void* partial, int nblocks,
-                      void* g3, cudaStream_t st) {
-  const Geometry g{zc, plane, nt, 6LL * zc * plane};
-  const StencilTaps tp = unpack_taps(taps);
-  const T* qt = static_cast<const T*>(q);
-  T* dt = static_cast<T*>(dst);
-  const T* wzt = static_cast<const T*>(wz);
-  const T* wpt = static_cast<const T*>(wp);
-  T* part = static_cast<T*>(partial);
-  if (p <= 4) {
-    stencil_gram_kernel<T, 4><<<nblocks, kThreads, 0, st>>>(
-        qt, dt, wzt, wpt, tp, g, p, part);
-  } else if (p <= 8) {
-    stencil_gram_kernel<T, 8><<<nblocks, kThreads, 0, st>>>(
-        qt, dt, wzt, wpt, tp, g, p, part);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  const int err = finish();
-  if (err) return err;
-  return sum_partials<T>(part, nblocks, 3 * p * p, static_cast<T*>(g3), st);
-}
-
-template <typename T>
 int windowed_spmm(const void* data, const void* lidx, const void* off,
                   const void* wb, const void* x, void* y, int p, int ppc,
                   int cpg, long long n128, cudaStream_t st) {
@@ -1321,21 +1819,6 @@ int windowed_spmm(const void* data, const void* lidx, const void* off,
     if (err) return err;
   }
   return 0;
-}
-
-template <typename T>
-int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
-                  const int* taps, int p, int zc, int plane,
-                  long long in_stride, long long out_stride, long long wz_tap,
-                  long long wz_z, int nblocks, cudaStream_t st) {
-  const GenericArgs a{zc, plane, p, in_stride, out_stride, wz_tap, wz_z};
-  auto kernel =
-      p == 1 ? apply_stencil_kernel<T, 1> : apply_stencil_kernel<T, 4>;
-  kernel<<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(u), static_cast<T*>(out),
-      static_cast<const T*>(wz), static_cast<const T*>(wp),
-      unpack_generic_taps(taps), a);
-  return finish();
 }
 
 }  // namespace
@@ -1379,15 +1862,17 @@ int lt_block_grams(int dtype, const void* x0, int p0, const void* x1, int p1,
 }
 
 int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
-                         const void* wp, const int* taps, int p, int zc,
-                         int plane, int nt, void* partial, int nblocks,
-                         void* g3, void* stream) {
+                         const void* wp, const int* taps, const int* plan,
+                         int pt, int p, int zc, int plane, int nt,
+                         void* partial, void* ticket, void* g3,
+                         void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? stencil_pair_gram<float>(q, dst, wz, wp, taps, p, zc, plane,
-                                        nt, partial, nblocks, g3, st)
-             : stencil_pair_gram<double>(q, dst, wz, wp, taps, p, zc, plane,
-                                         nt, partial, nblocks, g3, st);
+             ? stencil_pair_gram<float>(q, dst, wz, wp, taps, plan, pt, p, zc,
+                                        plane, nt, partial, ticket, g3, st)
+             : stencil_pair_gram<double>(q, dst, wz, wp, taps, plan, pt, p,
+                                         zc, plane, nt, partial, ticket, g3,
+                                         st);
 }
 
 int lt_fdtd_step(int dtype, const void* u, void* out, const void* wz,
@@ -1426,32 +1911,41 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
 // (build.gram_grid_cap).
 int lt_gram_blocks_per_sm() { return kGramBlocksPerSM; }
 
-// Blocks of K1 (add_input 0) or K5 (1) an SM holds on the current device
-// with `lpt` lanes a thread and `smem` bytes of shared memory (what the
-// plan assumes; probes print it); -1 on an error.
-int lt_stencil_blocks_per_sm(int dtype, int add_input, int lpt,
+// Blocks an SM holds on the current device of K1 (kernel 0) or K5 (1)
+// with `variant` lanes a thread, or of K4 (2) for p <= `variant` (4 or 8),
+// at `smem` bytes of shared memory (what the plan assumes; probes print
+// it); -1 on an error.
+int lt_stencil_blocks_per_sm(int dtype, int kernel, int variant,
                              long long smem) {
   const size_t b = (size_t)smem;
+  if (kernel == 2 && (variant == 4 || variant == 8)) {
+    if (dtype == 0)
+      return variant == 4 ? GramStrip<float, 4, false, true>::occupancy(b)
+                          : GramStrip<float, 8, false>::occupancy(b);
+    return variant == 4 ? GramStrip<double, 4, false, true>::occupancy(b)
+                        : GramStrip<double, 8, false>::occupancy(b);
+  }
+  if (kernel != 0 && kernel != 1) return -1;
   if (dtype == 0)
-    return add_input ? strip_occupancy<float, true>(lpt, b)
-                     : strip_occupancy<float, false>(lpt, b);
-  return add_input ? strip_occupancy<double, true>(lpt, b)
-                   : strip_occupancy<double, false>(lpt, b);
+    return kernel ? strip_occupancy<float, true>(variant, b)
+                  : strip_occupancy<float, false>(variant, b);
+  return kernel ? strip_occupancy<double, true>(variant, b)
+                : strip_occupancy<double, false>(variant, b);
 }
 
 int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
-                     const void* wp, const int* taps, int p, int zc,
-                     int plane, long long in_stride, long long out_stride,
-                     long long wz_tap, long long wz_z, int nblocks,
-                     void* stream) {
+                     const void* wp, const int* taps, const int* plan,
+                     int cols, int p, int n_in, int zc, int plane,
+                     long long in_stride, long long out_stride,
+                     long long wz_tap, long long wz_z, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return dtype == 0
-             ? apply_stencil<float>(u, out, wz, wp, taps, p, zc, plane,
-                                    in_stride, out_stride, wz_tap, wz_z,
-                                    nblocks, st)
-             : apply_stencil<double>(u, out, wz, wp, taps, p, zc, plane,
-                                     in_stride, out_stride, wz_tap, wz_z,
-                                     nblocks, st);
+             ? apply_stencil<float>(u, out, wz, wp, taps, plan, cols, p, n_in,
+                                    zc, plane, in_stride, out_stride, wz_tap,
+                                    wz_z, st)
+             : apply_stencil<double>(u, out, wz, wp, taps, plan, cols, p,
+                                     n_in, zc, plane, in_stride, out_stride,
+                                     wz_tap, wz_z, st);
 }
 
 }  // extern "C"

@@ -59,7 +59,7 @@ _SIGNATURES = {
         _P, _P, _P,
     ),
     "lt_stencil_pair_gram": (
-        _I, _P, _P, _P, _P, _IP, _I, _I, _I, _I, _P, _I, _P, _P,
+        _I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _I, _P, _P, _P, _P,
     ),
     "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
     "lt_block_grams_compensated": (
@@ -72,7 +72,8 @@ _SIGNATURES = {
     "lt_gram_blocks_per_sm": (),
     "lt_stencil_blocks_per_sm": (_I, _I, _I, _LL),
     "lt_apply_stencil": (
-        _I, _P, _P, _P, _P, _IP, _I, _I, _I, _LL, _LL, _LL, _LL, _I, _P,
+        _I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
+        _P,
     ),
 }
 
@@ -202,7 +203,6 @@ def gram_grid_cap(device: torch.device) -> int:
 
 
 def grid_blocks(n: int) -> int:
-    """Blocks of the grid-stride kernels (256 threads each, at most 1024
-    blocks).  A function of the size only, so the cross-block sums add in
-    the same order on every run."""
+    """Blocks of the grid-stride kernel K2 (256 threads each, at most 1024
+    blocks), a function of the size only."""
     return max(1, min(-(-n // 256), 1024))

@@ -14,12 +14,13 @@ stencil's neighbour reads from q only, so the in-place write races with
 nothing.  The returned v is dst itself.
 
 The Pallas version's lane-chunk/halo/VMEM planning is a TPU artifact and
-is not ported: `supports` only asks for what the kernel takes.
-
-The kernel takes paired halves.  With an unpaired half the wrapper
-composes hand kernels, as the Pallas kernel's unpaired branch computes
-the same product: gram(dst, q) by K3 first, then A q written into dst by
-two K6 launches (one a half), then [gram(q, v); gram(v, v)] by K3.
+is not ported.  The kernel's own launch comes from
+`stencil_kernel.pair_gram_plan`: strips of lanes marching along z with
+row z of every block column staged in shared memory, z-taps read at the
+thread's own lane (so a z-tap that rolls is refused), the Gram summed
+over the grid in one launch whose last block adds the blocks' partials in
+block order (K3's ticket).  A paired half takes the factored form, an
+unpaired half sums its taps one at a time, in the same launch.
 """
 
 from __future__ import annotations
@@ -27,16 +28,17 @@ from __future__ import annotations
 import torch
 
 from lanczos_tpu_torch.ops.kernels import build
-from lanczos_tpu_torch.ops.kernels.block_dense import block_grams, gram_plain
+from lanczos_tpu_torch.ops.kernels.block_dense import _ticket, gram_plain
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
+    GRAM_MAX_P,
     StencilSpec,
     apply_stencil_pair_plain,
     check_geometry,
-    stencil_into,
+    pair_gram_plan,
     tap_table,
 )
 
-MAX_P = 8  # csrc stencil_gram_kernel instantiations (registers: 3 p^2 sums)
+MAX_P = GRAM_MAX_P  # csrc stencil_gram_kernel instantiations (registers: 3 p^2 sums)
 
 
 def supports(p: int, dtype: torch.dtype) -> bool:
@@ -64,9 +66,10 @@ def apply_stencil_pair_gram(
     """q, dst: (p, 6, Zc, P).  Returns (v, g3): v = A q written into dst's
     buffer (v is dst); g3 = [gram(q,v); gram(v,v); gram(dst_old,q)]
     (3p, p), gram(x,y)[k,j] = <x_k, y_j> over the whole state, accumulated
-    in the state's type.  dst's old contents are gone afterwards.  Either
-    half may be paired or not; on the card an unpaired half runs K3 and K6
-    instead of K4 (`_unpaired_gram`)."""
+    in the state's type; on the card the same bits on every run.  dst's
+    old contents are gone afterwards.  Either half may be paired or not;
+    on the card it is one launch either way.  A geometry whose staged rows
+    do not fit a block's shared memory raises ValueError before launch."""
     if q.ndim != 4 or q.shape != dst.shape:
         raise ValueError(
             f"q/dst must be (p,6,Zc,P), got {tuple(q.shape)}/{tuple(dst.shape)}"
@@ -80,30 +83,19 @@ def apply_stencil_pair_gram(
     if not 1 <= p <= MAX_P:
         raise ValueError(f"CUDA stencil_gram takes 1 <= p <= {MAX_P}, got {p}")
     nt = check_geometry(q, wz_t, wplane, spec_a)
-    if not (spec_a.paired and spec_b.paired):
-        return _unpaired_gram(q, dst, wz_t, wplane, spec_a, spec_b)
-    taps = tap_table(spec_a, spec_b)
-    state = 6 * spec_a.zc * spec_a.plane
-    nblocks = build.grid_blocks(state)
-    partial = torch.empty((nblocks, 3 * p, p), dtype=q.dtype, device=q.device)
+    if q.data_ptr() % 16:
+        raise ValueError("apply_stencil_pair_gram: q must start on a 16-byte "
+                         "boundary")
+    plan = pair_gram_plan(spec_a, spec_b, p, q.element_size(),
+                          build.sm_count(q.device))
+    partial = torch.empty((plan.strips * plan.chunks, 3 * p, p), dtype=q.dtype,
+                          device=q.device)
     g3 = torch.empty((3 * p, p), dtype=q.dtype, device=q.device)
     build.launch(
         "apply_stencil_pair_gram", q, "lt_stencil_pair_gram",
         build.dtype_code(q), q.data_ptr(), dst.data_ptr(), wz_t.data_ptr(),
-        wplane.data_ptr(), taps, p, spec_a.zc, spec_a.plane, nt,
-        partial.data_ptr(), nblocks, g3.data_ptr(), build.stream_handle(q),
+        wplane.data_ptr(), tap_table(spec_a, spec_b), plan.ints,
+        plan.columns, p, spec_a.zc, spec_a.plane, nt, partial.data_ptr(),
+        _ticket(q).data_ptr(), g3.data_ptr(), build.stream_handle(q),
     )
     return dst, g3
-
-
-def _unpaired_gram(q, dst, wz_t, wplane, spec_a, spec_b):
-    """K4's result from hand kernels when a half is unpaired: gram(dst, q)
-    (K3) before dst is overwritten, A q into dst (K6, a launch a half; a
-    paired half sums its taps unfactored, which differs from the factored
-    form in rounding only), then [gram(q, v); gram(v, v)] (K3)."""
-    g_dq = block_grams((dst,), q)
-    for h, spec in enumerate((spec_a, spec_b)):
-        base = 3 * (1 - h)
-        stencil_into(q[:, base : base + 3], dst[:, 3 * h : 3 * h + 3],
-                     wz_t[h].T, wplane[h], spec)
-    return dst, torch.cat([block_grams((q,), dst, include_zz=True), g_dq])

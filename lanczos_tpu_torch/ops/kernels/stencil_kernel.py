@@ -18,13 +18,15 @@ writes components 3h..3h+2 from the opposite half's three, and with
 costs three multiplies.  A pair with an unpaired half is two K6 launches,
 one per half, reading and writing component slices of the same tensors.
 
-K1's kernel (shared with K5, `stencil_fdtd.py`) gives a block a strip of
-lanes over a range of z-rows and stages the input rows, with a halo of
-lanes on either side, in shared memory.  `stencil_plan` picks the strip
-width, the z-range and the shared-memory bytes from the geometry and the
-halo that `stencil_halos` reads off the taps' rolls; `tap_table` and the
-plan are cached per spec pair, so a loop of launches (the FDTD oracle's
-10^6 steps) rebuilds neither.
+Every stencil kernel (K1 and K5, `stencil_fdtd.py`; K4, `stencil_gram.py`;
+K6) gives a block a strip of lanes over a range of z-rows and stages the
+input rows, with a halo of lanes on either side, in shared memory.  Its
+plan picks the strip width, the z-range and the shared-memory bytes from
+the geometry and the halo read off the taps' rolls: `stencil_plan` and
+`stencil_halos` for K1/K5, `gram_plan` for K4 (row z of all p columns,
+z-taps read at the thread's own lane), `generic_plan` and `generic_halos`
+for K6.  Tap tables and plans are cached per spec (pair), so a loop of
+launches (the FDTD oracle's 10^6 steps) rebuilds neither.
 
 A z-row outside [0, Zc) reads as 0 in both versions below.  The Pallas
 kernels read a clamped neighbour block there instead: the two agree
@@ -32,7 +34,7 @@ wherever the z-weights of rows 0 and Zc-1 are zero, which every operator
 constructor guarantees.  Lane rolls wrap circularly, as `jnp.roll` does.
 
 On a CUDA tensor the wrappers launch the hand-written kernels
-(`csrc/lanczos_kernels.cu`, stencil_pair_kernel and apply_stencil_kernel);
+(`csrc/lanczos_kernels.cu`: stencil_pair_kernel, apply_stencil_kernel);
 on a CPU tensor they run the plain versions, the same arithmetic in torch
 ops.  Every launch goes through `build.launch`, on the tensor's device.
 """
@@ -66,6 +68,16 @@ SM_THREADS = 2048  # resident threads an SM (Hopper)
 SM_SHARED_BYTES = 233_472  # shared memory an SM (228 KB)
 BLOCK_SHARED_BYTES = 232_448  # the most one block may opt in to (227 KB)
 BLOCK_SHARED_RESERVED = 1024  # the runtime's own shared memory a block
+# K4's strips (csrc stencil_gram_kernel)
+GRAM_WIDTH = 256  # lanes a block owns, one a thread
+GRAM_SLOTS = 4  # csrc kGramSlots: q items staged (rows z-1, z, z+1, z+2)
+GRAM_TILE_SLOTS = 2  # csrc kGramTileSlots: the tiled form's q items
+GRAM_MAX_P = 8  # csrc instantiations: p <= 4 and p <= 8
+GRAM_MIN_BLOCKS = 1  # csrc __launch_bounds__(256, 1): 255 registers a thread
+# K6 (csrc apply_stencil_kernel): K1's ring of STENCIL_SLOTS items, each
+# GEN_COLUMNS block columns where they fit; a row's z-weights, one a tap
+GEN_COLUMNS = 2
+GEN_ROW_WEIGHTS = MAX_COMPS * MAX_GENERIC_TAPS
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,9 +99,8 @@ class StencilSpec:
     # sharing (out, in) with EQUAL shared separable factors: a z-pair
     # (dz differs) shares its wplane row, a plane-pair (roll differs)
     # shares its wz row — enabling the factored 3-multiply form (K1, K4,
-    # K5).  An unpaired half sums its taps one at a time: on the card K5
-    # takes it in its own kernel, K1 as two K6 launches, K4 as K3 and K6
-    # launches.
+    # K5).  An unpaired half sums its taps one at a time: on the card K4
+    # and K5 take it in their own kernels, K1 as two K6 launches.
     paired: bool = False
 
 
@@ -162,10 +173,12 @@ def apply_stencil_plain(u, wz, wplane, spec: StencilSpec) -> torch.Tensor:
     return out
 
 
+@functools.lru_cache(maxsize=64)
 def generic_tap_table(spec: StencilSpec):
     """K6's tap table (csrc GenericTaps) as a ctypes int array: n_out, then
     per output component 0..MAX_COMPS-1: n, t[27], ic[27], dz[27], r[27],
-    taps in spec order, r reduced to [0, P)."""
+    taps in spec order, r reduced to [0, P).  Cached per spec; the kernel
+    only reads it."""
     vals = [spec.n_out]
     for oc in range(MAX_COMPS):
         idx = _comp_taps(spec, oc) if oc < spec.n_out else []
@@ -190,7 +203,9 @@ def stencil_into(u, out, wz, wplane, spec: StencilSpec) -> torch.Tensor:
     be component slices of larger states (their (component, z, lane) axes
     contiguous, the block axis strided); wz (n_taps, Zc) may be strided,
     e.g. the transpose of a pair's wz_t[h].  On the card out must not
-    share u's buffer.  Returns out."""
+    share u's buffer, u's block columns start on 16-byte boundaries, and
+    the launch is `generic_plan`'s (a spec whose staged rows do not fit
+    raises ValueError).  Returns out."""
     check_spec(spec, u.dtype)
     p = u.shape[0]
     if tuple(u.shape) != (p, spec.n_in, spec.zc, spec.plane) or tuple(
@@ -219,12 +234,19 @@ def stencil_into(u, out, wz, wplane, spec: StencilSpec) -> torch.Tensor:
         raise ValueError("apply_stencil: out must not share u's buffer")
     if max(spec.n_in, spec.n_out) * spec.zc * spec.plane > 2**30:
         raise ValueError("one block column must hold <= 2^30 elements")
+    if u.data_ptr() % 16 or (u.stride(0) * u.element_size()) % 16:
+        raise ValueError("apply_stencil: u's block columns must start on "
+                         "16-byte boundaries (the staging copies)")
+    if not wplane.is_contiguous():
+        raise ValueError("apply_stencil: wplane must be contiguous")
+    plan = generic_plan(spec, p, u.element_size(), build.sm_count(u.device))
     build.launch(
         "apply_stencil", u, "lt_apply_stencil", build.dtype_code(u),
         u.data_ptr(), out.data_ptr(), wz.data_ptr(), wplane.data_ptr(),
-        generic_tap_table(spec), p, spec.zc, spec.plane, u.stride(0),
-        out.stride(0), wz.stride(0), wz.stride(1),
-        build.grid_blocks(spec.zc * spec.plane), build.stream_handle(u),
+        generic_tap_table(spec), plan.ints, plan.columns, p, spec.n_in,
+        spec.zc, spec.plane, u.stride(0), out.stride(0), wz.stride(0),
+        wz.stride(1),
+        build.stream_handle(u),
     )
     return out
 
@@ -343,12 +365,14 @@ def stencil_halos(spec_a: StencilSpec, spec_b: StencilSpec):
 
 @dataclasses.dataclass(frozen=True)
 class StencilPlan:
-    """A K1/K5 launch: blocks of STENCIL_THREADS threads own `width` lanes
-    (`lanes_per_thread` a thread, 256 apart) by `zchunk` z-rows, on a grid
-    of strips x chunks, with STENCIL_SLOTS staged rows of `row` elements
-    (each component's strip plus its left/right halo, rounded to 16
-    bytes) and two rows' STENCIL_ROW_WEIGHTS z-weights in `smem_bytes` of
-    shared memory."""
+    """A strip kernel's launch (K1/K5, K4 or K6): blocks own `width` lanes
+    (`lanes_per_thread` a thread of STENCIL_THREADS, 256 apart; K4 puts
+    a lane's two halves on two threads at p <= 4) by `zchunk` z-rows, on
+    a grid of strips x chunks,
+    with a ring of staged rows of `row` elements (each input component's
+    strip plus its left/right halo, rounded to 16 bytes) and two rows'
+    z-weights in `smem_bytes` of shared memory.  K4 stages row z of
+    `columns` block columns at once (all p where they fit)."""
 
     width: int
     lanes_per_thread: int
@@ -359,13 +383,16 @@ class StencilPlan:
     left: tuple[int, ...]
     right: tuple[int, ...]
     row: int
+    columns: int = 1
 
     @functools.cached_property
     def ints(self):
-        """The plan as the csrc launcher reads it (strip_args), a ctypes int
-        array made once."""
+        """The plan as the csrc launchers read it (strip_plan), a ctypes int
+        array made once; the halos padded with zeros to six components."""
+        pad = [0] * (6 - len(self.left))
         vals = [self.width, self.lanes_per_thread, self.zchunk, self.strips,
-                self.chunks, self.smem_bytes, *self.left, *self.right]
+                self.chunks, self.smem_bytes, *self.left, *pad, *self.right,
+                *pad]
         return (ctypes.c_int * len(vals))(*vals)
 
 
@@ -375,6 +402,42 @@ def _waves_cost(strips: int, k: int, zc: int, slots: int) -> int:
     return -(-strips * k // slots) * (-(-zc // k) + 2)
 
 
+def _strip_plan(name: str, zc: int, plane: int, halo_left, halo_right,
+                itemsize: int, sms: int, *, width: int, ring_rows: int,
+                extra: int, min_blocks: int, zchunk: int | None,
+                columns: int = 1) -> StencilPlan:
+    """The plan every strip kernel shares: a `width`-lane strip, halos
+    rounded up to 16 bytes, a ring of `ring_rows` staged rows and `extra`
+    elements of shared memory (z-weights; K4's dst_old rows), and the
+    z-chunk whose grid of strips x chunks
+    finishes soonest in whole waves (`_waves_cost`, fewer chunks on a
+    tie), given the blocks an SM holds by threads, shared memory and
+    registers (`min_blocks`, the kernel's __launch_bounds__)."""
+    vec = 16 // itemsize  # elements of a 16-byte copy
+    if plane % vec:
+        raise ValueError(f"plane {plane} is no multiple of 16 bytes")
+    lpt = width // STENCIL_THREADS
+    left = tuple(-(-h // vec) * vec for h in halo_left)
+    right = tuple(-(-h // vec) * vec for h in halo_right)
+    row = sum(width + a + b for a, b in zip(left, right))
+    smem = (ring_rows * row + extra) * itemsize
+    copies = STENCIL_STAGE_COPIES * STENCIL_THREADS * vec  # elements a row
+    if smem > BLOCK_SHARED_BYTES or row > copies:
+        raise ValueError(f"{name} staging needs {smem} bytes of shared memory "
+                         f"a block (at most {BLOCK_SHARED_BYTES}) and rows of "
+                         f"{row} elements (at most {copies})")
+    strips = -(-plane // width)
+    if zchunk is None:
+        resident = min(SM_THREADS // STENCIL_THREADS,
+                       SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
+                       min_blocks)
+        slots = resident * sms
+        k = min(range(1, zc + 1), key=lambda k: (_waves_cost(strips, k, zc, slots), k))
+        zchunk = -(-zc // k)
+    return StencilPlan(width, lpt, zchunk, strips, -(-zc // zchunk), smem,
+                       left, right, row, columns)
+
+
 def stencil_plan(zc: int, plane: int, halo_left, halo_right, p: int,
                  itemsize: int, sms: int, *, width: int | None = None,
                  zchunk: int | None = None) -> StencilPlan:
@@ -382,43 +445,22 @@ def stencil_plan(zc: int, plane: int, halo_left, halo_right, p: int,
     elements on a card of `sms` SMs; halo_left/right per input component
     (`stencil_halos`).  The strip is STENCIL_WIDTH lanes, one or two on
     each of the block's threads (a plane narrower than the strip is staged
-    wrapped, and only its own lanes are stored), the halos are rounded up
-    to 16 bytes, and the z-chunk is the one whose grid of strips x chunks
-    finishes soonest in whole waves (`_waves_cost`, fewer chunks on a
-    tie), given the blocks an SM holds by threads, shared memory and
-    registers.  `width` and
-    `zchunk` override the pick (`probes --stencil-tiles`).  A pure
-    function of its arguments; the block columns loop inside a block, so
-    p only has to be >= 1."""
+    wrapped, and only its own lanes are stored), with a ring of
+    STENCIL_SLOTS rows.  `width` and `zchunk` override the pick (`probes
+    --stencil-tiles`).  A pure function of its arguments; the block
+    columns loop inside a block, so p only has to be >= 1."""
     if p < 1 or itemsize not in (4, 8):
         raise ValueError(f"stencil_plan takes p >= 1 and 4- or 8-byte "
                          f"elements, got p={p}, itemsize={itemsize}")
-    vec = 16 // itemsize  # elements of a 16-byte copy
-    if plane % vec:
-        raise ValueError(f"plane {plane} is no multiple of 16 bytes")
     width = STENCIL_WIDTH[itemsize] if width is None else width
     lpt = width // STENCIL_THREADS
     if width != lpt * STENCIL_THREADS or (itemsize, lpt) not in STENCIL_MIN_BLOCKS:
         raise ValueError(f"no K1/K5 strip of {width} lanes")
-    left = tuple(-(-h // vec) * vec for h in halo_left)
-    right = tuple(-(-h // vec) * vec for h in halo_right)
-    row = sum(width + a + b for a, b in zip(left, right))
-    smem = (STENCIL_SLOTS * row + 2 * STENCIL_ROW_WEIGHTS) * itemsize
-    copies = STENCIL_STAGE_COPIES * STENCIL_THREADS * vec  # elements a row
-    if smem > BLOCK_SHARED_BYTES or row > copies:
-        raise ValueError(f"K1/K5 staging needs {smem} bytes of shared memory "
-                         f"a block (at most {BLOCK_SHARED_BYTES}) and rows of "
-                         f"{row} elements (at most {copies})")
-    strips = -(-plane // width)
-    if zchunk is None:
-        resident = min(SM_THREADS // STENCIL_THREADS,
-                       SM_SHARED_BYTES // (smem + BLOCK_SHARED_RESERVED),
-                       STENCIL_MIN_BLOCKS[itemsize, lpt])
-        slots = resident * sms
-        k = min(range(1, zc + 1), key=lambda k: (_waves_cost(strips, k, zc, slots), k))
-        zchunk = -(-zc // k)
-    return StencilPlan(width, lpt, zchunk, strips, -(-zc // zchunk), smem,
-                       left, right, row)
+    return _strip_plan("K1/K5", zc, plane, halo_left, halo_right, itemsize,
+                       sms, width=width, ring_rows=STENCIL_SLOTS,
+                       extra=2 * STENCIL_ROW_WEIGHTS,
+                       min_blocks=STENCIL_MIN_BLOCKS[itemsize, lpt],
+                       zchunk=zchunk)
 
 
 @functools.lru_cache(maxsize=64)
@@ -427,6 +469,91 @@ def pair_plan(spec_a: StencilSpec, spec_b: StencilSpec, p: int, itemsize: int,
     """`stencil_plan` for the pair's geometry and halos, cached."""
     left, right = stencil_halos(spec_a, spec_b)
     return stencil_plan(spec_a.zc, spec_a.plane, left, right, p, itemsize, sms)
+
+
+def gram_plan(zc: int, plane: int, halo_left, halo_right, p: int,
+              itemsize: int, sms: int, *, zchunk: int | None = None,
+              columns: int | None = None) -> StencilPlan:
+    """K4's launch (csrc stencil_gram_kernel): strips of GRAM_WIDTH lanes,
+    one a thread, one block an SM (GRAM_MIN_BLOCKS).  Shared memory holds
+    a ring of q items, two items of dst_old rows at the strip's lanes (six
+    components a column) and two rows' z-weights.  An item is row z of
+    `columns` block columns: all p where a ring of GRAM_SLOTS items (rows
+    z-1..z+2) fits a block (the Gram needs every column at one position;
+    the main path), else the most that fit a ring of GRAM_TILE_SLOTS, the
+    kernel's tiled form (rows z+-1 and the other columns at the thread's
+    own lanes from device memory).  A geometry whose ring does not fit
+    even one column raises ValueError, before any launch.  `zchunk` and
+    `columns` override the pick (`probes --stencil-tiles`)."""
+    if not 1 <= p <= GRAM_MAX_P or itemsize not in (4, 8):
+        raise ValueError(f"gram_plan takes 1 <= p <= {GRAM_MAX_P} and 4- or "
+                         f"8-byte elements, got p={p}, itemsize={itemsize}")
+    if columns is not None and not 1 <= columns <= p:
+        raise ValueError(f"K4 stages 1..{p} columns at once, got {columns}")
+    for pt in [columns] if columns is not None else range(p, 0, -1):
+        try:
+            return _strip_plan(
+                f"K4 at p={p}", zc, plane, halo_left, halo_right, itemsize,
+                sms, width=GRAM_WIDTH,
+                ring_rows=(GRAM_SLOTS if pt == p else GRAM_TILE_SLOTS) * pt,
+                extra=2 * pt * 6 * GRAM_WIDTH + 2 * STENCIL_ROW_WEIGHTS,
+                min_blocks=GRAM_MIN_BLOCKS, zchunk=zchunk, columns=pt)
+        except ValueError:
+            if pt == 1 or columns is not None:
+                raise
+
+
+@functools.lru_cache(maxsize=64)
+def pair_gram_plan(spec_a: StencilSpec, spec_b: StencilSpec, p: int,
+                   itemsize: int, sms: int) -> StencilPlan:
+    """`gram_plan` for the pair's geometry and halos, cached.  K4 reads a
+    z-tap's rows z+-1 at the thread's own lane, so a spec with a z-tap
+    (dz != 0) that also rolls raises ValueError: only row z is staged with
+    a halo."""
+    _check_pair(spec_a, spec_b)
+    for spec in (spec_a, spec_b):
+        for tap in spec.taps:
+            if tap[2] and tap[3] % spec.plane:
+                raise ValueError(f"K4 takes z-taps of roll 0 only, got {tap}")
+    left, right = stencil_halos(spec_a, spec_b)
+    return gram_plan(spec_a.zc, spec_a.plane, left, right, p, itemsize, sms)
+
+
+def generic_halos(spec: StencilSpec):
+    """(left, right): the lanes each of K6's n_in input components must be
+    staged beyond a strip on either side, from its taps' rolls."""
+    left, right = [0] * spec.n_in, [0] * spec.n_in
+    for _, ic, _, r in spec.taps:
+        s = _signed_roll(r, spec.plane)
+        left[ic], right[ic] = max(left[ic], s), max(right[ic], -s)
+    return tuple(left), tuple(right)
+
+
+@functools.lru_cache(maxsize=64)
+def generic_plan(spec: StencilSpec, p: int, itemsize: int,
+                 sms: int) -> StencilPlan:
+    """K6's launch (csrc apply_stencil_kernel), cached per spec: K1's strip
+    width and ring of STENCIL_SLOTS items, each the rows of `columns` block
+    columns (GEN_COLUMNS where they fit: twice the bytes a barrier of one)
+    of the n_in input components with `generic_halos`, and room for a
+    row's z-weights of up to GEN_ROW_WEIGHTS taps.  A spec whose rows do
+    not fit raises ValueError."""
+    if p < 1 or itemsize not in (4, 8):
+        raise ValueError(f"generic_plan takes p >= 1 and 4- or 8-byte "
+                         f"elements, got p={p}, itemsize={itemsize}")
+    left, right = generic_halos(spec)
+    width = STENCIL_WIDTH[itemsize]
+    for cols in range(min(p, GEN_COLUMNS), 0, -1):
+        try:
+            return _strip_plan(
+                "K6", spec.zc, spec.plane, left, right, itemsize, sms,
+                width=width, ring_rows=STENCIL_SLOTS * cols,
+                extra=2 * GEN_ROW_WEIGHTS,
+                min_blocks=STENCIL_MIN_BLOCKS[itemsize, width // STENCIL_THREADS],
+                zchunk=None, columns=cols)
+        except ValueError:
+            if cols == 1:
+                raise
 
 
 def launch_pair(name: str, entry: str, u, out, wz_t, wplane, spec_a, spec_b,

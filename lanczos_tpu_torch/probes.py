@@ -29,8 +29,10 @@ With --stencil-tiles it prints only this: K1 and K5 at p=1 and p=4 on
 N=160 (f32), each on the plan `stencil_kernel.stencil_plan` picks and on
 its neighbours (half and twice the strip width, each with the z-chunk the
 plan picks for it; one z-chunk more and one fewer at the picked width),
-timed in turns (picked, other, other, picked; CUDA events, 20 calls after
-2 warm-up calls), with each plan's blocks an SM by the occupancy
+then K4 at p=4 on `stencil_kernel.pair_gram_plan`'s pick and its
+neighbours (one z-chunk more and one fewer, half the columns a staged
+tile), timed in turns (picked, other, other, picked; CUDA events, 20 calls
+after 2 warm-up calls), with each plan's blocks an SM by the occupancy
 calculator and its shared memory.
 
 With --assembled it prints only this, the breakdown of the assembled
@@ -41,20 +43,25 @@ m=12, k=5, reorth full, TSQR, breakdown_eps 1e-4, replace_dead,
 compute_vectors) and of 50 FDTD steps of the ELL slice's operator
 (`--operator ell`, N=48, p=4).
 
-With --stencil-parts it prints only this: K1 and K5 at p=1 and p=4 on
-N=160 (f32) built three ways from `csrc/lanczos_kernels.cu`: as it stands,
-without the taps (each output is 0 for K1, u for K5: staging, barriers and
-stores only) and without the staging copies (the taps read whatever the
-ring holds), each timed as above, to show which part sets the time.
+With --stencil-parts it prints only this: K1 and K5 at p=1 and p=4 and
+K4 at p=4 on N=160 (f32), built five ways from `csrc/lanczos_kernels.cu`:
+as it stands; K1/K5 without their taps (each output is 0 for K1, u for
+K5: staging, barriers and stores only) and without their staging copies
+(the taps read whatever the ring holds); K4 without its Gram sums and
+without its staging copies; each timed as above, to show which part sets
+the time.
 
 With --ab OLD.cu it prints only this, a same-call A/B of the stencil
-kernels K1 and K5: OLD.cu is an earlier `csrc/lanczos_kernels.cu` with the
-C interface they had before their redesign (one thread a position, a grid
-of at most 1024 blocks), built and loaded beside the current library.  K1
-and K5 at p=1 and p=4 on N=160 (f32), each timed old, new, new, old (CUDA
-events, 20 calls after 2 warm-up calls), with the largest difference
-between the two results.  The source before the redesign is `git show
-259eb3c:lanczos_tpu_torch/csrc/lanczos_kernels.cu`.
+kernels: OLD.cu is the `csrc/lanczos_kernels.cu` of commit 500f53f
+(`git show 500f53f:lanczos_tpu_torch/csrc/lanczos_kernels.cu`), with
+K1/K5's strip interface and K4's and K6's before their redesign (one
+thread a position, a grid of at most 1024 blocks, K4's sums in a second
+launch),
+built and loaded beside the current library.  K1 and K5 at p=1 and p=4
+(unchanged since: the spread of the A/B), K4 at p=4 and K6's E half-call
+at p=4, on N=160 (f32), each timed old, new, new, old (CUDA events, 20
+calls after 2 warm-up calls), with the largest difference between the
+two results.
 
 With --gram-tiles it prints only this: K3 at the fused recurrence's calls
 (`(), b` and `(q,), v`, include_zz: K = p and 2p) at p=1 and p=4, and K7 at
@@ -180,10 +187,17 @@ def _ms(fn, iters=20, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the C interface of K1 and K5 before their redesign
+# the C interface of the kernels of commit 500f53f (`git show
+# 500f53f:lanczos_tpu_torch/csrc/lanczos_kernels.cu`): K1/K5 as now, K4
+# and K6 before their redesign
+_STRIP = ("I", "P", "P", "P", "P", "IP", "IP", "I", "I", "I", "I", "P")
 _OLD_SIGNATURES = {
-    name: ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "I", "I", "P")
-    for name in ("lt_stencil_pair", "lt_fdtd_step")
+    "lt_stencil_pair": _STRIP,
+    "lt_fdtd_step": _STRIP,
+    "lt_stencil_pair_gram": ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "I",
+                             "P", "I", "P", "P"),
+    "lt_apply_stencil": ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "LL",
+                         "LL", "LL", "LL", "I", "P"),
 }
 
 
@@ -191,7 +205,7 @@ def _old_library(path: str):
     import ctypes
     from pathlib import Path
 
-    types = {"I": ctypes.c_int, "P": ctypes.c_void_p,
+    types = {"I": ctypes.c_int, "P": ctypes.c_void_p, "LL": ctypes.c_longlong,
              "IP": ctypes.POINTER(ctypes.c_int)}
     source = build.SOURCE
     try:
@@ -219,26 +233,34 @@ def _ab(label, old_fn, new_fn, names=("old", "new")) -> None:
 
 
 def probe_ab(dev, old_path: str) -> None:
-    from lanczos_tpu_torch.ops.kernels.stencil_kernel import tap_table
+    import dataclasses
+
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
+        generic_tap_table,
+        pair_plan,
+        stencil_into,
+        tap_table,
+    )
 
     old = _old_library(old_path)
     build.library()
     st = torch.cuda.current_stream(dev).cuda_stream
     op = PallasMaxwellOperator.create(N, N, N, device=dev)
     a_dt = op.scaled(1.0 / FDTD_STEPS)
-    taps = tap_table(op.spec_e, op.spec_h)  # the old kernels read its head
+    taps = tap_table(op.spec_e, op.spec_h)
     zc, plane, nt = op.spec.zc, op.spec.plane, op.wz_t.shape[-1]
     g = torch.Generator(device=dev).manual_seed(0)
     for p in (1, P):
         u = torch.randn((p,) + op.state_shape, generator=g, device=dev)
-        outs = [torch.empty_like(u) for _ in range(4)]
+        outs = [torch.empty_like(u) for _ in range(3)]
+        plan = pair_plan(op.spec_e, op.spec_h, p, 4, build.sm_count(dev))
 
         def old_call(entry, a, out):
             def run():
                 build.check(getattr(old, entry)(
                     0, u.data_ptr(), out.data_ptr(), a.wz_t.data_ptr(),
-                    a.wplane_s.data_ptr(), taps, p, zc, plane, nt,
-                    build.grid_blocks(zc * plane), st), entry)
+                    a.wplane_s.data_ptr(), taps, plan.ints, p, zc, plane, nt,
+                    st), entry)
                 return out
             return run
 
@@ -246,7 +268,39 @@ def probe_ab(dev, old_path: str) -> None:
             lambda: op.mm(u))
         _ab(f"K5 fdtd_step p={p}", old_call("lt_fdtd_step", a_dt, outs[1]),
             lambda: a_dt.fdtd_step(u, outs[2]))
-        del u, outs
+        del outs
+    # K4 at the block slice's p: each side overwrites its own dst with v
+    dst_old, dst_new = u.clone(), u.clone()
+    q = torch.randn_like(u)
+    nblocks = build.grid_blocks(6 * zc * plane)  # the old K4's grid
+    partial = torch.empty((nblocks, 3 * P, P), device=dev)
+    g3 = torch.empty((3 * P, P), device=dev)
+
+    def old_k4():
+        build.check(old.lt_stencil_pair_gram(
+            0, q.data_ptr(), dst_old.data_ptr(), op.wz_t.data_ptr(),
+            op.wplane_s.data_ptr(), taps, P, zc, plane, nt, partial.data_ptr(),
+            nblocks, g3.data_ptr(), st), "lt_stencil_pair_gram")
+        return g3
+
+    _ab(f"K4 apply_stencil_pair_gram p={P} (g3)", old_k4,
+        lambda: op.stencil_gram(q, dst_new)[1])
+    # K6: the E half-call of an unpaired pair, as chip_smoke times it
+    spec = dataclasses.replace(op.spec_e, paired=False)
+    wz, wp = op.wz_t[0].T, op.wplane_s[0]
+    out_old, out_new = torch.zeros_like(u), torch.zeros_like(u)
+
+    def old_k6():
+        src, dst = u[:, 3:6], out_old[:, 0:3]
+        build.check(old.lt_apply_stencil(
+            0, src.data_ptr(), dst.data_ptr(), wz.data_ptr(), wp.data_ptr(),
+            generic_tap_table(spec), P, zc, plane, src.stride(0),
+            dst.stride(0), wz.stride(0), wz.stride(1),
+            build.grid_blocks(zc * plane), st), "lt_apply_stencil")
+        return dst
+
+    _ab(f"K6 apply_stencil E half p={P}", old_k6,
+        lambda: stencil_into(u[:, 3:6], out_new[:, 0:3], wz, wp, spec))
     torch.cuda.empty_cache()
 
 
@@ -268,13 +322,27 @@ def _neighbour_plans(picked, plan):
     return out
 
 
-# string edits of the strip kernel that drop one part of its work
+# string edits of the stencil kernels that drop one part of their work: the
+# K1/K5 strip body's taps or staging copies, K4's Gram sums or staging
 _STENCIL_PARTS = {
-    "as built": ("", ""),
-    "no taps": ("        if (a.paired[h]) {",
-                "        if (true) {} else if (a.paired[h]) {"),
-    "no staging": ("                cp_async16(slot",
-                   "                if (false) cp_async16(slot"),
+    "as built": (),
+    "K1/K5 no taps": ((
+        "        if (a.paired[h]) {\n#pragma unroll\n"
+        "          for (int k = 0; k + 1 < kMaxTaps; k += 2) {\n"
+        "            if (k + 1 >= a.n[c]) break;\n            // the pair's",
+        "        if (true) {} else if (a.paired[h]) {\n#pragma unroll\n"
+        "          for (int k = 0; k + 1 < kMaxTaps; k += 2) {\n"
+        "            if (k + 1 >= a.n[c]) break;\n            // the pair's"),),
+    "K1/K5 no staging": (("                cp_async16(slot",
+                          "                if (false) cp_async16(slot"),),
+    "K4 no Gram": (("            if (!TILED || in_tile(j)) {",
+                    "            if (false) {"),
+                   ("            if (!TILED || in_tile(k))\n",
+                    "            if (false)\n")),
+    "K4 no staging": (("          cp_async16(sb + (i + k * kThreads)",
+                       "          if (false) cp_async16(sb + (i + k * kThreads)"),
+                      ("          cp_async16(db + bb * dcol",
+                       "          if (false) cp_async16(db + bb * dcol")),
 }
 
 
@@ -285,22 +353,28 @@ def probe_stencil_parts(dev) -> None:
     us = {p: torch.randn((p,) + op.state_shape, generator=g, device=dev)
           for p in (1, P)}
     outs = {p: torch.empty_like(u) for p, u in us.items()}
+    q, dst = us[P], torch.empty_like(us[P])
     source = build.SOURCE
     text = source.read_text()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     try:
-        for name, (old, new) in _STENCIL_PARTS.items():
-            if old and text.count(old) != 1:
-                raise RuntimeError(f"the kernel source no longer has {old!r}")
-            path = build.BUILD_DIR / f"stencil_part_{name.replace(' ', '_')}.cu"
+        for name, edits in _STENCIL_PARTS.items():
+            part = text
+            for old, new in edits:
+                if part.count(old) != 1:
+                    raise RuntimeError(f"the kernel source no longer has {old!r}")
+                part = part.replace(old, new)
+            tag = name.replace(" ", "_").replace("/", "")
+            path = build.BUILD_DIR / f"stencil_part_{tag}.cu"
             # a line of its own makes each part a build of its own
-            path.write_text(f"// stencil part: {name}\n" + text.replace(old, new))
+            path.write_text(f"// stencil part: {name}\n" + part)
             build.SOURCE, build._lib = path, None
             times = []
             for p in (1, P):
                 u, out = us[p], outs[p]
                 times.append(f"K1 p={p} {_ms(lambda: op.mm(u)):.4f} ms, K5 p={p} "
                              f"{_ms(lambda: a_dt.fdtd_step(u, out)):.4f} ms")
+            times.append(f"K4 p={P} {_ms(lambda: op.stencil_gram(q, dst)):.4f} ms")
             print(f"stencil part {name}: " + ", ".join(times), flush=True)
     finally:
         build.SOURCE, build._lib = source, None
@@ -344,7 +418,50 @@ def probe_stencil_tiles(dev) -> None:
             _ab(f"K5 p={p}", lambda: on(picked, lambda: a_dt.fdtd_step(u, out)),
                 lambda: on(other, lambda: a_dt.fdtd_step(u, out2)), names=names)
         del u, out, out2
+    probe_gram_strip_tiles(dev, op)
     torch.cuda.empty_cache()
+
+
+def probe_gram_strip_tiles(dev, op) -> None:
+    """K4 at p=P on the plan `stencil_kernel.pair_gram_plan` picks against
+    its neighbours: one z-chunk more and one fewer, and half the columns a
+    staged tile (the tiled form the plan takes where a ring of every
+    column does not fit)."""
+    from lanczos_tpu_torch.ops.kernels import stencil_gram
+    from lanczos_tpu_torch.ops.kernels import stencil_kernel as sk
+
+    left, right = sk.stencil_halos(op.spec_e, op.spec_h)
+    zc, plane = op.spec.zc, op.spec.plane
+    sms = build.sm_count(dev)
+    picked_fn = stencil_gram.pair_gram_plan
+    picked = picked_fn(op.spec_e, op.spec_h, P, 4, sms)
+
+    def plan(**kw):
+        return sk.gram_plan(zc, plane, left, right, P, 4, sms, **kw)
+
+    others = [plan(zchunk=-(-zc // (picked.chunks + 1))),
+              plan(columns=P // 2)]
+    if picked.chunks > 1:
+        others.append(plan(zchunk=-(-zc // (picked.chunks - 1))))
+
+    def name(pl):
+        occ = build.library().lt_stencil_blocks_per_sm(0, 2, 4, pl.smem_bytes)
+        return (f"Z{pl.zchunk}xC{pl.columns} ({pl.strips}x{pl.chunks} blocks, "
+                f"{pl.smem_bytes} B, {occ} a SM)")
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    q = torch.randn((P,) + op.state_shape, generator=g, device=dev)
+    dst, dst2 = torch.empty_like(q), torch.empty_like(q)
+
+    def on(pl, d):
+        stencil_gram.pair_gram_plan = lambda *args: pl
+        try:
+            return op.stencil_gram(q, d)[1]
+        finally:
+            stencil_gram.pair_gram_plan = picked_fn
+    for other in others:
+        _ab(f"K4 p={P}", lambda: on(picked, dst), lambda: on(other, dst2),
+            names=(name(picked), name(other)))
 
 
 def probe_gram_tiles(dev) -> None:

@@ -21,6 +21,10 @@ from lanczos_tpu_torch.ops.kernels import (
 )
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     BLOCK_SHARED_BYTES,
+    GEN_ROW_WEIGHTS,
+    GRAM_SLOTS,
+    GRAM_TILE_SLOTS,
+    GRAM_WIDTH,
     MAX_TAPS_PER_COMP,
     STENCIL_SLOTS,
     StencilSpec,
@@ -28,6 +32,10 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     apply_stencil_pair,
     apply_stencil_pair_plain,
     apply_stencil_plain,
+    generic_plan,
+    generic_tap_table,
+    gram_plan,
+    pair_gram_plan,
     pair_plan,
     stencil_halos,
     stencil_plan,
@@ -162,7 +170,7 @@ def test_unpaired_specs_are_refused():
     """What the pair kernels' tap table still refuses: a paired half with
     an odd count of taps a component, and more than four.  Unpaired specs
     are no longer refused: the table encodes each half's paired flag, and
-    K1, K4 and K5 take unpaired halves (K5 in its own kernel on the card;
+    K1, K4 and K5 take unpaired halves (K4 and K5 in their own kernels on the card;
     here their plain versions, the unfactored form)."""
     import dataclasses
 
@@ -343,13 +351,193 @@ def test_stencil_plan_at_the_main_path():
 
 
 def test_tap_table_and_plan_are_cached():
-    """A loop of K1/K5 launches rebuilds neither its tap table nor its
-    plan."""
+    """A loop of K1/K5, K4 or K6 launches rebuilds neither its tap table
+    nor its plan."""
+    import dataclasses
+
     spec_a, spec_b = _specs((11, 11, 11))
     assert tap_table(spec_a, spec_b) is tap_table(spec_a, spec_b)
     plan = pair_plan(spec_a, spec_b, 1, 4, 132)
     assert plan is pair_plan(spec_a, spec_b, 1, 4, 132)
     assert plan.ints is plan.ints
+    gram = pair_gram_plan(spec_a, spec_b, 4, 4, 132)
+    assert gram is pair_gram_plan(spec_a, spec_b, 4, 4, 132)
+    assert gram.ints is gram.ints
+    half = dataclasses.replace(spec_a, paired=False)
+    assert generic_tap_table(half) is generic_tap_table(half)
+    assert generic_plan(half, 4, 4, 132) is generic_plan(half, 4, 4, 132)
+
+
+# K4 and K6 plans: the K1/K5 geometries and a wide plane (xc = 320: y-halos
+# of 320 lanes), where K4's ring of every column does not fit at large p
+STRIP_PLAN_GEOMETRIES = PLAN_GEOMETRIES + [(317, 49, 4)]
+
+
+def _check_strip_cover(plan, zc, plane):
+    """The strips x z-chunks cover every (z, l) exactly once."""
+    count = np.zeros((zc, plane), np.int8)
+    for s in range(plan.strips):
+        for k in range(plan.chunks):
+            l0, z0 = s * plan.width, k * plan.zchunk
+            count[z0 : min(z0 + plan.zchunk, zc), l0 : min(l0 + plan.width, plane)] += 1
+    assert (count == 1).all()
+
+
+def _check_halos(plan, taps_by_comp, plane, itemsize):
+    """Every tap's roll reads inside its input component's staged strip and
+    halo, in 16-byte copies, and a staged row fits the copies of a
+    thread."""
+    vec = 16 // itemsize
+    assert all(h % vec == 0 for h in plan.left + plan.right)
+    for c, rolls in taps_by_comp.items():
+        for r in rolls:
+            s = r if r <= plane // 2 else r - plane  # the tap reads lane l - s
+            assert 0 <= plan.left[c] - s
+            assert -s <= plan.right[c]
+    assert plan.row == sum(plan.width + a + b for a, b in zip(plan.left, plan.right))
+    assert plan.row <= 8 * 256 * vec
+    assert plan.smem_bytes <= BLOCK_SHARED_BYTES
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("geometry", STRIP_PLAN_GEOMETRIES)
+def test_gram_plan_covers_every_position_once(geometry, itemsize, p):
+    """What K4 relies on: the strips x z-chunks cover every (z, l) once;
+    the tiles of `columns` block columns cover 0..p-1 once (all p in one
+    tile wherever that fits, always at N=160 f32 up to p=4); the staged
+    row holds all six components, each its strip and a halo that covers
+    every rolled tap; z-taps do not roll; the ring (GRAM_SLOTS items of
+    every column, else GRAM_TILE_SLOTS of a tile), two items of dst_old
+    rows and two rows' z-weights are the plan's byte count and fit a
+    block's shared memory."""
+    spec_a, spec_b = _specs(geometry)
+    zc, plane = spec_a.zc, spec_a.plane
+    plan = pair_gram_plan(spec_a, spec_b, p, itemsize, 132)
+    _check_strip_cover(plan, zc, plane)
+    assert (plan.width, plan.lanes_per_thread) == (GRAM_WIDTH, 1)
+    tiles = [range(b, min(b + plan.columns, p)) for b in range(0, p, plan.columns)]
+    assert sorted(b for t in tiles for b in t) == list(range(p))
+    if geometry == (160, 160, 160) and itemsize == 4 and p <= 4:
+        assert plan.columns == p
+    rolls = {c: [] for c in range(6)}
+    for h, spec in enumerate((spec_a, spec_b)):
+        for _, ic, dz, r in spec.taps:
+            if dz:
+                assert r % plane == 0
+            else:
+                rolls[3 * (1 - h) + ic].append(r)
+    assert len(plan.left) == len(plan.right) == 6
+    _check_halos(plan, rolls, plane, itemsize)
+    def smem(columns, slots):
+        return (slots * columns * plan.row + 2 * columns * 6 * GRAM_WIDTH + 48) * itemsize
+
+    slots = GRAM_SLOTS if plan.columns == p else GRAM_TILE_SLOTS
+    assert plan.smem_bytes == smem(plan.columns, slots)
+    # the plan stages as many columns as fit: every one, or a tile more
+    # would not fit (a tile of all p is the untiled ring)
+    if plan.columns < p:
+        assert smem(p, GRAM_SLOTS) > BLOCK_SHARED_BYTES
+        assert (plan.columns + 1 == p
+                or smem(plan.columns + 1, GRAM_TILE_SLOTS) > BLOCK_SHARED_BYTES)
+
+
+def _maxwell_half(geometry, h):
+    import dataclasses
+
+    return dataclasses.replace(_specs(geometry)[h], paired=False)
+
+
+@pytest.mark.parametrize("p", range(1, 9))
+@pytest.mark.parametrize("itemsize", [4, 8])
+@pytest.mark.parametrize("geometry", STRIP_PLAN_GEOMETRIES)
+def test_generic_plan_covers_every_position_once(geometry, itemsize, p):
+    """What K6 relies on, for the unpaired Maxwell half-call (3 -> 3, the
+    main path's K6 spec) and a 27-point 6 -> 3 spec on the same geometry:
+    the strips x z-chunks cover every (z, l) once, the block columns loop
+    inside a block, two at a time where they fit, the staged row holds the
+    n_in input components with halos that cover every tap's roll, and the
+    ring fits.  The one spec
+    here whose rows do not fit, the 27-point stencil in f64 on the wide
+    plane (six components of 256 + 2 x 324 lanes), raises ValueError."""
+    half = _maxwell_half(geometry, p % 2)
+    zc, plane = half.zc, half.plane
+    xc = geometry[0] + 3
+    wide = StencilSpec(6, 3, tuple(
+        (oc, (k + oc) % 6, dz, (-(dy * xc) - dx) % plane) for oc in range(3)
+        for k, (dz, dy, dx) in enumerate(
+            (a, b, c) for a in (-1, 0, 1) for b in (-1, 0, 1) for c in (-1, 0, 1))),
+        zc, plane)
+    for spec in (half, wide):
+        if spec is wide and itemsize == 8 and xc > 256:
+            with pytest.raises(ValueError, match="shared memory"):
+                generic_plan(spec, p, itemsize, 132)
+            continue
+        plan = generic_plan(spec, p, itemsize, 132)
+        _check_strip_cover(plan, zc, plane)
+        assert plan.width == {4: 512, 8: 256}[itemsize]
+        assert len(plan.left) == len(plan.right) == spec.n_in
+        rolls = {c: [r for _, ic, _, r in spec.taps if ic == c] for c in range(spec.n_in)}
+        _check_halos(plan, rolls, plane, itemsize)
+        # two columns a step wherever they fit (always for the half-call)
+        two = (STENCIL_SLOTS * 2 * plan.row + 2 * GEN_ROW_WEIGHTS) * itemsize
+        assert plan.columns == min(p, 2) or two > BLOCK_SHARED_BYTES
+        assert spec is wide or plan.columns == min(p, 2)
+        assert plan.smem_bytes == (
+            STENCIL_SLOTS * plan.columns * plan.row + 2 * GEN_ROW_WEIGHTS) * itemsize
+        assert list(plan.ints)[6:18] == [*plan.left, *[0] * (6 - spec.n_in),
+                                         *plan.right, *[0] * (6 - spec.n_in)]
+
+
+def test_gram_plan_at_the_main_path():
+    """N=160 f32 p=4: 104 strips of 256 lanes in five z-chunks of 36 rows
+    (one block an SM), every column in one item: four items of q
+    rows (2200 elements a column) and two of dst_old (6 x 256), 190,144
+    bytes of shared memory; p=8 stages seven columns a tile."""
+    spec_a, spec_b = _specs((160, 160, 160))
+    plan = pair_gram_plan(spec_a, spec_b, 4, 4, 132)
+    assert (plan.width, plan.strips, plan.columns) == (256, 104, 4)
+    assert (plan.zchunk, plan.chunks) == (36, 5)  # 520 blocks: four waves
+    row = 6 * 256 + 4 * 164 + 2 * 4
+    assert plan.smem_bytes == (4 * 4 * row + 2 * 4 * 6 * 256 + 48) * 4 == 190_144
+    p8 = pair_gram_plan(spec_a, spec_b, 8, 4, 132)
+    assert p8.columns == 7 and p8.smem_bytes == (2 * 7 * row + 2 * 7 * 1536 + 48) * 4
+    left, right = stencil_halos(spec_a, spec_b)
+    with pytest.raises(ValueError, match="columns"):
+        gram_plan(176, 26624, left, right, 4, 4, 132, columns=5)
+    with pytest.raises(ValueError, match="1 <= p <= 8"):
+        gram_plan(176, 26624, left, right, 9, 4, 132)
+    with pytest.raises(ValueError, match="shared memory"):
+        gram_plan(176, 26624, [26624 // 2] * 6, right, 1, 8, 132)
+
+
+def test_stencil_parts_probe_edits_apply_once():
+    """`probes --stencil-parts` builds the kernels with parts cut out by
+    string edits of the source; each edit must match exactly once, or the
+    probe would time something else."""
+    from lanczos_tpu_torch import probes
+
+    text = build.SOURCE.read_text()
+    for name, edits in probes._STENCIL_PARTS.items():
+        for old, _ in edits:
+            assert text.count(old) == 1, (name, old)
+
+
+def test_gram_plan_refuses_rolled_z_taps():
+    """K4 reads a z-tap's rows z+-1 at the thread's own lane, so a spec
+    whose z-tap also rolls is refused before any launch, not run on a
+    slower path."""
+    import dataclasses
+
+    spec_a, spec_b = _specs((11, 11, 11))
+    zi = next(t for t, tap in enumerate(spec_a.taps) if tap[2])
+    taps = list(spec_a.taps)
+    taps[zi] = taps[zi][:3] + (1,)
+    rolled = dataclasses.replace(spec_a, taps=tuple(taps))
+    with pytest.raises(ValueError, match="roll 0"):
+        pair_gram_plan(rolled, spec_b, 4, 4, 132)
+    # the same spec is fine for K1/K5, which stage rows z-1..z+1 with halos
+    pair_plan(rolled, spec_b, 4, 4, 132)
 
 
 # K3/K7's launch: the register tile from (K, p), exact at the main path's
@@ -478,10 +666,13 @@ def test_k1_stencil_kernel_vs_plain(cuda, n, p, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("kind,zc,plane", [
     ("27-point", 16, 256), ("laplacian", 16, 256), ("27-point", 13, 256),
-    ("laplacian", 9, 128),
+    ("laplacian", 9, 128), ("27-point", 7, 20480),
 ])
-@pytest.mark.parametrize("p", [1, 3, 5])
+@pytest.mark.parametrize("p", [1, 3, 5, 8])
 def test_k6_apply_stencil_vs_plain(cuda, kind, zc, plane, p, dtype):
+    """K6 against its plain version, a wide plane among the geometries
+    (more lanes than a strip, 27 taps an output: the tap loop); one
+    launch, and the same bits on a repeat."""
     spec, wz, wp, x = _k6_case(kind, p, dtype, cuda, zc=zc, plane=plane)
     before = build.LAUNCHES["apply_stencil"]
     got = apply_stencil(x, wz, wp, spec)
@@ -489,6 +680,7 @@ def test_k6_apply_stencil_vs_plain(cuda, kind, zc, plane, p, dtype):
     assert build.LAUNCHES["apply_stencil"] == before + 1
     _close(got, apply_stencil_plain(x, wz, wp, spec), dtype)
     _close(apply_stencil(x[0], wz, wp, spec), got[0], dtype)
+    assert torch.equal(got, apply_stencil(x, wz, wp, spec))
 
 
 @pytest.mark.cuda
@@ -619,18 +811,29 @@ def test_k3_every_tile(cuda, K, p, dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (6, 8), (6, 1)])
+@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), (6, 8), (6, 1), (3, 2),
+                                 ((37, 24, 11), 5), ((317, 49, 4), 2),
+                                 ((317, 49, 4), 8), (160, 4)])
 def test_k4_stencil_gram_vs_plain(cuda, n, p, dtype):
+    """K4 against its plain version, one launch, v in dst's buffer, and
+    the same bits (v and g3) on a repeat; wide planes (317 x 49: y-halos
+    of 320 lanes) and p=8 in f64 take the tiled form (fewer columns
+    staged at once than p)."""
     op, q = _op_state(n, p, dtype, cuda)
     _, dst = _op_state(n, p, dtype, cuda, seed=5)
+    again = dst.clone()
     want_v, want_g3 = stencil_gram.apply_stencil_pair_gram_plain(
         q, dst.clone(), op.wz_t, op.wplane_s, op.spec_e, op.spec_h
     )
+    before = build.LAUNCHES["apply_stencil_pair_gram"]
     v, g3 = op.stencil_gram(q, dst)
     torch.cuda.synchronize()
+    assert build.LAUNCHES["apply_stencil_pair_gram"] == before + 1
     assert v.data_ptr() == dst.data_ptr()
     _close(v, want_v, dtype)
     _close(g3, want_g3, dtype)
+    v2, g3_2 = op.stencil_gram(q, again)
+    assert torch.equal(v2, v) and torch.equal(g3_2, g3)
 
 
 @pytest.mark.cuda
@@ -680,10 +883,11 @@ def test_k5_unpaired_vs_plain(cuda, n, p, loose, dtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("loose", ["e", "h", "both"])
-@pytest.mark.parametrize("n,p", [(6, 4), (11, 3)])
+@pytest.mark.parametrize("n,p", [(6, 4), (11, 3), ((317, 49, 4), 2)])
 def test_k4_unpaired_vs_plain(cuda, n, p, loose, dtype):
-    """K4 with an unpaired half: K3, then two K6 launches into dst, then
-    K3, and no K4; v is dst and matches the plain version, g3 too."""
+    """K4 with an unpaired half sums that half's taps one at a time in its
+    own kernel: one launch; v is dst and matches the plain version, g3
+    too."""
     import dataclasses
 
     op, q = _op_state(n, p, dtype, cuda)
@@ -697,7 +901,7 @@ def test_k4_unpaired_vs_plain(cuda, n, p, loose, dtype):
     torch.cuda.synchronize()
     assert v.data_ptr() == dst.data_ptr()
     assert {k: c for k, c in build.LAUNCHES.items() if c} == {
-        "block_grams": 2, "apply_stencil": 2}
+        "apply_stencil_pair_gram": 1}
     _close(v, want_v, dtype)
     _close(g3, want_g3, dtype)
 
