@@ -9,7 +9,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit;
 2. build: the eight hand-written CUDA kernels (K1-K8) from
-   lanczos_tpu_torch/csrc, with nvcc's register/spill report;
+   lanczos_tpu_torch/csrc, with nvcc's register/spill report, and beside
+   them (g++, in a second thread) the C++ host engine
+   (lanczos_tpu_torch/native), each with its seconds;
 3. kernel vs plain: each stencil-path kernel (K1-K5, K7) against its plain
    PyTorch version on the card, at the main paths' shapes (Maxwell N=160
    at p=4, the block slices, and at p=1, the vector slice; K4 and K7 at
@@ -28,7 +30,11 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    (6 -> 3 fields with 27 taps per output, a 7-point 1 -> 1 set, an odd
    Zc; p=1 and p=3; f32 and f64), then at the Maxwell N=160 p=4
    half-call, timed;
-4. K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
+4. native: the 10,485,760-row synthetic matrix planned twice, by the C++
+   engine and by its NumPy version (`packer="numpy"`): the plans'
+   arrays must be bit-equal; both host times printed.  The native plan
+   is the one phases 4 and 8 use;
+   K8 vs plain: the windowed-ELL SpMM at small odd geometries (a 300x900
    random matrix, a 500x500 unstructured one, an RCM-permuted band, 997
    rows of a band; p=3 and p=1, f32 and f64), then at the assembled
    slice's shape (the synthetic SuiteSparse-style matrix, 10,485,760 rows,
@@ -55,10 +61,13 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    measured residuals under 1e-3; the block eigsh at
    262,144 rows against scipy's eigsh (top-5 to 1e-4), and a .mtx round
    trip through `operator_from_file(format="windowed")`;
-9. the ELL slice: `--operator ell` (N=64, m=6, p=4, 2000 FDTD steps):
-   the gathered ELL product is plain torch, and the 25 MB block state
-   passes the 16 MB gate, so the fused recurrence runs K2/K3 on flat
-   (p, n) states; relative error under 1e-3;
+9. the ELL slice at the reference's N=160 (24.6M rows): the width-4 ELL
+   operator built by the C++ engine straight from the taps (its seconds
+   logged), A X at p=4 against K1's A X on the same state (tolerance
+   below; both timed), then `--operator ell` (N=160, m=6, p=4, 2000 FDTD
+   steps): the gathered ELL product is plain torch, and the 394 MB block
+   state passes the 16 MB gate, so the fused recurrence runs K2/K3 on
+   flat (p, n) states; relative error under 1e-3;
 10. the unpaired pair: A U at N=160 p=4 through `apply_stencil_pair`
     with paired=False on both halves, two K6 launches and no K1, within
     1e-5 of K1's paired A U, both timed; then K5 and K4 with the same
@@ -71,19 +80,32 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     run bit for bit (K5 2000 times); the seconds and MB of every save;
 12. the profile: the block slice's Lanczos through `run` with --profile
     and --no-validate; the Chrome trace names stencil_gram_kernel and
-    the launch counts are the block slice's without its FDTD.
+    the launch counts are the block slice's without its FDTD;
+13. bench: `lanczos_tpu_torch.bench`'s measurement (Maxwell N=160, p=4,
+    K1 chained, best of four slopes), its JSON line printed; its per-call
+    time must agree with phase 3's K1 time (mean of 20 calls) within
+    BENCH_RTOL; K1 is also timed by `utils.timing.benchmark_chained`, so
+    that the three protocols stand side by side;
+14. drivers: each benchmark driver's `main` once, at a cut size:
+    `kernel_bench --only copy_bw,spmm_stencil,block_mix,block_grams`
+    (--rows 4,000,000, --grid 96, --rows-copy 8,000,000; its roofline
+    guard on), `sweep_lanczos` block p=4 at N = 64 and 80, `convergence`
+    (N=3, f64, m <= 6, 100,000 FDTD steps: K5 and K1 in f64) and
+    `suitesparse_scale` at 262,144 rows (m=12, p=8: K8), each with its
+    launch counts and its own checks.
 
-Each slice phase (and phases 10-12) sets the launch counts to 0 just
+Each slice phase (and phases 10-14) sets the launch counts to 0 just
 before it drives its path and reads them just after.
 
 The FDTD oracle's forward-Euler error falls as 1/steps; the CLI's default
 is 10^6 steps, the smoke takes 2000 to fit its time budget.
 
 Output: one JSON line of per-kernel results (launches summed over the
-slices; bound_ms the larger of the bytes over the card's memory rate and
-the operations over its peak rate; K3 and K8 also at p=1, in rows of their
-own that count the launches at p=1, and so K1 and K5, whose p=1 rows
-count the vector slice's launches), the nvidia-smi line, and as the last
+paths driven: slices, bench and drivers; bound_ms the larger of the bytes
+over the card's memory rate and the operations over its peak rate; K1,
+K2, K3, K5 and K8 also at p=1, in rows of their own that count the
+launches at p=1 of the vector slices: the CLI's and the assembled
+eigsh's), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -128,7 +150,19 @@ RESID_BOUND = 1e-3  # measured relative Ritz residuals, f32
 EIGSH_RTOL = 1e-4  # top-5 against scipy's eigsh at 262,144 rows
 # K8 at p=8 against scipy's f64 product: each row sums <= 15 f32 products
 K8_SCIPY_RTOL = 1e-5
-N_ELL, M_ELL = 64, 6  # a p=4 state of 25 MB: over the 16 MB fused gate
+N_ELL, M_ELL = 160, 6  # the reference's 24.6M rows; over the 16 MB fused gate
+# gathered ELL A X against K1's on the same state: each sums the same 4
+# products per row; the ELL values are the taps' f64 product rounded once,
+# K1 multiplies f32 z- and plane-weights, so a row differs by a few ulp
+ELL_VS_K1_RTOL = 1e-5
+# the bench's slope per call against phase 3's mean of 20 K1 calls: the
+# same kernel on the same shape, timed two ways a few minutes apart
+BENCH_RTOL = 0.10
+# the drivers phase's cut sizes
+DRIVER_CONVERGENCE_STEPS, DRIVER_CONVERGENCE_M = 100_000, 6
+# the convergence driver at 10^5 steps: m >= 5 sits on the oracle's
+# forward-Euler floor, ~10x the 10^6-step curve's 1.7e-9
+DRIVER_CONVERGENCE_BOUND = 1e-7
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device memory, and the non-tensor-core rate for each type of operation
 HBM_BYTES_PER_S = 3.35e12
@@ -144,10 +178,11 @@ REPLACES = {
     "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
     "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
 }
-# the kernels with a row of their own at p=1: K1 and K3 run at p=1 in every
-# step of the vector slice and K5 in every step of its FDTD, K8 in every
-# step of the assembled vector eigsh
-P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step")
+# the kernels with a row of their own at p=1: K1, K2 and K3 run at p=1 in
+# every step of the vector slice and K5 in every step of its FDTD, K8 in
+# every step of the assembled vector eigsh
+P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step",
+           "block_mix")
 # phase 3's geometries: (nx, ny, nz), p, dtype name; the first is timed
 KERNEL_CASES = (
     ((N_SLICE,) * 3, P_SLICE, "float32"),
@@ -209,9 +244,33 @@ def phase_environment(torch, build):
 
 
 def phase_build(build):
+    """nvcc builds the kernels while g++ builds the host engine in a
+    second thread (both are subprocesses); a failure of either fails."""
+    import threading
+
+    from lanczos_tpu_torch import native
+
+    native_error = []
+
+    def build_native():
+        t0 = time.perf_counter()
+        try:
+            native.library()
+        except Exception:  # reported below, after the kernels' build
+            native_error.append(traceback.format_exc())
+        log(f"native engine build: {time.perf_counter() - t0:.2f} s "
+            f"(g++ {native.build_seconds:.2f} s)")
+
+    worker = threading.Thread(target=build_native)
+    worker.start()
     t0 = time.perf_counter()
-    build.library()
+    try:
+        build.library()
+    finally:
+        worker.join()
     log(f"build: {time.perf_counter() - t0:.2f} s")
+    if native_error:
+        raise RuntimeError(f"the native engine did not build:\n{native_error[0]}")
     # ptxas -v: registers and spills per kernel instantiation, e.g.
     # "stencil_gram_kernel<f,4,0,1>: 127 registers, 0 bytes spill stores"
     # (type, MAXP, TILED, FULL) or "gram_kernel<f,d,f,8,4,4>" (operand,
@@ -382,7 +441,8 @@ def phase_kernels(torch, results, failures):
                                lambda: block_dense.block_mix(coeffs, ops),
                                lambda: block_dense.block_mix_plain(coeffs, ops),
                                (k + 1) * pbytes, 2 * k * pk * pk * S,
-                               lambda: coeffs.T @ stack.flatten(1))
+                               lambda: coeffs.T @ stack.flatten(1),
+                               key="block_mix p=1")
                 else:
                     got = block_dense.block_mix(coeffs, ops)
                     check(f"K2 block_mix {k} operand(s){tag}", "block_mix", dname,
@@ -775,7 +835,7 @@ def phase_vector_slice(torch, build, results, failures):
     log(f"vector slice: python -m lanczos_tpu_torch -N {N_SLICE} -m {M_VECTOR} "
         f"--vector --operator pallas --fdtd-steps {FDTD_STEPS} --lc {LC}")
     out, launches = drive(torch, build, results, "vector", cfg)
-    for name in ("block_grams", "apply_stencil_pair", "fdtd_step"):
+    for name in ("block_grams", "apply_stencil_pair", "fdtd_step", "block_mix"):
         results.setdefault("p1_launches", {})[name] = launches[name]
     # the fused route at p=1: K2 -> K1 -> K3 per step, no mono (K4)
     check_slice(out, launches, {
@@ -840,15 +900,48 @@ def small_windowed_cases():
     }
 
 
+def phase_native(torch, failures, assembled):
+    """The 10.5M-row synthetic matrix planned by the C++ engine and by its
+    NumPy version: the plans must be bit-equal; the native one stays in
+    `assembled` for the K8 and assembled-slice phases."""
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(N_ASSEMBLED)
+    log(f"native: assembled matrix {a.shape[0]} rows, {a.nnz} nnz, "
+        f"{time.perf_counter() - t0:.2f} s on the host")
+    plans = {}
+    for packer in ("native", "numpy"):
+        t0 = time.perf_counter()
+        plans[packer] = windowed_from_scipy(a, reorder="none", device=dev,
+                                            packer=packer)
+        torch.cuda.synchronize()
+        log(f"  plan, {packer} packer: {time.perf_counter() - t0:.2f} s")
+    A, B = plans["native"], plans["numpy"]
+    log(f"  ppc {A.ppc}, wsz {A.wsz}, ng {A.ng}, n128 {A.n128}, "
+        f"{A.device_bytes() / 1e6:.1f} MB on the device")
+    names = ("planes_data", "planes_lidx", "planes_off", "wb", "perm")
+    same = {n: torch.equal(getattr(A, n), getattr(B, n)) for n in names}
+    same["geometry"] = (A.ppc, A.wsz, A.n128) == (B.ppc, B.wsz, B.n128)
+    log(f"  native plan bit-equal to the NumPy plan: {same}")
+    if not all(same.values()):
+        failures.append(f"native: the two plans differ: {same}")
+    del plans, B
+    torch.cuda.empty_cache()
+    assembled.update(a=a, A=A)
+
+
 def phase_windowed_kernel(torch, results, failures, assembled):
     """K8 against its plain version at small odd geometries (p=3 and p=1,
     f32 and f64), then at the assembled slice's shape, p=8 and p=1, timed
     against plain, a device copy of the state and cuSPARSE; at p=8 also
     against scipy's f64 product.  Leaves the 10.5M-row matrix and its plan
-    in `assembled` for the slice phase."""
+    in `assembled` for the slice phase; the matrix and its native plan
+    come from the native phase."""
     import numpy as np
 
-    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
     from lanczos_tpu_torch.ops.kernels.window_ell import (
         windowed_spmm,
         windowed_spmm_plain,
@@ -877,17 +970,7 @@ def phase_windowed_kernel(torch, results, failures, assembled):
                 check(f"K8 {label} {dname} p={p} (ppc {A.ppc})", dname,
                       windowed_spmm(A, X), windowed_spmm_plain(A, X))
 
-    t0 = time.perf_counter()
-    a = synth_suitesparse_banded(N_ASSEMBLED)
-    log(f"assembled matrix: {a.shape[0]} rows, {a.nnz} nnz, "
-        f"{time.perf_counter() - t0:.2f} s on the host")
-    t0 = time.perf_counter()
-    A = windowed_from_scipy(a, reorder="none", device=dev)
-    torch.cuda.synchronize()
-    plan_s = time.perf_counter() - t0
-    log(f"  plan {plan_s:.2f} s: ppc {A.ppc}, wsz {A.wsz}, ng {A.ng}, "
-        f"n128 {A.n128}, {A.device_bytes() / 1e6:.1f} MB on the device")
-    assembled.update(a=a, A=A)
+    a, A = assembled["a"], assembled["A"]  # the native phase's plan
 
     # cuSPARSE's SpMM on the same matrix, the library yardstick (not used
     # anywhere in the port)
@@ -1104,6 +1187,34 @@ def assembled_small(torch, build, results, failures):
 
 def phase_ell_slice(torch, build, results, failures):
     from lanczos_tpu_torch.config import LanczosConfig
+    from lanczos_tpu_torch.models.maxwell import maxwell_ell_operator
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ell = maxwell_ell_operator(N_ELL, N_ELL, N_ELL, device=dev)
+    torch.cuda.synchronize()
+    nbytes = sum(t.numel() * t.element_size() for t in (ell.data, ell.indices))
+    log(f"ELL operator at N={N_ELL}: {ell.shape[0]} rows, built by the native "
+        f"engine in {time.perf_counter() - t0:.2f} s, {nbytes / 1e6:.1f} MB "
+        "of values and indices")
+    op = PallasMaxwellOperator.create(N_ELL, N_ELL, N_ELL, device=dev)
+    g = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn((P_SLICE, op.n), generator=g, device=dev)
+    u = op.pack(x)
+    got, want = ell.mm(x), op.unpack(op.mm(u))
+    err, rel, ok = compare(torch, got, want, ELL_VS_K1_RTOL)
+    log(f"  ELL A X vs K1's A X at p={P_SLICE}: max_abs_err {err:.3e} rel "
+        f"{rel:.3e} (tol {ELL_VS_K1_RTOL:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append("the N=160 ELL operator disagrees with K1")
+    ell_ms = cuda_ms(torch, lambda: ell.mm(x))
+    k1_ms = cuda_ms(torch, lambda: op.mm(u))
+    log(f"  A X at p={P_SLICE}: gathered ELL (plain torch) {ell_ms:.4f} ms, "
+        f"{4 * ell.shape[0] * P_SLICE / (ell_ms * 1e-3):.4e} nnz*col/s; K1 "
+        f"{k1_ms:.4f} ms, {4 * op.n * P_SLICE / (k1_ms * 1e-3):.4e} nnz*col/s")
+    del ell, op, x, u, got, want
+    torch.cuda.empty_cache()
 
     cfg = LanczosConfig(n_grid=N_ELL, m=M_ELL, n_col=P_SLICE, operator="ell",
                         fdtd_steps=FDTD_STEPS, lc=LC, device="cuda")
@@ -1355,6 +1466,100 @@ def phase_profile(torch, build, results, failures):
                         f"without FDTD are {want}")
 
 
+def phase_bench(torch, build, results, failures):
+    """The headline bench's measurement on the card, its JSON line, and K1
+    timed three ways: the bench's slope, `benchmark_chained` (CUDA events
+    around chains of 20) and `cuda_ms` (the mean of 20 calls on one
+    input, phase 3's protocol)."""
+    from lanczos_tpu_torch import bench
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.utils.timing import benchmark_chained
+
+    log(f"bench: python -m lanczos_tpu_torch.bench (N={bench.N_GRID}, p={bench.P})")
+    build.reset_launches()
+    out = bench.measure()
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, "bench")
+    log(json.dumps({k: out[k] for k in ("metric", "value", "unit", "vs_baseline")}))
+    log(f"  launches: {launches}")
+    if launches["apply_stencil_pair"] <= 0 or any(
+            c for k, c in launches.items() if k != "apply_stencil_pair"):
+        failures.append(f"bench: launches {launches}, expected K1 only")
+
+    op = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, device="cuda")
+    damped = op.scaled(1e-2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    u = damped.pack(torch.randn((P_SLICE, op.n), generator=g, device="cuda"))
+    chained_ms = benchmark_chained(lambda y, a: a.mm(y), u, damped, reps=20) * 1e3
+    mean_ms = cuda_ms(torch, lambda: damped.mm(u))
+    slope_ms = out["seconds"] * 1e3
+    k1_ms = results["rows"]["apply_stencil_pair"]["ms"]
+    rel = abs(slope_ms - k1_ms) / k1_ms
+    log(f"  K1 at N={N_SLICE} p={P_SLICE}, ms a call: slope (bench, best of "
+        f"{bench.SLOPES}) {slope_ms:.4f}; benchmark_chained (best of 5 chains "
+        f"of 20) {chained_ms:.4f}; mean of {TIMED_LAUNCHES} calls on one input "
+        f"{mean_ms:.4f} (phase 3: {k1_ms:.4f}); the bench vs phase 3 "
+        f"{rel:.2%} (tol {BENCH_RTOL:.0%})")
+    if not rel <= BENCH_RTOL:
+        failures.append(f"bench: {slope_ms:.4f} ms a call against K1's "
+                        f"{k1_ms:.4f} ms in the kernels phase")
+
+
+def run_driver(torch, build, results, name, argv):
+    """One benchmark driver's main, its launch counts read from 0."""
+    import importlib
+
+    module = importlib.import_module(f"lanczos_tpu_torch.benchmarks.{name}")
+    log(f"driver: python -m lanczos_tpu_torch.benchmarks.{name} {' '.join(argv)}")
+    build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        out = module.main(argv)
+    except SystemExit as e:  # the drivers' roofline guards exit
+        raise RuntimeError(f"{name} exited: {e}") from None
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, f"driver {name}")
+    log(f"  [{name}: {time.perf_counter() - t0:.1f} s; launches "
+        f"{ {k: c for k, c in launches.items() if c} }]")
+    return out, launches
+
+
+def phase_drivers(torch, build, results, failures):
+    """Each benchmark driver once at a cut size, with its own checks."""
+    kb, launches = run_driver(torch, build, results, "kernel_bench", [
+        "--only", "copy_bw,spmm_stencil,block_mix,block_grams",
+        "--rows", "4000000", "--grid", "96", "--rows-copy", "8000000"])
+    for name in ("apply_stencil_pair", "block_mix", "block_grams"):
+        if launches[name] <= 0:
+            failures.append(f"kernel_bench: {name} never launched")
+    if set(kb) != {"copy_bw", "spmm_stencil", "block_mix", "block_grams"}:
+        failures.append(f"kernel_bench: campaigns {sorted(kb)}")
+
+    rows, launches = run_driver(torch, build, results, "sweep_lanczos", [
+        "--n-col", "4", "--n-min", "64", "--n-max", "80"])
+    if [r["n_grid"] for r in rows] != [64, 80] or any(
+            r["route"] != "mono" for r in rows) or launches["apply_stencil_pair_gram"] <= 0:
+        failures.append(f"sweep_lanczos: rows {rows}, launches {launches}")
+
+    rows, launches = run_driver(torch, build, results, "convergence", [
+        "--m-max", str(DRIVER_CONVERGENCE_M),
+        "--fdtd-steps", str(DRIVER_CONVERGENCE_STEPS)])
+    plateau = [r["rel_error"] for r in rows if r["m"] >= 5]
+    log(f"  convergence at m >= 5: {plateau} (bound {DRIVER_CONVERGENCE_BOUND:g} "
+        f"at {DRIVER_CONVERGENCE_STEPS} steps)")
+    if (len(rows) != DRIVER_CONVERGENCE_M
+            or not all(e < DRIVER_CONVERGENCE_BOUND for e in plateau)
+            or launches["fdtd_step"] != DRIVER_CONVERGENCE_STEPS):
+        failures.append(f"convergence: rows {rows}, launches {launches}")
+
+    out, launches = run_driver(torch, build, results, "suitesparse_scale", [
+        "--rows", str(N_ASSEMBLED_SMALL)])
+    if not (max(out["measured_resid"]) < RESID_BOUND and len(out["top_ritz"]) == K_ASSEMBLED
+            and out["mtx_roundtrip"] and launches["windowed_spmm"] > 0):
+        failures.append(f"suitesparse_scale: measured residuals "
+                        f"{out['measured_resid']}, launches {launches}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1377,6 +1582,7 @@ def main() -> int:
         ("environment", lambda: phase_environment(torch, build)),
         ("build", lambda: phase_build(build)),
         ("kernels", lambda: phase_kernels(torch, results, failures)),
+        ("native", lambda: phase_native(torch, failures, assembled)),
         ("windowed kernel",
          lambda: phase_windowed_kernel(torch, results, failures, assembled)),
         ("block slice",
@@ -1396,7 +1602,10 @@ def main() -> int:
          lambda: phase_checkpoint(torch, build, results, failures)),
         ("profile",
          lambda: phase_profile(torch, build, results, failures)),
+        ("bench", lambda: phase_bench(torch, build, results, failures)),
+        ("drivers", lambda: phase_drivers(torch, build, results, failures)),
     )
+    t_start = time.perf_counter()
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -1407,6 +1616,7 @@ def main() -> int:
             if name in ("environment", "build"):
                 break
         log(f"[phase {name}: {time.perf_counter() - t0:.1f} s]")
+    log(f"[all phases: {time.perf_counter() - t_start:.1f} s]")
 
     rows = results.get("rows", {})
     keys = list(REPLACES) + [f"{k} p=1" for k in P1_ROWS]
@@ -1416,8 +1626,9 @@ def main() -> int:
             print(f"chip_smoke FAILED: {f}", file=sys.stderr)
         return 1
     paths = results.get("launches", {})
-    # a p=1 row counts its kernel's launches at p=1, the main row every
-    # other launch
+    # a p=1 row counts its kernel's launches at p=1 in the vector slices
+    # (the CLI's, the assembled eigsh's), the main row every other launch
+    # (the bench's and the drivers' included)
     at_p1 = results.get("p1_launches", {})
 
     def launches(key):

@@ -16,7 +16,10 @@ compensated Grams), single-vector Lanczos, the eigsh drivers, the small
 eigensolvers, both expm actions, the FDTD oracle, checkpoint/resume of
 long Lanczos and FDTD runs, the generic separable stencil (K6) and the
 CLI (`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell]
-[--profile DIR] ...`).  Not ported yet: the multi-device layer.
+[--profile DIR] ...`), the timing layer (`utils/`), the headline bench
+(`python -m lanczos_tpu_torch.bench`), the benchmark drivers
+(`benchmarks/`), the examples (`examples/`) and the C++ host engine
+(`native/`).  Not ported yet: the multi-device layer.
 Builders put their buffers on "cuda" unless given another device.
 
 The names below load lazily, as in the JAX package: `from

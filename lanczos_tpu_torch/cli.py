@@ -104,7 +104,7 @@ def _check_ported(cfg: LanczosConfig) -> None:
     if cfg.devices > 1:
         raise NotImplementedError(
             "--devices > 1 (multi-device operators) is not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1 item 12)"
+            "lanczos_tpu_torch yet (ROADMAP Queue 1, multi-device)"
         )
 
 

@@ -5,7 +5,7 @@ Matrix Market (`.mtx`, `.mtx.gz`, the SuiteSparse interchange format) and
 scipy `.npz` files, built into any of the containers of `ops/formats.py`
 or the windowed-ELL operator of `ops/window_ell.py`, on `device` (default
 "cuda").  The row-sharded multi-device operators are not ported (ROADMAP
-Queue 1 item 12): a `mesh` argument raises.
+Queue 1, multi-device): a `mesh` argument raises.
 """
 
 from __future__ import annotations
@@ -37,7 +37,7 @@ def _no_mesh(mesh):
     if mesh is not None:
         raise NotImplementedError(
             "row-sharded operators (mesh=...) are not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1 item 12)"
+            "lanczos_tpu_torch yet (ROADMAP Queue 1, multi-device)"
         )
 
 

@@ -13,8 +13,9 @@ diagonal ones, so ``A @ u`` is a separable stencil.
 the flat (n,) state in plain torch: each input component is padded once and
 every tap is a shifted slice of it, as in the JAX package, which also runs
 this operator outside any Pallas kernel.  `maxwell_ell_operator`
-(`--operator ell`) is the assembled A as gathered ELL, also plain torch;
-the folded-plane operator in `maxwell_pallas.py` is the one the stencil
+(`--operator ell`) is the assembled A as gathered ELL, also plain torch,
+built by the C++ engine (`lanczos_tpu_torch.native`) from the taps; the
+folded-plane operator in `maxwell_pallas.py` is the one the stencil
 CUDA kernels serve.
 """
 
@@ -330,15 +331,32 @@ def assemble_maxwell_A(nx: int, ny: int, nz: int):
 
 
 def maxwell_ell_operator(nx: int, ny: int, nz: int, dtype=torch.float32,
-                         device="cuda"):
+                         device="cuda", packer: str = "native"):
     """The assembled operator as width-4 ELL (`--operator ell`): the
     gathered-SpMV counterpart of the matrix-free stencil, in plain torch.
-    The JAX package always builds it in f32 (its planes come from a native
-    packer with no dtype); the port honours dtype."""
-    from lanczos_tpu_torch.ops.formats import ell_from_scipy
+    packer "native" assembles it in the C++ engine straight from the taps
+    (`native.maxwell_ell`, as the JAX package does at `models/maxwell.py:
+    352-372`), so N=160 (24.6M rows) builds in seconds; "numpy" goes
+    through scipy's Kron pipeline (`assemble_maxwell_A` ->
+    `ell_from_scipy`), which gives the same rows and column order.  The
+    JAX package always builds it in f32; the port honours dtype."""
+    from lanczos_tpu_torch.ops.formats import EllMatrix, ell_from_scipy, np_dtype
+    from lanczos_tpu_torch.ops.operator import target_device
 
-    return ell_from_scipy(assemble_maxwell_A(nx, ny, nz), dtype=dtype,
-                          width=4, device=device)
+    if packer == "numpy":
+        return ell_from_scipy(assemble_maxwell_A(nx, ny, nz), dtype=dtype,
+                              width=4, device=device, packer="numpy")
+    if packer != "native":
+        raise ValueError(f"unknown packer={packer!r}")
+    from lanczos_tpu_torch import native
+
+    device = target_device(device)
+    shapes = maxwell_component_shapes(nx, ny, nz)
+    descs, arrays = _build_taps(nx, ny, nz, np.float64)
+    data, idx = native.maxwell_ell(descs, arrays, shapes, np_dtype(dtype))
+    n = data.shape[0]
+    return EllMatrix(torch.from_numpy(data).to(device),
+                     torch.from_numpy(idx).to(device), n, n)
 
 
 def maxwell_interleave_perm(nx: int, ny: int, nz: int) -> np.ndarray:

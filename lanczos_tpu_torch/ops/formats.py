@@ -141,9 +141,14 @@ class EllMatrix(LinearOperator):
 
 
 def ell_from_scipy(a, dtype=torch.float32, width: int | None = None,
-                   device="cuda") -> EllMatrix:
-    """Pack a scipy matrix into ELL, vectorised (the JAX package's NumPy
-    fill, `formats.py:162-169`, without the per-row loop)."""
+                   device="cuda", packer: str = "native") -> EllMatrix:
+    """Pack a scipy matrix into ELL: each row's entries in CSR order, then
+    zeros.  packer "native" fills the arrays in the C++ engine
+    (`lanczos_tpu_torch.native.ell_from_csr`, as the JAX package does);
+    "numpy" is its bit-equal plain version (the JAX package's NumPy fill,
+    `formats.py:162-169`, vectorised)."""
+    if packer not in ("native", "numpy"):
+        raise ValueError(f"unknown packer={packer!r}")
     device = target_device(device)
     a = _as_2d_scipy(a).tocsr()
     a.sum_duplicates()
@@ -154,6 +159,12 @@ def ell_from_scipy(a, dtype=torch.float32, width: int | None = None,
     if n and int(per_row.max()) > w:
         raise ValueError(f"a row holds {int(per_row.max())} nonzeros, more "
                          f"than the ELL width {w}")
+    if packer == "native":
+        from lanczos_tpu_torch import native
+
+        data, idx = native.ell_from_csr(a.indptr, a.indices, a.data, n, w,
+                                        np_dtype(dtype))
+        return EllMatrix(to_buffer(data, device), to_buffer(idx, device), n, m)
     data = np.zeros((n, w), np_dtype(dtype))
     idx = np.zeros((n, w), np.int32)
     rr = np.repeat(np.arange(n), per_row)

@@ -8,7 +8,7 @@ Two-level tree: split the n rows into c chunks, QR each chunk (one batched
 `torch.linalg.qr`), QR the stacked (c*p, p) R factors, and recombine.
 Signs are normalized (diag(R) >= 0), so the factorization is unique and
 does not depend on the chunking.  The sharded variant (`tsqr_sharded`)
-waits for the multi-device operators (ROADMAP Queue 1 item 12).
+waits for the multi-device operators (ROADMAP Queue 1, multi-device).
 """
 
 from __future__ import annotations

@@ -1,7 +1,8 @@
 """Windowed-ELL: assembled general sparse matrices, host side (port of the
 planner and operators of `lanczos_tpu/ops/pallas/window_ell.py`).
 
-The matrix is re-packed once on the host into planes:
+The matrix is re-packed once on the host into planes (the per-k packing
+by the C++ engine, `lanczos_tpu_torch.native`):
 
   * rows go in CHUNKS of 128 (one chunk = 128 output rows, one per lane);
   * each chunk's nonzeros are packed into PLANES: plane j of a chunk holds
@@ -59,13 +60,25 @@ class PlanError(ValueError):
     a gathered container."""
 
 
-def _pack_planes(indptr, indices, data, n_rows, ppc_cap):
+def _pack_planes(indptr, indices, data, n_rows, ppc_cap, packer="native"):
     """Pack a CSR matrix into (chunk, plane) layout, plane slots by
     within-row position k (tight for banded orderings).
 
     Returns (planes_data (C, PPC, 128), planes_lidx (C, PPC, 128) int32 in
     [0, 256), planes_fabs (C, PPC) int64 absolute 128-block offset, -1 for
-    empty planes)."""
+    empty planes).  packer "native" runs the C++ engine's two passes
+    (`lanczos_tpu_torch.native`; the cap is checked between them, before
+    the planes are allocated); "numpy" the NumPy version below, which the
+    engine is bit-equal to."""
+    if packer == "native":
+        from lanczos_tpu_torch import native
+
+        ppc = native.window_pack_count(indptr, indices, n_rows)
+        if ppc > ppc_cap:
+            raise PlanError(f"planes/chunk {ppc} exceeds cap {ppc_cap}")
+        return native.window_pack_fill(indptr, indices, data, n_rows, ppc)
+    if packer != "numpy":
+        raise ValueError(f"unknown packer={packer!r}")
     n_chunks = -(-n_rows // LANES)
     rows_pad = n_chunks * LANES
     per_row = np.diff(indptr)
@@ -287,6 +300,7 @@ def windowed_from_scipy(
     reorder: str = "auto",
     perm=None,
     device="cuda",
+    packer: str = "native",
 ) -> "WindowedEllMatrix":
     """Build the windowed plan from a scipy sparse matrix (host side, once
     per matrix: the reference's `change_order(4)` preprocessing).
@@ -296,7 +310,9 @@ def windowed_from_scipy(
     it only when the raw bandwidth would exceed the window cap; 'none'
     never.  An explicit `perm` (new index -> old index) overrides reorder.
     The result then represents P A P^T (same spectrum): use
-    .permute()/.unpermute() on vectors at the boundaries."""
+    .permute()/.unpermute() on vectors at the boundaries.  packer picks
+    the per-k planner's engine (`_pack_planes`): the C++ engine, or
+    "numpy", its bit-equal plain version."""
     import scipy.sparse as sp
 
     if reorder not in ("none", "rcm", "auto"):
@@ -336,7 +352,7 @@ def windowed_from_scipy(
     mrow = int(np.diff(a.indptr).max()) if n else 1
     try:
         planes = _pack_planes(a.indptr, a.indices, a.data.astype(npdt), n,
-                              ppc_cap)
+                              ppc_cap, packer)
         if planes[0].shape[1] > max(1.5 * mrow, mrow + 2):
             ppc_g = _pack_planes_greedy(a.indptr, a.indices, a.data, n,
                                         1 << 30, count_only=True)

@@ -267,8 +267,8 @@ def test_parser_flags_and_lc_default():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(operator="pallas", devices=2), "Queue 1 item 12"),
-    (dict(operator="stencil", devices=4, profile_dir="trace"), "Queue 1 item 12"),
+    (dict(operator="pallas", devices=2), "Queue 1, multi-device"),
+    (dict(operator="stencil", devices=4, profile_dir="trace"), "Queue 1, multi-device"),
 ])
 def test_unported_flags_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -322,24 +322,27 @@ def test_device_cuda_without_a_card_is_an_error():
 
 
 def test_port_never_imports_jax():
+    """Every module of the package, found by walking it (utils, native,
+    benchmarks and examples included), imports without pulling in jax.
+    `__main__` modules run their entry point when imported, so they are
+    left out of the walk."""
     code = (
-        "import sys; sys.path.insert(0, sys.argv[1]);"
-        "import lanczos_tpu_torch, lanczos_tpu_torch.cli;"
-        "import lanczos_tpu_torch.methods.expm_action, lanczos_tpu_torch.methods.fdtd;"
-        "import lanczos_tpu_torch.models.maxwell_pallas, lanczos_tpu_torch.models.rhs;"
-        "import lanczos_tpu_torch.models.maxwell, lanczos_tpu_torch.ops.operator;"
-        "import lanczos_tpu_torch.methods.vector_lanczos;"
-        "import lanczos_tpu_torch.methods.block_lanczos_fused;"
-        "import lanczos_tpu_torch.methods.checkpoint, lanczos_tpu_torch.ops.kernels;"
-        "import lanczos_tpu_torch.ops.kernels.stencil_fdtd;"
-        "import lanczos_tpu_torch.ops.kernels.block_dense;"
-        "import lanczos_tpu_torch.probes;"
-        "import lanczos_tpu_torch.io, lanczos_tpu_torch.methods.eigs;"
-        "import lanczos_tpu_torch.ops.formats, lanczos_tpu_torch.ops.window_ell;"
-        "import lanczos_tpu_torch.ops.kernels.window_ell, lanczos_tpu_torch.ops.tsqr;"
-        "import lanczos_tpu_torch.models.laplacian, lanczos_tpu_torch.models.synthetic;"
-        "import lanczos_tpu_torch as L; [getattr(L, n) for n in L.__all__];"
-        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)"
+        "import sys, pkgutil, importlib; sys.path.insert(0, sys.argv[1]);"
+        "import lanczos_tpu_torch as L;"
+        "names = [m.name for m in pkgutil.walk_packages(L.__path__, 'lanczos_tpu_torch.')"
+        " if not m.name.endswith('__main__')];"
+        "[importlib.import_module(n) for n in names];"
+        "[getattr(L, n) for n in L.__all__];"
+        "need = {'lanczos_tpu_torch.' + n for n in ('cli', 'bench', 'probes', 'io',"
+        " 'native', 'utils.timing', 'utils.bench_loop', 'benchmarks.kernel_bench',"
+        " 'benchmarks.sweep_lanczos', 'benchmarks.convergence',"
+        " 'benchmarks.suitesparse_scale', 'examples.eigsh_laplacian',"
+        " 'examples.expm_maxwell', 'examples.fused_and_compensated',"
+        " 'examples.windowed_general_matrix', 'examples.inplace_fast_paths',"
+        " 'ops.kernels.stencil_kernel', 'methods.checkpoint', 'ops.window_ell')};"
+        "assert need <= set(names), sorted(need - set(names));"
+        "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
+        "assert not any(m == 'lanczos_tpu' or m.startswith('lanczos_tpu.') for m in sys.modules)"
     )
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     # -I: no PYTHONPATH, user site or cwd, so only the package can pull jax in

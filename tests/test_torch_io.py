@@ -88,7 +88,7 @@ def test_mesh_is_not_ported(tmp_path, rng):
     for call in (lambda: tio.operator_from_file(path, mesh=object(), **CPU),
                  lambda: tio.auto_operator(_random_sym(20, rng), mesh=object(),
                                            **CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 12"):
+        with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
             call()
 
 
