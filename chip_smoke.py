@@ -92,9 +92,22 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     guard on), `sweep_lanczos` block p=4 at N = 64 and 80, `convergence`
     (N=3, f64, m <= 6, 100,000 FDTD steps: K5 and K1 in f64) and
     `suitesparse_scale` at 262,144 rows (m=12, p=8: K8), each with its
-    launch counts and its own checks.
+    launch counts and its own checks;
+15. multidevice (the z-slab layer, `lanczos_tpu_torch/parallel`): K1 on
+    each of 4 z-slabs of the N=160 p=4 state, built in this process on the
+    one card with the halo planes copied in by hand from the neighbours'
+    slabs, unpacked and held to the single-device K1 (MULTI_RTOL), its
+    pads zero, timed against the whole-domain K1; then
+    `DistributedPallasMaxwell` at world size 1 through `launch.run` on
+    NCCL (one spawned rank): `block_lanczos_expm_action` (m=6, p=4) held
+    to the single-device `fused=False` run (REL_ERROR_BOUND), both held
+    to 2000 FDTD steps on the distributed operator (K1 plus an add a
+    step), the rank's launch counts read from 0 around that run (K1 only,
+    m + 2000 times), ms an iteration of both operators and of 50 FDTD
+    steps; and `--devices` one more than the machine's cards is a
+    ValueError before any rank starts.
 
-Each slice phase (and phases 10-14) sets the launch counts to 0 just
+Each slice phase (and phases 10-15) sets the launch counts to 0 just
 before it drives its path and reads them just after.
 
 The FDTD oracle's forward-Euler error falls as 1/steps; the CLI's default
@@ -196,6 +209,9 @@ KERNEL_CASES = (
 # to the result's scale: the factoring changes the rounding only
 UNPAIRED_RTOL = 1e-5
 M_CHECKPOINT, CHUNK_CHECKPOINT, M_STOPPED = 6, 3, 4
+# the multidevice phase: slabs of the slice's state, and its K1 tolerance
+# (the same per-lane products as the whole-domain K1, on other rows)
+MULTI_SLABS, MULTI_RTOL, MULTI_FDTD_TIMED = 4, 1e-5, 50
 
 
 def log(*args):
@@ -1560,6 +1576,175 @@ def phase_drivers(torch, build, results, failures):
                         f"{out['measured_resid']}, launches {launches}")
 
 
+def multidevice_rank(mesh):
+    """One rank of the multidevice phase (spawned by `launch.run`): the
+    block slice on `DistributedPallasMaxwell`, its launch counts read from
+    0 around the run, then its timings, beside the single-device
+    operator's in the same process (the slice is host-bound, so both run
+    in turns) and the host time of one all-reduce of a p x p Gram."""
+    import torch
+
+    from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.models.rhs import gaussian_matrix_B
+    from lanczos_tpu_torch.ops.kernels import build
+    from lanczos_tpu_torch.parallel import DistributedPallasMaxwell
+
+    op = DistributedPallasMaxwell.create(N_SLICE, N_SLICE, N_SLICE, mesh)
+    b_np = gaussian_matrix_B(N_SLICE, op.n, P_SLICE).astype("float32")
+    b = op.pack(torch.from_numpy(b_np))
+    tf = op.trace_fn(LC)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    sol = block_lanczos_expm_action(op, b, M_SLICE, 1.0, 0, trace_fn=tf)
+    u = fdtd_block(op, b, FDTD_STEPS, 1.0)
+    ref = mesh.all_reduce_(tf(u))
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+
+    sop = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, device=mesh.device)
+    sb, stf = sop.pack(torch.from_numpy(b_np).to(mesh.device)), sop.trace_fn(LC)
+    del b_np
+    runs = {"distributed": lambda: block_lanczos_expm_action(
+                op, b, M_SLICE, 1.0, 0, trace_fn=tf),
+            "single-device fused=False": lambda: block_lanczos_expm_action(
+                sop, sb, M_SLICE, 1.0, 0, trace_fn=stf, fused=False)}
+    ms_per_iteration = {name: [] for name in runs}
+    for _ in range(2):
+        for name, fn in runs.items():
+            ms_per_iteration[name].append(
+                cuda_ms(torch, fn, iters=3, warmup=1) / M_SLICE)
+    gram = torch.zeros(P_SLICE, P_SLICE, device=mesh.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TIMED_LAUNCHES * 10):
+        mesh.all_reduce_(gram)
+    torch.cuda.synchronize()
+    all_reduce_us = (time.perf_counter() - t0) / (TIMED_LAUNCHES * 10) * 1e6
+    fdtd_step_ms = cuda_ms(torch, lambda: fdtd_block(op, b, MULTI_FDTD_TIMED, 1.0),
+                           iters=1, warmup=1) / MULTI_FDTD_TIMED
+    k1_ms = cuda_ms(torch, lambda: op.mm(b))
+    single_k1_ms = cuda_ms(torch, lambda: sop.mm(sb))
+    return {"solution": sol, "fdtd": ref, "launches": launches,
+            "ms_per_iteration": ms_per_iteration, "all_reduce_us": all_reduce_us,
+            "fdtd_ms_per_step": fdtd_step_ms, "k1_ms": k1_ms,
+            "single_k1_ms": single_k1_ms, "rows": op.state_shape[1],
+            "single_rows": sop.spec.zc}
+
+
+def slabs_by_hand(torch, sop, b):
+    """K1 on MULTI_SLABS z-slabs of the packed block b, all on this card,
+    with each slab's halo rows copied in from its neighbours' edge planes
+    (what `Mesh.exchange` moves between cards): the rank operators, the
+    outputs and the work copies."""
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair
+    from lanczos_tpu_torch.parallel import DistributedPallasMaxwell
+    from lanczos_tpu_torch.parallel.dist_stencil import TZ, slab_weights
+    from lanczos_tpu_torch.parallel.mesh import Mesh
+
+    dev, ops = torch.device("cuda"), []
+    for rank in range(MULTI_SLABS):
+        specs, wz, wp, zl = slab_weights(N_SLICE, N_SLICE, N_SLICE, MULTI_SLABS,
+                                         rank, TZ)
+        ops.append(DistributedPallasMaxwell(
+            N_SLICE, N_SLICE, N_SLICE, torch.from_numpy(wz).to(dev),
+            torch.from_numpy(wp).to(dev), specs,
+            Mesh(rank, MULTI_SLABS, dev, None), zl, TZ))
+    flat = sop.unpack(b)
+    slabs = [op.pack(flat) for op in ops]
+    tz, zs = ops[0].tz, ops[0].spec_e.zc
+    works = []
+    for rank, slab in enumerate(slabs):
+        work = slab.clone()
+        if rank > 0:
+            work[:, :, tz - 1] = slabs[rank - 1][:, :, zs - tz - 1]
+        if rank < MULTI_SLABS - 1:
+            work[:, :, zs - tz] = slabs[rank + 1][:, :, tz]
+        works.append(work)
+    outs = [apply_stencil_pair(w, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
+            for w, op in zip(works, ops)]
+    return ops, outs, works
+
+
+def phase_multidevice(torch, build, results, failures):
+    from lanczos_tpu_torch.config import LanczosConfig
+    from lanczos_tpu_torch.cli import run
+    from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair
+    from lanczos_tpu_torch.parallel import launch
+
+    sop, b, tf = block_fixture(torch)
+    ops, outs, works = slabs_by_hand(torch, sop, b)
+    want = sop.unpack(sop.mm(b))
+    got = ops[0].unpack_slabs(torch.stack(outs))
+    err, rel, ok = compare(torch, got, want, MULTI_RTOL)
+    zl, tz, zs = ops[0].zl, ops[0].tz, ops[0].spec_e.zc
+    pads = [bool(o[:, :, :tz].any() or o[:, :, tz + zl:].any()) for o in outs]
+    log(f"  {MULTI_SLABS} slabs of Zs={zs} rows (zl={zl} interior, tz={tz}), "
+        f"halos by hand: K1 vs the single-device K1 max abs err {err:.3e} "
+        f"({rel:.2e} of scale, bound {MULTI_RTOL:g}); nonzero pads {pads}")
+    if not ok or any(pads):
+        failures.append(f"multidevice: slab K1 err {rel:.3e} of scale, pads {pads}")
+    interior = [max(0, min(zl, N_SLICE + 1 - r * zl)) for r in range(MULTI_SLABS)]
+    slab_ms = [cuda_ms(torch, lambda w=w, op=op: apply_stencil_pair(
+        w, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)) for w, op in zip(works, ops)]
+    whole_ms = cuda_ms(torch, lambda: sop.mm(b))
+    for r, ms in enumerate(slab_ms):
+        log(f"  row: slab K1 rank {r}: {ms:.4f} ms, {interior[r]} of {zs} rows "
+            f"interior ({interior[r] / zs:.1%})")
+    log(f"  row: whole-domain K1 (Zc={sop.spec.zc}): {whole_ms:.4f} ms; linear "
+        f"estimate a slab {whole_ms * zs / sop.spec.zc:.4f} ms")
+    del ops, outs, works
+
+    # world size 1 on NCCL, against the single-device materialized run
+    sol_single = block_lanczos_expm_action(sop, b, M_SLICE, 1.0, 0, trace_fn=tf,
+                                           fused=False).cpu()
+    del sop, b
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (rank0,) = launch.run(multidevice_rank, 1, device="cuda", timeout=600)
+    log(f"  world size 1 through launch.run (NCCL): {time.perf_counter() - t0:.1f} s")
+    launches = rank0["launches"]
+    results.setdefault("launches", {})["multidevice"] = launches
+    log(f"  launches: {launches}")
+    sol, ref = rank0["solution"].double(), rank0["fdtd"].double()
+    vs_single = float((sol - sol_single.double()).norm() / sol_single.double().norm())
+    vs_fdtd = float((sol - ref).norm() / ref.norm())
+    single_fdtd = float((sol_single.double() - ref).norm() / ref.norm())
+    log(f"  solution {sol.tolist()}; vs single-device fused=False {vs_single:.3e}, "
+        f"vs {FDTD_STEPS} FDTD steps {vs_fdtd:.3e} (single-device {single_fdtd:.3e}; "
+        f"bound {REL_ERROR_BOUND:g})")
+    for name, ms in rank0["ms_per_iteration"].items():
+        log(f"  row: ms an iteration (m={M_SLICE}, materialized, in the rank, "
+            f"two turns): {name} {ms[0]:.3f}, {ms[1]:.3f}")
+    log(f"  row: all-reduce of a {P_SLICE}x{P_SLICE} Gram at world size 1: "
+        f"{rank0['all_reduce_us']:.1f} us of host time")
+    log(f"  row: K1 at world size 1: {rank0['k1_ms']:.4f} ms on Zs={rank0['rows']} "
+        f"rows, single-device {rank0['single_k1_ms']:.4f} ms on "
+        f"Zc={rank0['single_rows']} rows")
+    log(f"  row: FDTD on the distributed operator (K1 + add): "
+        f"{rank0['fdtd_ms_per_step']:.4f} ms a step over {MULTI_FDTD_TIMED} steps")
+    log(f"  K1 launches in the rank's run: {launches['apply_stencil_pair']}")
+    want_launches = {name: 0 for name in launches}
+    want_launches["apply_stencil_pair"] = M_SLICE + FDTD_STEPS
+    if launches != want_launches:
+        failures.append(f"multidevice: launches {launches}, expected {want_launches}")
+    if not (sol.isfinite().all() and len(sol) == P_SLICE and vs_single < REL_ERROR_BOUND
+            and vs_fdtd < REL_ERROR_BOUND and single_fdtd < REL_ERROR_BOUND):
+        failures.append(f"multidevice: solution {sol.tolist()}, vs single "
+                        f"{vs_single}, vs FDTD {vs_fdtd}, single vs FDTD {single_fdtd}")
+
+    too_many = torch.cuda.device_count() + 1
+    try:
+        run(LanczosConfig(n_grid=N_SLICE, m=M_SLICE, operator="pallas",
+                          devices=too_many, device="cuda"))
+        failures.append(f"multidevice: --devices {too_many} did not raise")
+    except ValueError as e:
+        log(f"  --devices {too_many} on {too_many - 1} card(s): ValueError ({e})")
+    log("  nvidia-smi:", nvidia_smi_line())
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1604,6 +1789,8 @@ def main() -> int:
          lambda: phase_profile(torch, build, results, failures)),
         ("bench", lambda: phase_bench(torch, build, results, failures)),
         ("drivers", lambda: phase_drivers(torch, build, results, failures)),
+        ("multidevice",
+         lambda: phase_multidevice(torch, build, results, failures)),
     )
     t_start = time.perf_counter()
     for name, fn in phases:

@@ -19,7 +19,10 @@ CLI (`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell]
 [--profile DIR] ...`), the timing layer (`utils/`), the headline bench
 (`python -m lanczos_tpu_torch.bench`), the benchmark drivers
 (`benchmarks/`), the examples (`examples/`) and the C++ host engine
-(`native/`).  Not ported yet: the multi-device layer.
+(`native/`), and the z-slab half of the multi-device layer
+(`parallel/`: `make_mesh`, `DistributedPallasMaxwell`, `tsqr_sharded`,
+one process a device on `torch.distributed`).  Not ported yet: the
+row-sharded assembled-matrix operators.
 Builders put their buffers on "cuda" unless given another device.
 
 The names below load lazily, as in the JAX package: `from
@@ -58,9 +61,12 @@ _API = {
     "windowed_from_ell": "lanczos_tpu_torch.ops.window_ell",
     "PaddedWindowedOperator": "lanczos_tpu_torch.ops.window_ell",
     "tsqr": "lanczos_tpu_torch.ops.tsqr",
+    "tsqr_sharded": "lanczos_tpu_torch.ops.tsqr",
     "LinearOperator": "lanczos_tpu_torch.ops.operator",
     "MaxwellOperator": "lanczos_tpu_torch.models.maxwell",
     "PallasMaxwellOperator": "lanczos_tpu_torch.models.maxwell_pallas",
+    "DistributedPallasMaxwell": "lanczos_tpu_torch.parallel",
+    "make_mesh": "lanczos_tpu_torch.parallel",
     "StencilSpec": "lanczos_tpu_torch.ops.kernels",
     "apply_stencil": "lanczos_tpu_torch.ops.kernels",
     "apply_stencil_pair": "lanczos_tpu_torch.ops.kernels",

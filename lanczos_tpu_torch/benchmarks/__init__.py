@@ -4,6 +4,7 @@
     python -m lanczos_tpu_torch.benchmarks.sweep_lanczos [--vector] [--sweep-ncol]
     python -m lanczos_tpu_torch.benchmarks.convergence [--block] [--csv PATH]
     python -m lanczos_tpu_torch.benchmarks.suitesparse_scale [--rows N] [--json PATH]
+    python -m lanczos_tpu_torch.benchmarks.weak_scaling [--devices 1 2 4] [--json PATH]
 
 Each runs on the card (`--device cuda`, the default) and raises
 RuntimeError without one; `--device cpu` runs it on the CPU (the tests).

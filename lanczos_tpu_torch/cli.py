@@ -15,10 +15,12 @@ ell` the assembled A as gathered ELL in plain torch (in `--dtype`: the
 JAX package builds it in f32 whatever `--dtype` says).  `--profile DIR`
 wraps the Lanczos run, and only it, in `torch.profiler` (CPU activity,
 and CUDA activity on the card) and writes a Chrome trace,
-DIR/lanczos_trace.json, even when the run raises.  Not ported yet, and
-raising NotImplementedError naming its ROADMAP item: `--devices > 1`.
-`--vector --compensated` is a ValueError: the compensated Gram is a
-block-path option.
+DIR/lanczos_trace.json, even when the run raises.  `--devices N` (N > 1)
+runs `--operator pallas` as the z-slab `DistributedPallasMaxwell` on N
+ranks, one process a device (`parallel/launch.py`: N cards, or N gloo
+ranks with `--device cpu`), and prints rank 0's result; with another
+operator it is a ValueError (the JAX CLI ignores it there), and so is
+`--vector --compensated`: the compensated Gram is a block-path option.
 """
 
 from __future__ import annotations
@@ -101,10 +103,12 @@ def _check_ported(cfg: LanczosConfig) -> None:
             "--compensated is a block-Lanczos option (the compensated Gram); "
             "--vector has no Gram to compensate"
         )
-    if cfg.devices > 1:
-        raise NotImplementedError(
-            "--devices > 1 (multi-device operators) is not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1, multi-device)"
+    if cfg.devices < 1:
+        raise ValueError(f"--devices takes N >= 1, got {cfg.devices}")
+    if cfg.devices > 1 and cfg.operator != "pallas":
+        raise ValueError(
+            "--devices N > 1 runs the z-slab operator: it needs --operator "
+            f"pallas, not --operator {cfg.operator}"
         )
 
 
@@ -127,6 +131,54 @@ def _profiler(profile_dir: str | None, device):
 
 
 def run(cfg: LanczosConfig) -> dict:
+    import torch
+
+    from lanczos_tpu_torch.models.maxwell import (
+        MaxwellOperator,
+        maxwell_ell_operator,
+    )
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.ops.operator import target_device
+
+    _check_ported(cfg)
+    if cfg.devices > 1:
+        from lanczos_tpu_torch.parallel import launch
+
+        # no time limit: the oracle's 10^6 steps take minutes
+        return launch.run(_run_rank, cfg.devices, cfg,
+                          device=torch.device(cfg.device).type,
+                          timeout=None)[0]
+    device = target_device(cfg.device)
+    dtype = getattr(torch, cfg.dtype)
+    n_grid = cfg.n_grid
+    if cfg.operator == "pallas":
+        op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid,
+                                          dtype=dtype, device=device)
+    elif cfg.operator == "ell":
+        op = maxwell_ell_operator(n_grid, n_grid, n_grid, dtype=dtype,
+                                  device=device)
+    else:
+        op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
+                                    device=device)
+    return _solve(cfg, op, device)
+
+
+def _run_rank(mesh, cfg: LanczosConfig) -> dict:
+    """One rank of `--devices N`: its slab of the operator, the same run."""
+    import torch
+
+    from lanczos_tpu_torch.parallel import DistributedPallasMaxwell
+
+    n_grid = cfg.n_grid
+    op = DistributedPallasMaxwell.create(n_grid, n_grid, n_grid, mesh,
+                                         dtype=getattr(torch, cfg.dtype))
+    return _solve(cfg, op, mesh.device, profile=mesh.rank == 0)
+
+
+def _solve(cfg: LanczosConfig, op, device, profile: bool = True) -> dict:
+    """The start block, Lanczos + expm at the receiver, and the FDTD
+    oracle, on `op`; on a distributed operator every rank runs it and gets
+    the same result."""
     import numpy as np
     import torch
 
@@ -135,34 +187,17 @@ def run(cfg: LanczosConfig) -> dict:
         lanczos_expm_action,
     )
     from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
-    from lanczos_tpu_torch.models.maxwell import (
-        MaxwellOperator,
-        maxwell_ell_operator,
-    )
-    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
     from lanczos_tpu_torch.models.rhs import gaussian_matrix_B, gaussian_vector_b
-    from lanczos_tpu_torch.ops.operator import target_device
-
-    _check_ported(cfg)
-    device = target_device(cfg.device)
-    dtype = getattr(torch, cfg.dtype)
 
     def sync():
         if device.type == "cuda":
             torch.cuda.synchronize(device)
 
     n_grid = cfg.n_grid
+    mesh = getattr(op, "mesh", None)
     if cfg.operator == "pallas":
-        op = PallasMaxwellOperator.create(n_grid, n_grid, n_grid,
-                                          dtype=dtype, device=device)
         pack, unpack = op.pack, op.unpack
     else:  # the flat state needs no packing and no trace_fn
-        if cfg.operator == "ell":
-            op = maxwell_ell_operator(n_grid, n_grid, n_grid, dtype=dtype,
-                                      device=device)
-        else:
-            op = MaxwellOperator.create(n_grid, n_grid, n_grid, dtype=dtype,
-                                        device=device)
         pack = unpack = lambda x: x  # noqa: E731
     n = op.shape[0]
     rng = random.Random(cfg.seed)
@@ -177,13 +212,16 @@ def run(cfg: LanczosConfig) -> dict:
 
     sync()
     t0 = time.perf_counter()
-    with _profiler(cfg.profile_dir, device):  # written even if the run raises
+    # written even if the run raises; on one rank of a distributed run
+    with _profiler(cfg.profile_dir if profile else None, device):
         if cfg.block:
             b_np = gaussian_matrix_B(n_grid, n, cfg.n_col)
         else:
             b_np = gaussian_vector_b(n_grid, n)
-        b = pack(torch.from_numpy(b_np.astype(cfg.dtype)).to(device))
+        b = torch.from_numpy(b_np.astype(cfg.dtype))
         del b_np
+        # a rank's pack moves only its slab to the device
+        b = pack(b if mesh is not None else b.to(device))
         if cfg.block:
             sol = block_lanczos_expm_action(
                 op, b, cfg.m, cfg.t_end, **receiver, reorth=cfg.reorth,
@@ -200,19 +238,20 @@ def run(cfg: LanczosConfig) -> dict:
             )
         sol = sol.cpu().numpy()  # waits for the device
     out["lanczos_seconds"] = time.perf_counter() - t0
-    if cfg.profile_dir:
+    if cfg.profile_dir and profile:
         out["profile_dir"] = cfg.profile_dir
     out["solution"] = sol.tolist()
 
     if cfg.validate:
         sync()
         t0 = time.perf_counter()
-        if cfg.block:
-            u = fdtd_block(op, b, cfg.fdtd_steps, cfg.t_end)
-            ref = unpack(u)[:, lc].cpu().numpy()
-        else:
-            u = fdtd_vector(op, b, cfg.fdtd_steps, cfg.t_end)
-            ref = unpack(u)[lc].cpu().numpy()
+        fdtd = fdtd_block if cfg.block else fdtd_vector
+        u = fdtd(op, b, cfg.fdtd_steps, cfg.t_end)
+        if mesh is None:
+            ref = unpack(u)[..., lc]
+        else:  # the receiver's rank holds it; no gather of the state
+            ref = mesh.all_reduce_(op.trace_fn(lc)(u))
+        ref = ref.cpu().numpy()
         rel = float(np.linalg.norm(sol - ref) / np.linalg.norm(ref))
         out["fdtd_seconds"] = time.perf_counter() - t0
         out["relative_error"] = rel

@@ -7,4 +7,5 @@ default, `--device cpu` on the CPU.
     fused_and_compensated    the fused recurrence and the compensated Gram
     windowed_general_matrix  SpMM and eigsh of an assembled matrix (K8)
     inplace_fast_paths       the mono step and K5 into a second buffer
+    distributed_lanczos      block eigsh on the z-slab operator, N ranks
 """

@@ -25,6 +25,16 @@ selective trigger, replace_dead's dead-direction test) is a Python `if`
 after one host read.  replace_dead's noise comes from a `torch.Generator`
 seeded with restart_seed: JAX's PRNG stream is not reproduced, so that
 mode matches JAX in its invariants, not in its numbers.
+
+An operator with a `mesh` (`parallel.DistributedPallasMaxwell`) holds this
+rank's slab of every state, and GSPMD's inserted psums become explicit
+sums over the ranks: each Gram, state norm and CGS2 coefficient block is
+one local product and one `all_reduce` of a p x p (or scalar) tensor,
+normalize="qr" runs `tsqr_sharded`, every host branch on a device value
+is taken by all ranks or by none (`Mesh.any`), and the stacked trace is
+summed over the ranks once, at the end.  Such an operator never takes the
+fused recurrence (JAX has no sharded K4).  On one device none of this
+runs.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ import torch
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.operator import state_trace
 from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
-from lanczos_tpu_torch.ops.tsqr import tsqr
+from lanczos_tpu_torch.ops.tsqr import tsqr, tsqr_sharded
 
 FUSED_GATE_BYTES = 16 * 1024 * 1024  # JAX block_lanczos.py:170
 
@@ -79,14 +89,19 @@ def _fro(x):
     return torch.sqrt(torch.sum(x * x))
 
 
-def _cgs2(wv, basis):
-    """W -= Q (Q^T W) over the given basis blocks (k, p, *state), twice."""
+def _local(t):
+    return t
+
+
+def _cgs2(wv, basis, total=_local):
+    """W -= Q (Q^T W) over the given basis blocks (k, p, *state), twice;
+    `total` sums the coefficients over the ranks of a distributed state."""
     if basis.shape[0] == 0:
         return wv
     qf = basis.reshape(-1, basis[0, 0].numel())
     w = wv.reshape(wv.shape[0], -1)
     for _ in range(2):
-        w = w - (qf @ w.T).T @ qf
+        w = w - total(qf @ w.T).T @ qf
     return w.reshape(wv.shape)
 
 
@@ -135,17 +150,20 @@ def block_lanczos(
         raise ValueError(f"unknown reorth mode {reorth!r}")
     if normalize not in ("sqrtm", "qr"):
         raise ValueError(f"unknown normalize mode {normalize!r}")
-    fusable = reorth == "none" and normalize == "sqrtm" and not replace_dead
+    mesh = getattr(a, "mesh", None)
+    fusable = (reorth == "none" and normalize == "sqrtm" and not replace_dead
+               and mesh is None)
     big_enough = b.numel() * b.element_size() >= FUSED_GATE_BYTES
     if fused and not fusable:
         raise ValueError(
-            "fused=True requires reorth='none', normalize='sqrtm' and "
-            "replace_dead=False"
+            "fused=True requires reorth='none', normalize='sqrtm', "
+            "replace_dead=False and a non-distributed operator"
         )
     if compensated and not fusable:
         raise ValueError(
             "compensated=True is implemented on the fused path: requires "
-            "reorth='none', normalize='sqrtm' and replace_dead=False"
+            "reorth='none', normalize='sqrtm', replace_dead=False and a "
+            "non-distributed operator"
         )
     if compensated and fused is False:
         raise ValueError(
@@ -178,7 +196,33 @@ def block_lanczos(
     p = b.shape[0]
     dtype, dev = b.dtype, b.device
     lc_idx = 0 if lc is None else int(lc)
-    trace_at = trace_fn or (lambda q: state_trace(q, lc_idx, block=True))
+    if trace_fn is not None:
+        trace_at = trace_fn
+    elif mesh is not None:
+        trace_at = a.storage_trace_fn(lc_idx)
+    else:
+        trace_at = lambda q: state_trace(q, lc_idx, block=True)  # noqa: E731
+    if mesh is None:
+        total, decide, n_state, cgs2 = _local, bool, b.numel(), _cgs2
+    else:
+        total, decide, n_state = mesh.all_reduce_, mesh.any, b.numel() * mesh.size
+
+        def cgs2(wv, basis):
+            return _cgs2(wv, basis, total)
+
+    def gram(x, y):
+        return total(_gram(x, y))
+
+    def state_fro(x):
+        return torch.sqrt(total(torch.sum(x * x)))
+
+    def qr_rows(x):
+        """(q, r) of the block-major x: q (p, n) orthonormal rows."""
+        if mesh is not None:
+            return tsqr_sharded(x.reshape(p, -1), mesh)
+        qf, r = tsqr(x.reshape(p, -1).T)
+        return qf.T, r
+
     tiny = torch.finfo(dtype).tiny
     eps = torch.finfo(dtype).eps
     sqrt_eps = eps ** 0.5
@@ -190,22 +234,22 @@ def block_lanczos(
         sigma_min(B)/||B||_F with sigma_min bounded below by 1/||R^-1||_F
         (qr) or 1/||inv||_F (sqrtm)."""
         if normalize == "qr":
-            qf, r = tsqr(wv.reshape(p, -1).T)
+            qt, r = qr_rows(wv)
             if breakdown_eps > 0.0:
                 # rank guard: zero the Q columns (and R rows) whose R
                 # diagonal has collapsed instead of keeping arbitrary
                 # directions from a singular R
                 d = torch.abs(torch.diagonal(r))
                 keep = (d > breakdown_eps * d.max()).to(dtype)
-                qf = qf * keep[None, :]
+                qt = qt * keep[:, None]
                 r = r * keep[:, None]
             rsafe = r + torch.diag(torch.where(
                 torch.abs(torch.diagonal(r)) <= tiny, tiny, 0.0).to(dtype))
             inv_r = torch.linalg.solve_triangular(rsafe, eye, upper=True)
             rcond = 1.0 / torch.clamp(_fro(inv_r) * _fro(r), min=tiny)
-            return qf.T.reshape(wv.shape).contiguous(), r, rcond
+            return qt.reshape(wv.shape).contiguous(), r, rcond
         beta, inv = sqrtm_invsqrtm(
-            _gram(wv, wv), backend=eig_backend,
+            gram(wv, wv), backend=eig_backend,
             breakdown_eps=breakdown_eps,
         )
         rcond = 1.0 / torch.clamp(_fro(inv) * _fro(beta), min=tiny)
@@ -215,7 +259,7 @@ def block_lanczos(
     # bug, not a breakdown: its rcond is not checked)
     q0, beta0, _ = normalize_block(b)
     w = a.mm(q0)
-    alpha0 = _sym(_gram(w, q0))
+    alpha0 = _sym(gram(w, q0))
     w = w - _mix(alpha0, q0)
 
     basis = None
@@ -234,7 +278,9 @@ def block_lanczos(
     force = False
     noise = None
     if replace_dead:
-        noise = torch.Generator(device=dev).manual_seed(restart_seed)
+        # each rank draws its own slab's noise
+        noise = torch.Generator(device=dev).manual_seed(
+            restart_seed + (0 if mesh is None else mesh.rank))
 
     alphas, betas, traces = [alpha0], [beta0], [trace_at(q0)]
     dead = torch.zeros((), dtype=torch.bool, device=dev)
@@ -245,7 +291,7 @@ def block_lanczos(
             # block omega recurrence (Simon '84 with block Frobenius
             # norms): estimate max_k ||Q_j^T Q_k|| and clean up only when
             # it crosses sqrt(eps)
-            nb_tent = torch.clamp(_fro(w), min=tiny)
+            nb_tent = torch.clamp(state_fro(w), min=tiny)
             nbh = nb_hist.clone()
             nbh[0] = 0.0
             nb_kp1 = torch.roll(nbh, -1)
@@ -254,13 +300,13 @@ def block_lanczos(
                      + nbh * torch.roll(om, 1)
                      + nbh[j - 1] * om_prev)
             om_new = tilde / nb_tent + eps * (nb_kp1 + nb_tent) / nb_tent
-            seed = eps * b.numel() * nbh[1] / nb_tent
+            seed = eps * n_state * nbh[1] / nb_tent
             om_new = torch.where(karr == j - 1, seed, om_new)
             om_new = torch.where(karr == j, 1.0, om_new)
             om_new = torch.where(karr > j, 0.0, om_new)
             older = karr <= j - 2
             # the host decides (one sync per step): JAX's lax.cond
-            trigger = force or bool(
+            trigger = force or decide(
                 torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps)
             if trigger:
                 om_new = torch.where(karr <= j - 1, eps, om_new)
@@ -277,7 +323,7 @@ def block_lanczos(
             # with no near-dead handling asked for, clean only when the
             # normalization was ill-conditioned (one host read)
             do_clean = (breakdown_eps > 0.0 or replace_dead
-                        or bool(rcond <= sqrt_eps))
+                        or decide(rcond <= sqrt_eps))
         elif reorth == "periodic":
             do_clean = j % 2 == 0
         else:
@@ -289,7 +335,7 @@ def block_lanczos(
             else:
                 keep = torch.ones(p, dtype=dtype, device=dev)
             if replace_dead:
-                do_clean = do_clean or bool((keep < 1.0).any())
+                do_clean = do_clean or decide((keep < 1.0).any())
             if do_clean:
                 kshape = (p,) + (1,) * (q.ndim - 1)
                 if replace_dead:
@@ -298,9 +344,9 @@ def block_lanczos(
                     # unit directions, the zeroed beta rows decouple them
                     q = q + torch.randn(q.shape, generator=noise, dtype=dtype,
                                         device=dev) * (1.0 - keep).view(kshape)
-                q = _cgs2(q, basis[:j])
-                qf, r2 = tsqr(q.reshape(p, -1).T)
-                q = qf.T.reshape(q.shape).contiguous()
+                q = cgs2(q, basis[:j])
+                qt, r2 = qr_rows(q)
+                q = qt.reshape(q.shape).contiguous()
                 beta = r2 @ beta
                 if not replace_dead:
                     # deflation: the re-QR refills exactly-zero directions
@@ -316,7 +362,7 @@ def block_lanczos(
         # A V_j = V_{j-1} B_j^T + V_j A_j + V_{j+1} B_{j+1}: subtract the
         # TRANSPOSED subdiagonal block (beta for sqrtm; needed for qr)
         wn = a.mm(q) - _mix(beta.T, q_prev)
-        alpha = _sym(_gram(wn, q))
+        alpha = _sym(gram(wn, q))
         w = wn - _mix(alpha, q)
         if need_basis:
             basis[j] = q
@@ -324,7 +370,7 @@ def block_lanczos(
         # selective whenever the cleanup fired, which removes the A V =
         # V T + E inconsistency the q-side cleanup alone leaves
         if reorth == "full" or (reorth != "none" and do_clean):
-            w = _cgs2(w, basis[: j + 1])
+            w = cgs2(w, basis[: j + 1])
 
         na_hist[j], nb_hist[j] = _fro(alpha), _fro(beta)
         alphas.append(alpha)
@@ -336,17 +382,17 @@ def block_lanczos(
     # Ritz bounds): the qr path takes TSQR's R, never forming the Gram; a
     # frozen run's residual is exactly zero
     if normalize == "qr":
-        _, beta_final = tsqr(w.reshape(p, -1).T)
+        _, beta_final = qr_rows(w)
     else:
         beta_final, _ = sqrtm_invsqrtm(
-            _gram(w, w), backend=eig_backend,
+            gram(w, w), backend=eig_backend,
             breakdown_eps=breakdown_eps,
         )
     beta_final = torch.where(dead, torch.zeros_like(beta_final), beta_final)
     return BlockLanczosResult(
         alphas=torch.stack(alphas),
         betas=torch.stack(betas),
-        trace=torch.stack(traces),
+        trace=total(torch.stack(traces)),
         beta_final=beta_final,
         breakdown=dead,
         basis=basis if store_basis else None,

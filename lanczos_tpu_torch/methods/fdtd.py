@@ -4,10 +4,13 @@
 u(T_end) integrated as u += dt * A u for nsteps: the physics oracle the
 reference validates Lanczos-expm against (test_lanczos.cu:118-123,
 :294-301).  As in the JAX package, an operator with `scaled` gets dt folded
-into its weights; the folded-plane operator, the one with `scaled`, also
-has `fdtd_step`, the one-pass step u + (dt A) u (K5) at every block width.
-That step writes into a second buffer: the loop swaps two buffers of its
-own and never writes u0.  Other operators step u + dt * (A u).
+into its weights.  The folded-plane operator also has `fdtd_step`, the
+one-pass step u + (dt A) u (K5) at every block width, which writes into a
+second buffer: the loop swaps two buffers of its own and never writes u0.
+The distributed operator has `scaled` and no `fdtd_step` (JAX's branch):
+it steps u + (dt A) u as K1 plus an add, since K5's identity term on its
+halo-filled work copy would copy the halo planes into the state's pads.
+Other operators step u + dt * (A u).
 `euler_steps` is the loop itself, from any start state for any number of
 steps; `methods/checkpoint.py` runs it chunk by chunk.
 """
@@ -24,9 +27,10 @@ def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
     through its one-pass `fdtd_step`, each step into whichever of the two
     buffers `bufs` (made here when None) does not hold the current state:
     the result is then one of them, and a later call with the same bufs
-    continues from it.  Other operators step u + dt * (A u) into new
-    tensors.  Returns u itself when nsteps is 0."""
-    if hasattr(a, "scaled"):
+    continues from it.  An operator with `scaled` and no `fdtd_step` steps
+    u + (dt A) u, and other operators u + dt * (A u), into new tensors.
+    Returns u itself when nsteps is 0."""
+    if hasattr(a, "fdtd_step"):
         # dt folded into the weights (JAX `_maybe_fold_dt`), one pass a step
         step = a.scaled(dt).fdtd_step
         if bufs is None:
@@ -34,6 +38,12 @@ def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
         for _ in range(nsteps):
             out = bufs[1] if u.data_ptr() == bufs[0].data_ptr() else bufs[0]
             u = step(u, out)
+        return u
+    if hasattr(a, "scaled"):
+        a_dt = a.scaled(dt)
+        apply = a_dt.mm if block else a_dt.mv
+        for _ in range(nsteps):
+            u = u + apply(u)
         return u
     apply = a.mm if block else a.mv
     for _ in range(nsteps):

@@ -17,7 +17,11 @@ step.
 
 Bare runs (reorth="none", breakdown_tol=0) whose state holds at least
 16 MB, or fused=True, take the traffic-minimal fused recurrence at block
-width 1 (`block_lanczos_fused.py`), as the JAX package does.
+width 1 (`block_lanczos_fused.py`), as the JAX package does, unless the
+operator is distributed (it has a `mesh`).  On such an operator every
+norm, dot and CGS2 coefficient vector is summed over the ranks, the
+selective branch is taken by all ranks or by none, and the trace is
+summed once, at the end (see `block_lanczos.py`).
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import dataclasses
 
 import torch
 
-from lanczos_tpu_torch.methods.block_lanczos import FUSED_GATE_BYTES
+from lanczos_tpu_torch.methods.block_lanczos import FUSED_GATE_BYTES, _local
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.operator import state_trace
 
@@ -52,12 +56,13 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x))
 
 
-def _cgs2(wv, basis, valid):
-    """w -= Q (Q^T w) twice, over the basis rows where valid is 1."""
+def _cgs2(wv, basis, valid, total=_local):
+    """w -= Q (Q^T w) twice, over the basis rows where valid is 1; `total`
+    sums the coefficients over the ranks of a distributed state."""
     q = basis.reshape(basis.shape[0], -1)
     w = wv.reshape(-1)
     for _ in range(2):
-        w = w - (valid * (q @ w)) @ q
+        w = w - (valid * total(q @ w)) @ q
     return w.reshape(wv.shape)
 
 
@@ -82,10 +87,14 @@ def vector_lanczos(
     a bare run); fused=False forces the classic recurrence."""
     if reorth not in ("none", "full", "selective"):
         raise ValueError(f"unknown reorth mode {reorth!r}")
+    mesh = getattr(a, "mesh", None)
     big_enough = b.numel() * b.element_size() >= FUSED_GATE_BYTES
-    fusable = reorth == "none" and breakdown_tol == 0.0
+    fusable = reorth == "none" and breakdown_tol == 0.0 and mesh is None
     if fused and not fusable:
-        raise ValueError("fused=True requires reorth='none' and breakdown_tol=0")
+        raise ValueError(
+            "fused=True requires reorth='none', breakdown_tol=0 and a "
+            "non-distributed operator"
+        )
     if fusable and (fused or (fused is None and big_enough)):
         from lanczos_tpu_torch.methods.block_lanczos_fused import (
             block_lanczos_fused,
@@ -106,18 +115,30 @@ def vector_lanczos(
         )
 
     need_basis = store_basis or reorth in ("full", "selective")
-    n = b.numel()
     dtype, dev = b.dtype, b.device
     eps = torch.finfo(dtype).eps
     sqrt_eps = eps ** 0.5
     tiny = torch.finfo(dtype).tiny
     lc_idx = 0 if lc is None else int(lc)
-    trace_at = trace_fn or (lambda q: state_trace(q, lc_idx, block=False))
+    if trace_fn is not None:
+        trace_at = trace_fn
+    elif mesh is not None:
+        trace_at = a.storage_trace_fn(lc_idx)
+    else:
+        trace_at = lambda q: state_trace(q, lc_idx, block=False)  # noqa: E731
+    if mesh is None:
+        total, decide, n = _local, bool, b.numel()
+        norm = _norm
+    else:
+        total, decide, n = mesh.all_reduce_, mesh.any, b.numel() * mesh.size
 
-    beta0 = _norm(b)
+        def norm(x):
+            return torch.sqrt(total(torch.sum(x * x)))
+
+    beta0 = norm(b)
     q0 = b / beta0
     w = a.mv(q0)
-    alpha0 = torch.sum(w * q0)
+    alpha0 = total(torch.sum(w * q0))
     w = w - alpha0 * q0
 
     karr = torch.arange(m, device=dev)
@@ -143,7 +164,7 @@ def vector_lanczos(
             # omega_{j,k} ~ q_j . q_k by the three-term recurrence (Simon
             # '84), with beta_0 := 0 (no q_{-1}) and a rounding-noise floor
             # so that the estimate can seed and grow
-            beta_tent = torch.clamp(_norm(wv), min=tiny)
+            beta_tent = torch.clamp(norm(wv), min=tiny)
             bh = beta_hist.clone()
             bh[0] = 0.0
             b_kp1 = torch.roll(bh, -1)
@@ -158,29 +179,29 @@ def vector_lanczos(
             om_new = torch.where(karr > j, 0.0, om_new)
             older = karr <= j - 2
             # the host decides (one sync per step): JAX's lax.cond
-            trigger = force or bool(
+            trigger = force or decide(
                 torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps
             )
             if trigger:
-                wv = _cgs2(wv, basis, (karr <= j - 1).to(dtype))
+                wv = _cgs2(wv, basis, (karr <= j - 1).to(dtype), total)
                 om_new = torch.where(karr <= j - 1, eps, om_new)
             # reorthogonalize the following step too (standard pairing)
             force = trigger and not force
             om_prev, om = om, om_new
 
-        beta = _norm(wv)
+        beta = norm(wv)
         dead = dead | (beta <= breakdown_tol * beta0)
         beta_safe = torch.where(dead, 1.0, beta)
         q = torch.where(dead, torch.zeros_like(wv), wv / beta_safe)
         beta_out = torch.where(dead, 0.0, beta)
 
         wn = a.mv(q) - beta_out * q_prev
-        alpha = torch.sum(wn * q)
+        alpha = total(torch.sum(wn * q))
         wn = wn - alpha * q
         if need_basis:
             basis[j] = q
         if reorth == "full":
-            wn = _cgs2(wn, basis, (karr <= j).to(dtype))
+            wn = _cgs2(wn, basis, (karr <= j).to(dtype), total)
 
         alph_hist[j], beta_hist[j] = alpha, beta_out
         alphas.append(alpha)
@@ -191,8 +212,8 @@ def vector_lanczos(
     return VectorLanczosResult(
         alphas=torch.stack(alphas),
         betas=torch.stack(betas),
-        trace=torch.stack(traces),
+        trace=total(torch.stack(traces)),
         basis=basis if store_basis else None,
         breakdown=dead,
-        beta_final=torch.where(dead, 0.0, _norm(wv)),
+        beta_final=torch.where(dead, 0.0, norm(wv)),
     )

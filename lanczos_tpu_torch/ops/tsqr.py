@@ -7,8 +7,9 @@ block by QR instead of the reference's sqrtm(W^T W)
 Two-level tree: split the n rows into c chunks, QR each chunk (one batched
 `torch.linalg.qr`), QR the stacked (c*p, p) R factors, and recombine.
 Signs are normalized (diag(R) >= 0), so the factorization is unique and
-does not depend on the chunking.  The sharded variant (`tsqr_sharded`)
-waits for the multi-device operators (ROADMAP Queue 1, multi-device).
+does not depend on the chunking.  `tsqr_sharded` runs the same tree on a
+state split over the ranks of a mesh: the local tree on each rank, then
+one all-gather of the p x p R factors (O(p^2) traffic, not O(n)).
 """
 
 from __future__ import annotations
@@ -36,3 +37,22 @@ def tsqr(a: torch.Tensor, n_chunks: int = 8):
     q2, r = torch.linalg.qr(r1.reshape(c * p, p), mode="reduced")
     q = torch.bmm(q1, q2.reshape(c, p, p)).reshape(rows, p)[:n]
     return _fix_signs(q, r)
+
+
+def tsqr_sharded(x: torch.Tensor, mesh):
+    """TSQR of a BLOCK-MAJOR (p, n) state split over the ranks of `mesh`
+    along its last axis, x being this rank's (p, n_local) part: the local
+    tree, an all-gather of the (p, p) R factors, a QR of their (size p, p)
+    stack (every rank computes the same one) and a local recombine.
+
+    Returns (q, r): q (p, n_local) this rank's part of the orthonormal
+    rows, r (p, p) the same upper triangle on every rank with a
+    non-negative diagonal, x.T = q.T @ r over the global state.  Zero
+    columns of x (the slabs' pads) stay zero in q up to rounding."""
+    p = x.shape[0]
+    ql, rl = tsqr(x.T)
+    q2, r = torch.linalg.qr(mesh.all_gather(rl).reshape(mesh.size * p, p),
+                            mode="reduced")
+    q = ql @ q2.reshape(mesh.size, p, p)[mesh.rank]
+    q, r = _fix_signs(q, r)
+    return q.T, r

@@ -267,11 +267,14 @@ def test_parser_flags_and_lc_default():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(operator="pallas", devices=2), "Queue 1, multi-device"),
-    (dict(operator="stencil", devices=4, profile_dir="trace"), "Queue 1, multi-device"),
+    (dict(operator="ell", devices=2), "needs --operator pallas"),
+    (dict(operator="stencil", devices=4, profile_dir="trace"), "needs --operator pallas"),
+    (dict(operator="pallas", devices=0), "N >= 1"),
 ])
 def test_unported_flags_raise(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """--devices N > 1 runs the z-slab operator only (the JAX CLI ignores
+    it elsewhere); the port raises before any rank starts."""
+    with pytest.raises(ValueError, match=item):
         run(LanczosConfig(n_grid=3, m=2, device="cpu", **kw))
 
 
