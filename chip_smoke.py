@@ -61,6 +61,23 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    measured residuals under 1e-3; the block eigsh at
    262,144 rows against scipy's eigsh (top-5 to 1e-4), and a .mtx round
    trip through `operator_from_file(format="windowed")`;
+8b. multidevice ell (the row-sharded ELL operators,
+   `lanczos_tpu_torch/parallel/dist_operator.py`, on the assembled slice's
+   matrix, f32, p=8): its 4 `halo_shard`s (halo 4999, one hop) built in
+   this process on the one card, each window filled by hand from its
+   neighbours' rows, the local products stitched and held to the
+   single-device `EllMatrix` product (1e-5 of scale; bit-equal expected)
+   and to K8's (KERNEL_RTOL), each shard and the whole timed; an arrow
+   matrix on 4 shards (halo 768, 3 hops) against scipy, its pad rows
+   zero; then world size 1 through `launch.run` on NCCL: the assembled
+   slice's `block_lanczos_eigsh` on `HaloShardedEll` with its start
+   block, Ritz values within EIGSH_RTOL of phase 8's K8 run, measured
+   residuals under 1e-3, no kernel of the repo launched (the local
+   product is plain torch, as it is XLA in the JAX package; counts read
+   from 0 in the rank), one `GatherShardedEll` product against the halo
+   product, and a `block_lanczos_checkpointed` run stopped after its
+   first chunk and resumed, against `block_lanczos(fused=False)`; the
+   eigsh's wall seconds and peak device memory;
 9. the ELL slice at the reference's N=160 (24.6M rows): the width-4 ELL
    operator built by the C++ engine straight from the taps (its seconds
    logged), A X at p=4 against K1's A X on the same state (tolerance
@@ -1106,7 +1123,9 @@ def phase_assembled_slice(torch, build, results, failures, assembled):
     del vals, vecs, bounds, resid
     assembled_vector(torch, build, results, failures, op)
     del op
-    assembled.clear()
+    # the multidevice ell phase holds its shards to this plan's K8 product
+    # and its Ritz values to these, then frees the matrix and the plan
+    assembled["ritz"] = vals_h
     torch.cuda.empty_cache()
     assembled_small(torch, build, results, failures)
 
@@ -1690,9 +1709,14 @@ def phase_multidevice(torch, build, results, failures):
     slab_ms = [cuda_ms(torch, lambda w=w, op=op: apply_stencil_pair(
         w, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)) for w, op in zip(works, ops)]
     whole_ms = cuda_ms(torch, lambda: sop.mm(b))
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair_plain
+
+    plain_ms = cuda_ms(torch, lambda: apply_stencil_pair_plain(
+        works[0], ops[0].wz_t, ops[0].wplane_s, ops[0].spec_e, ops[0].spec_h))
     for r, ms in enumerate(slab_ms):
         log(f"  row: slab K1 rank {r}: {ms:.4f} ms, {interior[r]} of {zs} rows "
             f"interior ({interior[r] / zs:.1%})")
+    log(f"  row: slab K1's plain version (rank 0's slab): {plain_ms:.4f} ms")
     log(f"  row: whole-domain K1 (Zc={sop.spec.zc}): {whole_ms:.4f} ms; linear "
         f"estimate a slab {whole_ms * zs / sop.spec.zc:.4f} ms")
     del ops, outs, works
@@ -1745,6 +1769,252 @@ def phase_multidevice(torch, build, results, failures):
     log("  nvidia-smi:", nvidia_smi_line())
 
 
+def ell_rank(mesh, ritz, path):
+    """One rank of the multidevice ell phase (spawned by `launch.run`):
+    the assembled slice's eigsh on `HaloShardedEll`, its launch counts
+    read from 0 around it (this path runs no kernel of the repo), then one
+    `GatherShardedEll` product against the halo product, and a checkpointed
+    block run stopped after its first chunk and resumed against the
+    uninterrupted fused=False run.  The matrix is rebuilt here from its
+    seed; `ritz` are the assembled slice's K8 values."""
+    import numpy as np
+    import torch
+
+    from lanczos_tpu_torch.methods import checkpoint as ck
+    from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh, ritz_residuals
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.kernels import build
+    from lanczos_tpu_torch.parallel import gather_sharded_ell, halo_sharded_ell
+
+    out = {}
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(N_ASSEMBLED)
+    out["matrix_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = halo_sharded_ell(a, mesh)
+    out["halo_build_s"] = time.perf_counter() - t0
+    x = np.random.default_rng(0).standard_normal(
+        (P_ASSEMBLED, a.shape[0])).astype(np.float32)
+    b = op.pad_vector(torch.from_numpy(x))
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    vals, vecs, bounds = block_lanczos_eigsh(
+        op, b, M_ASSEMBLED, K_ASSEMBLED, which="LA", reorth="full",
+        normalize="qr", breakdown_eps=1e-4, replace_dead=True,
+        eig_backend="newton", compute_vectors=True)
+    torch.cuda.synchronize()
+    out["eigsh_s"] = time.perf_counter() - t0
+    resid = ritz_residuals(op, vals, vecs)
+    torch.cuda.synchronize()
+    out["launches"] = dict(build.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ritz = torch.tensor(ritz, dtype=torch.float64)
+    out.update(vals=vals, resid=resid, bounds=bounds,
+               ritz_rel=((vals.double().cpu() - ritz).abs() / ritz.abs()).max().item(),
+               halo=op.halo, rows_loc=op.rows_loc)
+    del vecs
+    out["halo_ms"] = cuda_ms(torch, lambda: op.mm(b))
+
+    t0 = time.perf_counter()
+    gop = gather_sharded_ell(a, mesh)
+    out["gather_build_s"] = time.perf_counter() - t0
+    y_halo, y_gather = op.mm(b), gop.mm(b)
+    out["gather_err"] = compare(torch, y_gather, y_halo, KERNEL_RTOL["float32"])
+    out["gather_bit_equal"] = torch.equal(y_gather, y_halo)
+    del y_halo, y_gather
+    out["gather_ms"] = cuda_ms(torch, lambda: gop.mm(b))
+    del gop
+    torch.cuda.empty_cache()
+
+    ref = block_lanczos(op, b, M_CHECKPOINT, 0, fused=False)
+    real = ck._Sharding.write
+    calls = []
+
+    def stop_after_first(self, save):
+        if calls:
+            raise StopAfterFirstChunk
+        calls.append(1)
+        return real(self, save)
+
+    ck._Sharding.write = stop_after_first
+    try:
+        ck.block_lanczos_checkpointed(op, b, M_CHECKPOINT, 0,
+                                      chunk=CHUNK_CHECKPOINT, path=path)
+        out["stopped"] = False
+    except StopAfterFirstChunk:
+        out["stopped"] = True
+    finally:
+        ck._Sharding.write = real
+    with np.load(path) as z:
+        out["stopped_at"] = int(z["j"])
+    got = ck.block_lanczos_checkpointed(op, b, M_CHECKPOINT, 0,
+                                        chunk=CHUNK_CHECKPOINT, path=path)
+    out["resumed"] = {name: (compare(torch, getattr(got, name), getattr(ref, name),
+                                     KERNEL_RTOL["float32"]),
+                             torch.equal(getattr(got, name), getattr(ref, name)))
+                      for name in ("alphas", "betas", "trace", "beta_final")}
+    return out
+
+
+def shards_by_hand(torch, a, n_dev, X, reorder="auto"):
+    """Every rank's `halo_shard` of a on n_dev ranks, built in this process
+    on the card, each window filled from its neighbours' rows (what
+    `Mesh.halo_window` moves between cards), and the local products:
+    (shards, windows, outputs, build seconds).  X is the block-major
+    (p, n_pad) global state."""
+    import numpy as np
+
+    from lanczos_tpu_torch.parallel.dist_operator import halo_shard, local_spmm
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    shards = []
+    for rank in range(n_dev):
+        data, idx, halo, rows, perm = halo_shard(a, n_dev, rank, np.float32,
+                                                 reorder)
+        if perm is not None:
+            raise RuntimeError("the by-hand shards assume no reordering")
+        shards.append((torch.from_numpy(data).to(dev), torch.from_numpy(idx).to(dev)))
+    build_s = time.perf_counter() - t0
+    zeros = X.new_zeros((X.shape[0], halo))
+    ext = torch.cat([zeros, X, zeros], dim=1)
+    windows = [ext[:, r * rows : r * rows + rows + 2 * halo].contiguous()
+               for r in range(n_dev)]
+    outs = [local_spmm(d, i, w) for (d, i), w in zip(shards, windows)]
+    return shards, windows, outs, build_s, halo, rows
+
+
+def phase_multidevice_ell(torch, build, results, failures, assembled):
+    """The row-sharded ELL operators on the assembled slice's matrix:
+    four shards by hand in this process against the single-device ELL
+    product and K8's, a small hops-3 case against scipy, then world size 1
+    through launch.run on NCCL (`ell_rank`)."""
+    import tempfile
+
+    import numpy as np
+
+    from lanczos_tpu_torch.ops.formats import ell_from_scipy
+    from lanczos_tpu_torch.ops.kernels.window_ell import windowed_spmm
+    from lanczos_tpu_torch.parallel import launch
+    from lanczos_tpu_torch.parallel.dist_operator import local_spmm
+
+    dev = torch.device("cuda")
+    # the matrix, its K8 plan and the K8 run's Ritz values leave `assembled`
+    a, A, ritz = (assembled.pop(key) for key in ("a", "A", "ritz"))
+    n = a.shape[0]
+    x = np.random.default_rng(2).standard_normal((P_ASSEMBLED, n)).astype(np.float32)
+    X = torch.from_numpy(x).to(dev)
+    k8 = windowed_spmm(A, A.pack(X))[:, :n].clone()
+    del A, x
+    torch.cuda.empty_cache()
+    shards, windows, outs, build_s, halo, rows = shards_by_hand(
+        torch, a, MULTI_SLABS, X)
+    hops = -(-halo // rows)
+    stitched = torch.cat(outs, dim=1)
+    pad = stitched[:, n:]
+    got = stitched[:, :n]
+    ell = ell_from_scipy(a, device=dev)
+    whole = ell.mm(X)
+    err, rel, ok = compare(torch, got, whole, 1e-5)
+    err8, rel8, ok8 = compare(torch, got, k8, KERNEL_RTOL["float32"])
+    log(f"  {MULTI_SLABS} halo-ELL shards of {rows} rows (halo {halo}, {hops} "
+        f"hop(s)), built on the host in {build_s:.2f} s, windows by hand: vs the "
+        f"single-device EllMatrix product rel {rel:.2e} (bit-equal "
+        f"{torch.equal(got, whole)}), vs K8 rel {rel8:.2e} (tol "
+        f"{KERNEL_RTOL['float32']:.0e}); {pad.shape[1]} pad rows, nonzero "
+        f"{bool(pad.any())}")
+    if not (ok and ok8) or pad.any() or hops != 1:
+        failures.append(f"multidevice ell: shards vs EllMatrix {rel}, vs K8 "
+                        f"{rel8}, pad rows nonzero {bool(pad.any())}, hops {hops}")
+    shard_ms = [cuda_ms(torch, lambda d=d, i=i, w=w: local_spmm(d, i, w))
+                for (d, i), w in zip(shards, windows)]
+    whole_ms = cuda_ms(torch, lambda: ell.mm(X))
+    for r, ms in enumerate(shard_ms):
+        log(f"  row: halo-ELL SpMM p={P_ASSEMBLED}, shard {r} of {MULTI_SLABS} "
+            f"({rows} rows + 2 x {halo} halo): {ms:.4f} ms")
+    log(f"  row: halo-ELL SpMM p={P_ASSEMBLED}, whole matrix (the local "
+        f"product at world size 1): {whole_ms:.4f} ms, "
+        f"{a.nnz * P_ASSEMBLED / (whole_ms * 1e-3):.4e} nnz*col/s; "
+        f"K8 {results['rows']['windowed_spmm']['ms']:.4f} ms")
+    del a, shards, windows, outs, stitched, pad, got, ell, whole, k8, X
+    torch.cuda.empty_cache()
+    hops3_case(torch, failures)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (r,) = launch.run(ell_rank, 1, [float(v) for v in ritz],
+                          os.path.join(tmp, "ck.npz"), device="cuda", timeout=600)
+        wall = time.perf_counter() - t0
+    results.setdefault("launches", {})["multidevice ell"] = r["launches"]
+    vals, resid = r["vals"].numpy(), r["resid"].numpy()
+    log(f"  world size 1 through launch.run (NCCL): {wall:.1f} s; in the rank: "
+        f"matrix {r['matrix_s']:.2f} s, halo ELL built {r['halo_build_s']:.2f} s "
+        f"(halo {r['halo']}, {r['rows_loc']} rows), gathered ELL built "
+        f"{r['gather_build_s']:.2f} s")
+    log(f"  eigsh p={P_ASSEMBLED} m={M_ASSEMBLED} k={K_ASSEMBLED} on HaloShardedEll: "
+        f"Ritz {vals.tolist()}, vs the K8 run's max rel {r['ritz_rel']:.2e} (tol "
+        f"{EIGSH_RTOL:g}); measured residuals {resid.tolist()} (bound "
+        f"{RESID_BOUND:g}); launches {r['launches']}")
+    log(f"  row: eigsh wall {r['eigsh_s']:.3f} s on HaloShardedEll; peak device "
+        f"memory {r['peak_gib']:.2f} GiB")
+    log(f"  row: halo-ELL SpMM p={P_ASSEMBLED} at world size 1: {r['halo_ms']:.4f} ms; "
+        f"all-gather ELL SpMM: {r['gather_ms']:.4f} ms (vs halo rel "
+        f"{r['gather_err'][1]:.2e}, bit-equal {r['gather_bit_equal']})")
+    same = {k: v[1] for k, v in r["resumed"].items()}
+    log(f"  checkpointed block run (m={M_CHECKPOINT}, chunk {CHUNK_CHECKPOINT}) stopped "
+        f"at j={r['stopped_at']} and resumed vs fused=False: bit-equal {same}, rel "
+        f"{ {k: v[0][1] for k, v in r['resumed'].items()} }")
+    log("  nvidia-smi:", nvidia_smi_line())
+    if any(r["launches"].values()):
+        failures.append(f"multidevice ell: a repo kernel launched: {r['launches']}")
+    if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
+            and np.all(resid < RESID_BOUND)):
+        failures.append(f"multidevice ell: Ritz {vals} (rel {r['ritz_rel']}), "
+                        f"residuals {resid}")
+    if not r["gather_err"][2]:
+        failures.append(f"multidevice ell: gathered vs halo product {r['gather_err']}")
+    if not (r["stopped"] and r["stopped_at"] == 1 + CHUNK_CHECKPOINT
+            and all(v[0][2] for v in r["resumed"].values())):
+        failures.append(f"multidevice ell: checkpoint resume {r['resumed']}, "
+                        f"stopped {r['stopped']} at {r['stopped_at']}")
+
+
+def hops3_case(torch, failures):
+    """A dense-coupling arrow matrix (1001 rows) on 4 shards by hand: a
+    halo of 745 over 256-row shards, 3 hops; against scipy's f64 product,
+    its 23 pad rows zero."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    n = 1001
+    arrow = sp.lil_matrix((n, n))
+    arrow.setdiag(2.0)
+    arrow[0, :] = 1.0
+    arrow[:, 0] = 1.0
+    arrow = arrow.tocsr()
+    from lanczos_tpu_torch.parallel.dist_operator import shard_rows
+
+    x = np.random.default_rng(3).standard_normal((3, n))
+    rows = shard_rows(n, MULTI_SLABS)
+    X = torch.zeros((3, MULTI_SLABS * rows), device="cuda")
+    X[:, :n] = torch.from_numpy(x).float()
+    _, _, outs, _, halo, rows = shards_by_hand(torch, arrow, MULTI_SLABS, X,
+                                               reorder="none")
+    y = torch.cat(outs, dim=1)
+    err, rel, ok = compare(torch, y[:, :n].cpu(), torch.from_numpy((arrow @ x.T).T),
+                           K8_SCIPY_RTOL)
+    hops = -(-halo // rows)
+    log(f"  hops-3 case: arrow n={n} on {MULTI_SLABS} shards of {rows} rows, halo "
+        f"{halo} ({hops} hops): vs scipy rel {rel:.2e}; pad rows nonzero "
+        f"{bool(y[:, n:].any())}")
+    if not ok or hops != 3 or y[:, n:].any():
+        failures.append(f"multidevice ell: hops-3 case rel {rel}, hops {hops}")
+
+
 def main() -> int:
     sys.path.insert(0, ROOT)
     try:
@@ -1778,6 +2048,9 @@ def main() -> int:
          lambda: phase_compensated_slice(torch, build, results, failures)),
         ("assembled slice",
          lambda: phase_assembled_slice(torch, build, results, failures,
+                                       assembled)),
+        ("multidevice ell",
+         lambda: phase_multidevice_ell(torch, build, results, failures,
                                        assembled)),
         ("ell slice",
          lambda: phase_ell_slice(torch, build, results, failures)),

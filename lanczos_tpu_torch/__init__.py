@@ -19,10 +19,11 @@ CLI (`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell]
 [--profile DIR] ...`), the timing layer (`utils/`), the headline bench
 (`python -m lanczos_tpu_torch.bench`), the benchmark drivers
 (`benchmarks/`), the examples (`examples/`) and the C++ host engine
-(`native/`), and the z-slab half of the multi-device layer
-(`parallel/`: `make_mesh`, `DistributedPallasMaxwell`, `tsqr_sharded`,
-one process a device on `torch.distributed`).  Not ported yet: the
-row-sharded assembled-matrix operators.
+(`native/`), and the multi-device layer (`parallel/`: `make_mesh`, one
+process a device on `torch.distributed`, the z-slab
+`DistributedPallasMaxwell`, `tsqr_sharded`, and the row-sharded
+assembled-matrix operators `HaloShardedEll` and `GatherShardedEll`).
+Not ported yet: the row-sharded windowed-ELL operator.
 Builders put their buffers on "cuda" unless given another device.
 
 The names below load lazily, as in the JAX package: `from
@@ -67,6 +68,10 @@ _API = {
     "PallasMaxwellOperator": "lanczos_tpu_torch.models.maxwell_pallas",
     "DistributedPallasMaxwell": "lanczos_tpu_torch.parallel",
     "make_mesh": "lanczos_tpu_torch.parallel",
+    "HaloShardedEll": "lanczos_tpu_torch.parallel",
+    "GatherShardedEll": "lanczos_tpu_torch.parallel",
+    "halo_sharded_ell": "lanczos_tpu_torch.parallel",
+    "gather_sharded_ell": "lanczos_tpu_torch.parallel",
     "StencilSpec": "lanczos_tpu_torch.ops.kernels",
     "apply_stencil": "lanczos_tpu_torch.ops.kernels",
     "apply_stencil_pair": "lanczos_tpu_torch.ops.kernels",

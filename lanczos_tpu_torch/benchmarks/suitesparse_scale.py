@@ -21,8 +21,9 @@ Records:
 
 The anti-overflow scale of the chained SpMM is folded into a second plan
 of A / 1024 (a power of two: the same planes, exactly scaled), so no
-extra pass over the state is timed.  --dist (the row-sharded operator)
-waits for the multi-device layer (ROADMAP Queue 1, multi-device).
+extra pass over the state is timed.  --dist (JAX's row-sharded
+windowed-ELL operator) waits for its port (ROADMAP Queue 1, slice 12 of
+the multi-device layer).
 """
 
 from __future__ import annotations
@@ -200,14 +201,15 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--dist", action="store_true",
-                    help="the row-sharded operator (not ported yet)")
+                    help="the row-sharded windowed operator (not ported yet)")
     ap.add_argument("--json", default=None, help="also write the results here")
     add_device_argument(ap)
     args = ap.parse_args(argv)
     if args.dist:
         raise NotImplementedError(
-            "--dist: the row-sharded operators are not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1, multi-device)")
+            "--dist: the row-sharded windowed-ELL operator is not ported to "
+            "lanczos_tpu_torch yet (ROADMAP Queue 1, slice 12 of the "
+            "multi-device layer)")
     out = run(args.rows, args.p, args.m, args.k, args.reorth, args.tol, args.device)
     write_json(args.json, out)
     return out

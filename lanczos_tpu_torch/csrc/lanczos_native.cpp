@@ -6,6 +6,8 @@
 // the NumPy versions take seconds to minutes at the 10M-24.6M-row sizes.
 //
 //   ell_from_csr_{f32,f64}     CSR -> padded ELL (data, int32 columns)
+//   halo_ell_from_csr_{f32,f64} CSR -> a row-sharded ELL whose columns are
+//                              positions in each shard's halo window
 //   window_pack_count          windowed-ELL planner, pass 1: planes/chunk
 //   window_pack_fill_{f32,f64} windowed-ELL planner, pass 2: the planes
 //   maxwell_ell_{f32,f64}      the Maxwell operator A = D diag(w) as ELL,
@@ -101,6 +103,33 @@ void ell_from_csr(int64_t n_rows, int64_t rows_pad, int64_t width,
             }
         }
         for (; k < width; ++k) { dst[k] = T(0); idx[k] = 0; }
+    });
+}
+
+// Rows [row0, row0 + rows_out) of the row-sharded halo ELL
+// (lanczos_tpu_torch/parallel/dist_operator.py HaloShardedEll): row i of
+// shard i / rows_loc holds its entries in CSR order with column c stored
+// as c - base + halo, base = (i / rows_loc) rows_loc, its position in the
+// shard's window [halo | rows_loc local rows | halo]; then pad entries,
+// data 0 at position `halo`.  Rows at or past n_rows are all pad.
+template <typename T>
+void halo_ell_from_csr(int64_t n_rows, int64_t row0, int64_t rows_out,
+                       int64_t width, int64_t rows_loc, int64_t halo,
+                       const int64_t* indptr, const int64_t* indices,
+                       const double* data, T* out_data, int32_t* out_idx) {
+    parallel_for(rows_out, 1 << 14, [&](int64_t t) {
+        const int64_t i = row0 + t;
+        const int64_t base = (i / rows_loc) * rows_loc;
+        T* dst = out_data + t * width;
+        int32_t* idx = out_idx + t * width;
+        int64_t k = 0;
+        if (i < n_rows) {
+            for (int64_t j = indptr[i]; j < indptr[i + 1] && k < width; ++j, ++k) {
+                dst[k] = static_cast<T>(data[j]);
+                idx[k] = static_cast<int32_t>(indices[j] - base + halo);
+            }
+        }
+        for (; k < width; ++k) { dst[k] = T(0); idx[k] = static_cast<int32_t>(halo); }
     });
 }
 
@@ -304,6 +333,22 @@ void ell_from_csr_f64(int64_t n_rows, int64_t rows_pad, int64_t width,
                       const double* data, double* out_data, int32_t* out_idx) {
     ell_from_csr<double>(n_rows, rows_pad, width, indptr, indices, data,
                          out_data, out_idx);
+}
+
+void halo_ell_from_csr_f32(int64_t n_rows, int64_t row0, int64_t rows_out,
+                           int64_t width, int64_t rows_loc, int64_t halo,
+                           const int64_t* indptr, const int64_t* indices,
+                           const double* data, float* out_data, int32_t* out_idx) {
+    halo_ell_from_csr<float>(n_rows, row0, rows_out, width, rows_loc, halo,
+                             indptr, indices, data, out_data, out_idx);
+}
+
+void halo_ell_from_csr_f64(int64_t n_rows, int64_t row0, int64_t rows_out,
+                           int64_t width, int64_t rows_loc, int64_t halo,
+                           const int64_t* indptr, const int64_t* indices,
+                           const double* data, double* out_data, int32_t* out_idx) {
+    halo_ell_from_csr<double>(n_rows, row0, rows_out, width, rows_loc, halo,
+                              indptr, indices, data, out_data, out_idx);
 }
 
 int maxwell_ell_f32(int64_t n_rows, int64_t rows_pad, int64_t width,

@@ -4,8 +4,10 @@
 Matrix Market (`.mtx`, `.mtx.gz`, the SuiteSparse interchange format) and
 scipy `.npz` files, built into any of the containers of `ops/formats.py`
 or the windowed-ELL operator of `ops/window_ell.py`, on `device` (default
-"cuda").  The row-sharded multi-device operators are not ported (ROADMAP
-Queue 1, multi-device): a `mesh` argument raises.
+"cuda"), or with a `mesh` into this rank's row-sharded operator of
+`parallel/dist_operator.py` on the mesh's device.  The row-sharded
+windowed-ELL operator is not ported yet (ROADMAP Queue 1, slice 12), so
+with a mesh "windowed" and "auto" raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -33,12 +35,23 @@ def load_sparse(path: str):
     raise ValueError(f"unknown sparse matrix format: {path}")
 
 
-def _no_mesh(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "row-sharded operators (mesh=...) are not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1, multi-device)"
-        )
+def _no_windowed_mesh(format):
+    raise NotImplementedError(
+        f"format={format!r} with a mesh needs the row-sharded windowed-ELL "
+        "operator, which is not ported yet (ROADMAP Queue 1, slice 12); "
+        "pass format='halo' or 'gather'"
+    )
+
+
+def _sharded(a, format, mesh, dtype, reorder):
+    """This rank's row-sharded operator of a: "halo"/"ell" or "gather"."""
+    from lanczos_tpu_torch.parallel import gather_sharded_ell, halo_sharded_ell
+
+    if format in ("halo", "ell"):
+        return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
+    if format == "gather":
+        return gather_sharded_ell(a, mesh, dtype=dtype)
+    raise ValueError(f"unknown distributed format {format!r}")
 
 
 def operator_from_file(
@@ -54,12 +67,18 @@ def operator_from_file(
 
     format: "ell" | "csr" | "coo" | "bsr" | "dia" (the containers of
     `ops/formats.py`) | "windowed" (the windowed-ELL SpMM, K8) | "auto"
-    (see `auto_operator`).  dtype defaults to float32."""
+    (see `auto_operator`), or with `mesh` given: "halo" or "ell" (this
+    rank's `HaloShardedEll`, `reorder` as `halo_sharded_ell` takes it) |
+    "gather" (`GatherShardedEll`); "windowed" and "auto" then raise
+    NotImplementedError.  dtype defaults to float32."""
     from lanczos_tpu_torch.ops import formats as F
 
-    _no_mesh(mesh)
+    if mesh is not None and format in ("windowed", "auto"):
+        _no_windowed_mesh(format)
     dtype = torch.float32 if dtype is None else dtype
     a = load_sparse(path)
+    if mesh is not None:
+        return _sharded(a, format, mesh, dtype, reorder)
     if format == "auto":
         return auto_operator(a, dtype=dtype, reorder=reorder, device=device)
     if format == "windowed":
@@ -84,13 +103,16 @@ def auto_operator(a, *, dtype=None, mesh=None, reorder: str = "auto",
     """Operator selection for an assembled scipy matrix, in the JAX
     package's order: DIA when the nonzeros lie on <= max_diags distinct
     diagonals (square matrices), else the windowed-ELL operator, else
-    gathered ELL, with a warning naming the fallback."""
+    gathered ELL, with a warning naming the fallback.  With a mesh the
+    JAX package tries its row-sharded windowed operator first, which is
+    not ported yet: NotImplementedError."""
     import scipy.sparse as sp
 
     from lanczos_tpu_torch.ops import formats as F
     from lanczos_tpu_torch.ops.window_ell import PlanError, windowed_from_scipy
 
-    _no_mesh(mesh)
+    if mesh is not None:
+        _no_windowed_mesh("auto")
     dtype = torch.float32 if dtype is None else dtype
     a = a.tocsr() if sp.issparse(a) else sp.csr_matrix(np.asarray(a))
     coo = a.tocoo()

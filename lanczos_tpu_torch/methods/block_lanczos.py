@@ -26,8 +26,9 @@ after one host read.  replace_dead's noise comes from a `torch.Generator`
 seeded with restart_seed: JAX's PRNG stream is not reproduced, so that
 mode matches JAX in its invariants, not in its numbers.
 
-An operator with a `mesh` (`parallel.DistributedPallasMaxwell`) holds this
-rank's slab of every state, and GSPMD's inserted psums become explicit
+An operator with a `mesh` (`parallel.DistributedPallasMaxwell`,
+`HaloShardedEll`, `GatherShardedEll`) holds this rank's slab or rows of
+every state, and GSPMD's inserted psums become explicit
 sums over the ranks: each Gram, state norm and CGS2 coefficient block is
 one local product and one `all_reduce` of a p x p (or scalar) tensor,
 normalize="qr" runs `tsqr_sharded`, every host branch on a device value

@@ -26,14 +26,26 @@ def ritz_residuals(a, vals: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     |beta_m S| bound can read arbitrarily small after deflation; this is
     the backward-error certificate to publish beside it.
 
-    vals: (k,); vecs: (n, k) columns.  Returns (k,).  Any k works: the
-    port's padded states take any block width, so no rows are padded."""
-    ys = vecs.T.contiguous()  # block-major (k, n)
-    r = a.mm(ys) - vals[:, None] * ys
+    vals: (k,); vecs: (n, k) columns, n the operator's flattened state
+    (an operator with a `state_shape` gets each column in that shape).
+    Returns (k,).  Any k works: the port's padded states take any block
+    width, so no rows are padded.  On an operator with a `mesh` vecs
+    holds this rank's rows; the squared norms are summed over the ranks,
+    so every rank returns the same global ratios."""
+    k = vals.shape[0]
+    ys = vecs.T.reshape((k,) + tuple(getattr(a, "state_shape", vecs.shape[:1])))
+    ys = ys.contiguous()  # block-major (k, *state)
+    r = (a.mm(ys) - vals.view((k,) + (1,) * (ys.ndim - 1)) * ys).reshape(k, -1)
+    ys = ys.reshape(k, -1)
     tiny = torch.finfo(vecs.dtype).tiny
-    return torch.linalg.norm(r, dim=1) / (
-        torch.abs(vals) * torch.linalg.norm(ys, dim=1) + tiny
-    )
+    mesh = getattr(a, "mesh", None)
+    if mesh is None:
+        r_norm, y_norm = torch.linalg.norm(r, dim=1), torch.linalg.norm(ys, dim=1)
+    else:
+        sq = mesh.all_reduce_(torch.stack([torch.sum(r * r, dim=1),
+                                           torch.sum(ys * ys, dim=1)]))
+        r_norm, y_norm = torch.sqrt(sq[0]), torch.sqrt(sq[1])
+    return r_norm / (torch.abs(vals) * y_norm + tiny)
 
 
 def _select(w: torch.Tensor, k: int, which: str) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The port's C++ host engine: CSR -> ELL, the windowed-ELL planner and
-the Maxwell ELL assembly (port of `lanczos_tpu/native`).
+"""The port's C++ host engine: CSR -> ELL (whole, or row-sharded with
+halo-window columns), the windowed-ELL planner and the Maxwell ELL
+assembly (port of `lanczos_tpu/native`).
 
 `lanczos_tpu_torch/csrc/lanczos_native.cpp` is built with g++ (`-O3
 -pthread -shared -fPIC`; its loops run on POSIX threads, so no OpenMP
@@ -43,6 +44,8 @@ _MAXWELL = (_I64, _I64, _I64, _I64, _I64, _P, _P, _P, _P, _P, _P, _P, _P, _P,
 _SIGNATURES = {
     "ell_from_csr_f32": ((_I64, _I64, _I64, _P, _P, _P, _P, _P), None),
     "ell_from_csr_f64": ((_I64, _I64, _I64, _P, _P, _P, _P, _P), None),
+    "halo_ell_from_csr_f32": ((_I64,) * 6 + (_P,) * 5, None),
+    "halo_ell_from_csr_f64": ((_I64,) * 6 + (_P,) * 5, None),
     "maxwell_ell_f32": (_MAXWELL, ctypes.c_int),
     "maxwell_ell_f64": (_MAXWELL, ctypes.c_int),
     "window_pack_count": ((_I64, _P, _P), _I64),
@@ -151,6 +154,30 @@ def ell_from_csr(indptr, indices, data, n_rows: int, width: int, dtype,
     getattr(library(), f"ell_from_csr_{suffix}")(
         n_rows, rows_pad, width, _ptr(indptr), _ptr(indices), _ptr(vals),
         _ptr(out), _ptr(idx))
+    return out, idx
+
+
+def halo_ell_from_csr(indptr, indices, data, n_rows: int, width: int,
+                      rows_loc: int, halo: int, dtype, row0: int = 0,
+                      rows_out: int | None = None):
+    """(data (rows_out, width) in dtype, idx int32): rows [row0, row0 +
+    rows_out) of the row-sharded halo ELL (default: all n_rows).  Row i's
+    columns become positions in its shard's window, c - base + halo with
+    base = (i // rows_loc) rows_loc; pad entries are data 0 at `halo`, and
+    rows at or past n_rows are all pad.  The NumPy version is
+    `parallel.dist_operator.halo_shard`'s `packer="numpy"` path."""
+    suffix = _suffix(dtype)
+    indptr, indices = _csr(indptr, indices, n_rows)
+    vals = np.ascontiguousarray(data, np.float64)
+    rows_out = n_rows - row0 if rows_out is None else rows_out
+    if row0 < 0 or rows_out < 0 or rows_loc < 1 or halo < 0:
+        raise ValueError(f"halo_ell_from_csr: row0={row0}, rows_out={rows_out}, "
+                         f"rows_loc={rows_loc}, halo={halo}")
+    out = np.empty((rows_out, width), np.dtype(dtype))
+    idx = np.empty((rows_out, width), np.int32)
+    getattr(library(), f"halo_ell_from_csr_{suffix}")(
+        n_rows, row0, rows_out, width, rows_loc, halo, _ptr(indptr),
+        _ptr(indices), _ptr(vals), _ptr(out), _ptr(idx))
     return out, idx
 
 

@@ -80,6 +80,8 @@ class DistributedPallasMaxwell(LinearOperator):
     """The Maxwell operator A on this rank's z-slab of a 1-D mesh.  States
     are this rank's slabs: (6, Zs, P), or (p, 6, Zs, P) block-major."""
 
+    shard_axis = -2  # the slabs stack along z into JAX's global state
+
     def __init__(self, nx, ny, nz, wz_t: torch.Tensor, wplane_s: torch.Tensor,
                  specs: tuple[StencilSpec, StencilSpec], mesh: Mesh, zl: int,
                  tz: int):

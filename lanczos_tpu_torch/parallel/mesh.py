@@ -82,10 +82,54 @@ class Mesh:
         if self.rank < self.size - 1:
             ops += [dist.P2POp(dist.isend, hi, self.rank + 1, self.group),
                     dist.P2POp(dist.irecv, from_right, self.rank + 1, self.group)]
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
+        _wait_all(ops)
         return from_left, from_right
+
+    def halo_window(self, x: torch.Tensor, halo: int) -> torch.Tensor:
+        """The halo-extended window ``[halo | x | halo]`` of this rank's
+        block-major rows x (p, rows_loc), JAX's `_halo_exchange`
+        (`dist_operator.py:52-84`): (p, rows_loc + 2 halo), zeros past the
+        mesh ends.  halo == 0 returns x itself with no communication.  A
+        halo of at most rows_loc moves exactly `halo` boundary columns each
+        way (`exchange`); a wider one sends the whole block to the ranks at
+        distance 1..hops, hops = ceil(halo / rows_loc), and receives theirs
+        in one batch, then takes the centre slice.  Every rank must pass
+        the same halo (the matrix's global one)."""
+        if halo == 0:
+            return x
+        rows = x.shape[-1]
+        hops = -(-halo // rows)
+        if hops == 1:
+            from_left, from_right = self.exchange(x[..., :halo], x[..., rows - halo:])
+            return torch.cat([from_left, x, from_right], dim=-1)
+        x = x.contiguous()
+        left = [torch.zeros_like(x) for _ in range(hops)]  # ranks r-hops..r-1
+        right = [torch.zeros_like(x) for _ in range(hops)]  # ranks r+1..r+hops
+        ops = []
+        for k in range(1, hops + 1):
+            if self.rank - k >= 0:
+                ops += [dist.P2POp(dist.isend, x, self.rank - k, self.group),
+                        dist.P2POp(dist.irecv, left[hops - k], self.rank - k,
+                                   self.group)]
+            if self.rank + k < self.size:
+                ops += [dist.P2POp(dist.isend, x, self.rank + k, self.group),
+                        dist.P2POp(dist.irecv, right[k - 1], self.rank + k,
+                                   self.group)]
+        _wait_all(ops)
+        start = hops * rows - halo
+        ext = torch.cat(left + [x] + right, dim=-1)
+        return ext[..., start : start + rows + 2 * halo]
+
+    def barrier(self) -> None:
+        """Returns on each rank once every rank has called it (one
+        all-reduce of a scalar on the mesh's device)."""
+        self.all_reduce_(torch.zeros(1, device=self.device))
+
+
+def _wait_all(ops) -> None:
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
 
 
 def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:

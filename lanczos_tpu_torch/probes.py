@@ -6,6 +6,7 @@
     python -m lanczos_tpu_torch.probes --assembled
     python -m lanczos_tpu_torch.probes --ab OLD.cu
     python -m lanczos_tpu_torch.probes --gram-tiles
+    python -m lanczos_tpu_torch.probes --dist-ell
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -68,6 +69,15 @@ With --gram-tiles it prints only this: K3 at the fused recurrence's calls
 p=4, on N=160 Maxwell-sized states (f32), each on the register tile
 `block_dense.gram_tile` picks and on the 12 x 4 tile, timed in turns
 (picked, 12 x 4, 12 x 4, picked).
+
+With --dist-ell it prints only this, the row-sharded ELL operators on the
+assembled slice's 10,485,760-row matrix (p=8, f32) at each mesh size d in
+1, 2, 4 that the machine has cards for (one rank a card, NCCL): a rank's
+`HaloShardedEll` and `GatherShardedEll` product, exchange included (CUDA
+events, 20 calls after 2 warm-up calls, every rank timing the same
+chain), the eigsh of the assembled slice on `HaloShardedEll` (wall
+seconds and its Ritz values) and each rank's host seconds to build the
+matrix and its shard.
 """
 
 from __future__ import annotations
@@ -92,6 +102,7 @@ BACKENDS = ("jacobi", "newton", "lax")
 N, M, P, LC = 160, 6, 4, 20
 M_VECTOR, FDTD_STEPS = 8, 50
 ROUNDS = 3
+ASSEMBLED_ROWS, ASSEMBLED_P = 10_485_760, 8  # chip_smoke.py's assembled slice
 
 
 def probe_sqrtm(dev) -> None:
@@ -506,7 +517,7 @@ def probe_assembled(dev) -> None:
     )
 
     t0 = time.perf_counter()
-    a = synth_suitesparse_banded(10_485_760)
+    a = synth_suitesparse_banded(ASSEMBLED_ROWS)
     t1 = time.perf_counter()
     A = windowed_from_scipy(a, reorder="none", device=dev)
     torch.cuda.synchronize(dev)
@@ -525,6 +536,78 @@ def probe_assembled(dev) -> None:
     u = torch.randn((P, ell.shape[0]), device=dev)
     probe_profile(f"ell fdtd p={P} {FDTD_STEPS} steps",
                   lambda: fdtd_block(ell, u, FDTD_STEPS, 1.0), dev)
+
+
+def dist_ell_rank(mesh):
+    """One rank of --dist-ell: its shard of the assembled matrix, the two
+    products timed, then the assembled slice's eigsh."""
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh, ritz_residuals
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.parallel import gather_sharded_ell, halo_sharded_ell
+
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(ASSEMBLED_ROWS)
+    out = {"matrix_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    op = halo_sharded_ell(a, mesh)
+    out["halo_build_s"] = time.perf_counter() - t0
+    x = np.random.default_rng(0).standard_normal(
+        (ASSEMBLED_P, a.shape[0])).astype(np.float32)
+    b = op.pad_vector(torch.from_numpy(x))
+    out.update(halo=op.halo, rows_loc=op.rows_loc,
+               halo_ms=_mean_ms(lambda: op.mm(b)))
+    gop = gather_sharded_ell(a, mesh)
+    out["gather_ms"] = _mean_ms(lambda: gop.mm(b))
+    del gop, a, x
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, vecs, _ = block_lanczos_eigsh(
+        op, b, 12, 5, which="LA", reorth="full", normalize="qr",
+        breakdown_eps=1e-4, replace_dead=True, eig_backend="newton",
+        compute_vectors=True)
+    torch.cuda.synchronize()
+    out["eigsh_s"] = time.perf_counter() - t0
+    out.update(vals=vals, resid=ritz_residuals(op, vals, vecs))
+    return out
+
+
+def _mean_ms(fn, iters=20, warmup=2):
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def probe_dist_ell() -> None:
+    from lanczos_tpu_torch.parallel import launch
+
+    cards = torch.cuda.device_count()
+    for d in (1, 2, 4):
+        if d > cards:
+            print(f"skip d={d}: needs {d} cards, this machine has {cards}",
+                  flush=True)
+            continue
+        t0 = time.perf_counter()
+        ranks = launch.run(dist_ell_rank, d, device="cuda", timeout=900)
+        wall = time.perf_counter() - t0
+        r0 = ranks[0]
+        print(f"d={d}: halo {r0['halo']}, {r0['rows_loc']} rows a rank; "
+              f"run {wall:.1f} s", flush=True)
+        for rank, r in enumerate(ranks):
+            print(f"  rank {rank}: halo-ELL SpMM p={ASSEMBLED_P} {r['halo_ms']:.4f} ms, "
+                  f"all-gather ELL SpMM {r['gather_ms']:.4f} ms; matrix "
+                  f"{r['matrix_s']:.2f} s, shard {r['halo_build_s']:.2f} s; "
+                  f"eigsh {r['eigsh_s']:.3f} s", flush=True)
+        print(f"  Ritz {r0['vals'].tolist()}; measured residuals "
+              f"{r0['resid'].tolist()}", flush=True)
 
 
 def main() -> None:
@@ -551,6 +634,9 @@ def main() -> None:
         return
     if "--gram-tiles" in sys.argv[1:]:
         probe_gram_tiles(dev)
+        return
+    if "--dist-ell" in sys.argv[1:]:
+        probe_dist_ell()
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

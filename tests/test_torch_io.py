@@ -83,13 +83,48 @@ def test_operator_from_file_defaults(tmp_path, rng):
 
 
 def test_mesh_is_not_ported(tmp_path, rng):
+    """The row-sharded windowed-ELL operator is not ported: with a mesh,
+    "windowed" and "auto" (whose first choice JAX's is) raise, naming the
+    slice that ports it; so does auto_operator."""
     path = str(tmp_path / "a.npz")
     sp.save_npz(path, _random_sym(20, rng))
-    for call in (lambda: tio.operator_from_file(path, mesh=object(), **CPU),
+    for call in (lambda: tio.operator_from_file(path, format="windowed",
+                                                mesh=object(), **CPU),
+                 lambda: tio.operator_from_file(path, format="auto",
+                                                mesh=object(), **CPU),
                  lambda: tio.auto_operator(_random_sym(20, rng), mesh=object(),
                                            **CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1, multi-device"):
+        with pytest.raises(NotImplementedError, match="Queue 1, slice 12"):
             call()
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_operator_from_file_with_a_mesh(k, tmp_path, rng):
+    """format "halo"/"ell" builds this rank's HaloShardedEll and "gather"
+    its GatherShardedEll, the shards `dist_operator`'s builders give, on
+    the mesh's device; another format is a ValueError."""
+    from lanczos_tpu_torch.parallel import dist_operator as D
+    from lanczos_tpu_torch.parallel.mesh import Mesh
+
+    a = laplacian_2d_scipy(9, 8)
+    path = str(tmp_path / "a.mtx")
+    mmwrite(path, a)
+    for rank in range(k):
+        mesh = Mesh(rank, k, torch.device("cpu"), None)
+        for fmt in ("halo", "ell", "gather"):
+            op = tio.operator_from_file(path, format=fmt, mesh=mesh,
+                                        dtype=torch.float64)
+            if fmt == "gather":
+                assert type(op) is D.GatherShardedEll
+                data, idx, _ = D.gather_shard(a, k, rank, np.float64)
+            else:
+                assert type(op) is D.HaloShardedEll
+                data, idx, *_ = D.halo_shard(a, k, rank, np.float64)
+            assert op.mesh is mesh and op.data.device.type == "cpu"
+            np.testing.assert_array_equal(op.data.numpy(), data)
+            np.testing.assert_array_equal(op.indices.numpy(), idx)
+        with pytest.raises(ValueError, match="distributed format"):
+            tio.operator_from_file(path, format="csr", mesh=mesh)
 
 
 def _auto_cases(rng):

@@ -3,9 +3,9 @@ here as on the card's machine) against its NumPy paths and against the
 JAX package's engine (tests/test_native.py for the port).
 
 Tolerances:
-- `ell_from_csr` and the windowed planner: bit-equal to the port's NumPy
-  paths and to the JAX package's arrays (one rounding of the same f64 or
-  f32 value, the same grouping);
+- `ell_from_csr`, `halo_ell_from_csr` and the windowed planner: bit-equal
+  to the port's NumPy paths and to the JAX package's arrays (one rounding
+  of the same f64 or f32 value, the same grouping);
 - `maxwell_ell`: the column indices equal those of scipy's canonical
   `assemble_maxwell_A` -> `ell_from_scipy` bit for bit; its values are the
   taps' f64 product rounded once, so in f32 they equal the JAX engine's
@@ -155,6 +155,56 @@ def test_maxwell_ell_spmv_matches_jax():
     np.testing.assert_allclose(got, want, rtol=0, atol=2e-6 * np.abs(want).max())
 
 
+def _halo_case():
+    """A symmetric band of half-width 40 on 1001 rows with f64 values that
+    round in f32: on 4 shards rows_loc = 256 (pad rows 1001..1023) and the
+    halo is 40."""
+    rng = np.random.default_rng(9)
+    offs = [0, 1, -1, 17, -17, 40, -40]
+    a = sp.diags([rng.standard_normal(1001 - abs(o)) for o in offs], offs,
+                 format="csr")
+    return (a + a.T).tocsr()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_halo_ell_bit_equal_to_numpy_and_jax(dtype, monkeypatch):
+    """The engine's halo ELL, shard by shard and across shard boundaries,
+    equals the NumPy version (`packer="numpy"`) bit for bit, and in f32
+    the JAX engine's and the JAX NumPy loop's global arrays."""
+    from lanczos_tpu import native as jax_native
+    from lanczos_tpu.parallel import halo_sharded_ell, make_mesh
+    from lanczos_tpu_torch.parallel import dist_operator as D
+
+    a, k = _halo_case(), 4
+    shards = {p: [D.halo_shard(a, k, r, dtype, "none", p) for r in range(k)]
+              for p in ("native", "numpy")}
+    halo, rows = shards["native"][0][2], shards["native"][0][3]
+    assert (halo, rows) == (40, 256)
+    full = {p: [np.concatenate([s[i] for s in shards[p]]) for i in (0, 1)]
+            for p in shards}
+    for g, p in zip(full["native"], full["numpy"]):
+        assert g.dtype == p.dtype and g.shape == (k * rows, 7)
+        np.testing.assert_array_equal(g, p)
+    data, idx = full["native"]
+    assert not data[1001:].any() and (idx[1001:] == halo).all()
+    # a window of rows across the boundary of shards 1 and 2
+    part = native.halo_ell_from_csr(a.indptr, a.indices, a.data, 1001, 7, rows,
+                                    halo, dtype, row0=2 * rows - 3, rows_out=6)
+    np.testing.assert_array_equal(part[0], data[2 * rows - 3 : 2 * rows + 3])
+    np.testing.assert_array_equal(part[1], idx[2 * rows - 3 : 2 * rows + 3])
+    if dtype != np.float32:
+        return
+    engine = jax_native.halo_ell_from_csr(a.indptr, a.indices, a.data, 1001,
+                                          k * rows, 7, rows, halo)
+    assert engine is not None, "the JAX engine did not build"
+    np.testing.assert_array_equal(data, engine[0])
+    np.testing.assert_array_equal(idx, engine[1])
+    monkeypatch.setattr(jax_native, "halo_ell_from_csr", lambda *args: None)
+    loop = halo_sharded_ell(a, make_mesh(k), dtype=jnp.float32, reorder="none")
+    np.testing.assert_array_equal(data, np.asarray(loop.data))
+    np.testing.assert_array_equal(idx, np.asarray(loop.indices))
+
+
 def test_native_rejects_other_dtypes_and_bad_csr():
     a = laplacian_2d_scipy(4, 4).tocsr()
     with pytest.raises(TypeError, match="float32 or float64"):
@@ -163,6 +213,9 @@ def test_native_rejects_other_dtypes_and_bad_csr():
         native.window_pack_count(a.indptr[:-1], a.indices, 16)
     with pytest.raises(ValueError, match="packer"):
         tfmt.ell_from_scipy(a, packer="scipy", **CPU)
+    with pytest.raises(ValueError, match="row0=-1"):
+        native.halo_ell_from_csr(a.indptr, a.indices, a.data, 16, 5, 8, 4,
+                                 np.float32, row0=-1)
 
 
 _BUILD = (

@@ -45,13 +45,18 @@ LANCZOS_TOL = {("float64", "vector"): (1e-10, 1e-10),
 
 
 @pytest.fixture(scope="module")
-def ranks():
-    """k -> the k ranks' scenario results, one spawn per k, made once."""
+def ranks(tmp_path_factory):
+    """k -> the k ranks' scenario results, one spawn per k, made once; at
+    the repairs' world size the JAX package first writes a checkpoint for
+    the ranks to resume."""
     cache = {}
 
     def get(k):
         if k not in cache:
-            cache[k] = launch.run(cases.scenarios, k, device="cpu",
+            tmp = tmp_path_factory.mktemp(f"ranks{k}")
+            if k == cases.REPAIR_RANKS:
+                _jax_halo_checkpoint(str(tmp / cases.JAX_CK_FILE))
+            cache[k] = launch.run(cases.scenarios, k, str(tmp), device="cpu",
                                   timeout=SPAWN_TIMEOUT)
         return cache[k]
 
@@ -356,6 +361,17 @@ def test_mesh_collectives(k):
         right = 10.0 * (rank + 1) if rank < k - 1 else 0.0
         assert r["from_left"].tolist() == [left] * 3
         assert r["from_right"].tolist() == [right] * 3
+        # halo_window: rank r's rows of the global (2, 4k) state with h
+        # columns each side, zeros past the ends (k-hop for h > 4)
+        rows = cases.WINDOW_ROWS
+        glob = torch.cat([torch.arange(rows, dtype=torch.float64) + 10.0 * i + 1
+                          for i in range(k)])
+        for h in cases.WINDOW_HALOS:
+            padded = torch.cat([torch.zeros(h, dtype=torch.float64), glob,
+                                torch.zeros(h, dtype=torch.float64)])
+            want = padded[rank * rows : rank * rows + rows + 2 * h]
+            torch.testing.assert_close(r["windows"][h], torch.stack([want, -want]),
+                                       rtol=0, atol=0)
 
 
 def test_a_rank_exception_is_raised_in_the_parent():
@@ -388,17 +404,29 @@ def test_make_mesh_needs_a_process_group():
         make_mesh(1, device="cpu")
 
 
-def test_rank_functions_import_no_jax():
-    """The ranks import the port and tests/torch_parallel_cases.py only."""
+def test_rank_functions_import_no_jax(tmp_path):
+    """The ranks import the port and tests/torch_parallel_cases.py only;
+    the row-sharded ELL operators, io with a mesh and the native halo
+    packer run without pulling in jax either."""
     import subprocess
     import sys
 
+    import scipy.sparse as sp
+
+    path = str(tmp_path / "a.npz")
+    sp.save_npz(path, cases.laplacian_2d_scipy(6, 5).tocsr())
     code = ("import sys; import tests.torch_parallel_cases; "
             "import lanczos_tpu_torch.parallel.launch; "
+            "import torch; import lanczos_tpu_torch.parallel.dist_operator as D; "
+            "from lanczos_tpu_torch.io import operator_from_file; "
+            "from lanczos_tpu_torch.parallel.mesh import Mesh; "
+            "op = operator_from_file(sys.argv[1], format='halo', "
+            "mesh=Mesh(1, 2, torch.device('cpu'), None)); "
+            "assert type(op) is D.HaloShardedEll and op.halo == 6; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'lanczos_tpu.')) "
             "for m in sys.modules))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    out = subprocess.run([sys.executable, "-c", code], cwd=root, check=True,
+    out = subprocess.run([sys.executable, "-c", code, path], cwd=root, check=True,
                          capture_output=True, text=True, timeout=120).stdout
     assert out.strip() == "False"
 
@@ -455,3 +483,246 @@ def test_storage_trace_reads_jax_global_flat_index(k, ranks):
             r["float32"]["pack1"]) for rank, r in enumerate(res)]
         assert sum(float(v) for v in parts) == glued.reshape(-1)[i]
         assert sum(bool(v != 0) for v in parts) <= 1
+
+
+# -- the row-sharded ELL operators on the ranks ---------------------------------
+# (the rank side of tests/test_torch_dist_ell.py, which holds the in-process
+# tests: the shards run in this file's one spawn per world size)
+
+ELL_RTOL = {"float32": 1e-6, "float64": 1e-12}
+ELL_LANCZOS_RTOL = 1e-10  # of each array's scale, f64, against JAX
+JAX_DTYPES = {"float32": jnp.float32, "float64": jnp.float64}
+
+
+def _ell_local(k, rank, name, builder, dtype=torch.float64):
+    """Rank `rank`'s operator of a k-rank mesh, built here with no process
+    group (its pad_vector, unpad_shards and traces call no collective)."""
+    from lanczos_tpu_torch.parallel import dist_operator as D
+
+    mesh = Mesh(rank, k, torch.device("cpu"), None)
+    a, reorder = cases.ell_matrices()[name]
+    if builder == "halo":
+        return D.halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
+    return D.gather_sharded_ell(a, mesh, dtype=dtype)
+
+
+def _jax_ell(k, name, builder, dtype=jnp.float64, a=None):
+    from lanczos_tpu.parallel import gather_sharded_ell as jg
+    from lanczos_tpu.parallel import halo_sharded_ell as jh
+
+    mat, reorder = cases.ell_matrices()[name] if a is None else (a, "auto")
+    if builder == "halo":
+        return jh(mat, jax_make_mesh(k), dtype=dtype, reorder=reorder)
+    return jg(mat, jax_make_mesh(k), dtype=dtype)
+
+
+def _jax_halo_checkpoint(path):
+    """A JAX checkpointed block run on the 2-device mesh's halo ELL,
+    stopped at j = JAX_CK_STOPPED and grown to m = JAX_CK_M."""
+    from lanczos_tpu.methods import checkpoint as jax_ck
+
+    jop = _jax_ell(cases.REPAIR_RANKS, "laplacian", "halo")
+    _, B = cases.ell_start(jop.n_rows_true, torch.float64)
+    jax_ck.block_lanczos_checkpointed(
+        jop, jop.pad_vector(B.numpy()), cases.JAX_CK_STOPPED,
+        jop.local_index(cases.ELL_LC), chunk=cases.CK_CHUNK, path=path)
+    c = jax_ck.BlockLanczosCheckpoint.load(path)
+    for name in ("alphas", "betas", "trace"):
+        arr = getattr(c, name)
+        big = np.zeros((cases.JAX_CK_M,) + arr.shape[1:], arr.dtype)
+        big[: arr.shape[0]] = arr
+        setattr(c, name, big)
+    c.m = cases.JAX_CK_M
+    c.save(path)
+
+
+def _stitched(res, k, name, builder, dname, key):
+    shards = torch.stack([r["ell"]["products"][name, builder, dname][key]
+                          for r in res])
+    op = _ell_local(k, 0, name, builder, cases.DTYPES[dname])
+    return shards, op.unpad_shards(shards)
+
+
+@pytest.mark.parametrize("dname", DTYPES)
+@pytest.mark.parametrize("builder", list(cases.ELL_BUILDERS))
+@pytest.mark.parametrize("name", list(cases.ell_matrices()))
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_products_match_scipy_and_jax(k, name, builder, dname, ranks):
+    """mv and mm on the k ranks, stitched, against scipy's product (f64 to
+    1e-12 of scale, f32 to 1e-6) and the JAX operator's on make_mesh(k)."""
+    res = ranks(k)
+    a = cases.ell_matrices()[name][0]
+    b, B = cases.ell_start(a.shape[0], torch.float64)
+    jop = _jax_ell(k, name, builder, JAX_DTYPES[dname])
+    for key, x in (("mv", b), ("mm", B)):
+        _, got = _stitched(res, k, name, builder, dname, key)
+        _assert_scaled(got, (a @ x.numpy().T).T, ELL_RTOL[dname])
+        y = (jop.mv if key == "mv" else jop.mm)(jop.pad_vector(x.numpy()))
+        want = np.asarray(y)[..., : a.shape[0]]
+        if getattr(jop, "perm", None) is not None:
+            want = np.asarray(jop.unpad_vector(y))
+        _assert_scaled(got, want, ELL_RTOL[dname])
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_pad_rows_stay_exactly_zero(k, ranks):
+    """The last rank's rows past n are zero after every product."""
+    res = ranks(k)
+    for (name, builder, dname), r in res[-1]["ell"]["products"].items():
+        n = cases.ell_matrices()[name][0].shape[0]
+        past = k * r["rows_loc"] - n
+        for key in ("mv", "mm"):
+            tail = r[key][..., r["rows_loc"] - past :]
+            assert past >= 0 and not tail.any(), (name, builder, dname, key)
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_unpad_vector_round_trips_on_every_rank(k, ranks):
+    for r in ranks(k):
+        for (name, _, dname), got in r["ell"]["products"].items():
+            b, B = cases.ell_start(cases.ell_matrices()[name][0].shape[0],
+                                   cases.DTYPES[dname])
+            torch.testing.assert_close(got["roundtrip"], B, rtol=0, atol=0)
+            torch.testing.assert_close(got["roundtrip1"], b, rtol=0, atol=0)
+
+
+def test_ell_multihop_exchange_at_four_ranks(ranks):
+    """The arrow matrix on 4 ranks needs a halo of 3 shards: the k-hop
+    exchange ran (its products are checked above)."""
+    r = ranks(4)[0]["ell"]["products"]["arrow", "halo", "float64"]
+    assert -(-r["halo"] // r["rows_loc"]) >= 2
+    for k in (1, 2):
+        r = ranks(k)[0]["ell"]["products"]["arrow", "halo", "float64"]
+        assert r["halo"] <= r["rows_loc"]
+
+
+@pytest.mark.parametrize("kind", ["vector", "block"])
+@pytest.mark.parametrize("builder", list(cases.ELL_BUILDERS))
+@pytest.mark.parametrize("name", cases.ELL_LANCZOS)
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_lanczos_matches_jax(k, name, builder, kind, ranks):
+    """Vector (m=8) and block (p=3, m=4) Lanczos in f64 on the k ranks
+    against the JAX package's on the same operator on make_mesh(k), to
+    1e-10 of each array's scale; the receiver is local_index(lc)."""
+    from lanczos_tpu.methods.block_lanczos import block_lanczos as jax_block
+    from lanczos_tpu.methods.vector_lanczos import vector_lanczos as jax_vector
+
+    res = ranks(k)
+    jop = _jax_ell(k, name, builder)
+    b, B = cases.ell_start(jop.n_rows_true, torch.float64)
+    lc = jop.local_index(cases.ELL_LC) if builder == "halo" else cases.ELL_LC
+    if kind == "vector":
+        w = jax_vector(jop, jop.pad_vector(b.numpy()), cases.ELL_M, lc)
+    else:
+        w = jax_block(jop, jop.pad_vector(B.numpy()), cases.ELL_M // 2, lc)
+    want = (w.alphas, w.betas, w.trace, w.beta_final)
+    for r in res:
+        got = r["ell"]["lanczos"][name, builder][kind]
+        for g, x, what in zip(got, want, ("alphas", "betas", "trace", "beta_final")):
+            x = np.asarray(x)
+            np.testing.assert_allclose(
+                g.numpy(), x, rtol=0, err_msg=what,
+                atol=ELL_LANCZOS_RTOL * max(np.abs(x).max(), 1e-300))
+
+
+@pytest.mark.parametrize("builder", list(cases.ELL_BUILDERS))
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_eigsh_matches_scipy(k, builder, ranks):
+    """lanczos_eigsh (m=110, reorth full) top 4 on the 16 x 15 Laplacian,
+    to scipy's eigsh at rtol 1e-9 (tests/test_parallel.py:125-133), the
+    same on every rank."""
+    from scipy.sparse.linalg import eigsh
+
+    a = cases.laplacian_2d_scipy(*cases.EIGSH_GRID)
+    want = eigsh(a, k=cases.EIGSH_K, which="LA", return_eigenvectors=False)[::-1]
+    res = ranks(k)
+    for r in res:
+        np.testing.assert_allclose(r["ell"]["eigsh"][builder].numpy(), want, rtol=1e-9)
+        torch.testing.assert_close(r["ell"]["eigsh"][builder],
+                                   res[0]["ell"]["eigsh"][builder], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_ell_expm_action_at_receivers_on_every_shard(k, ranks):
+    """lanczos_expm_action (m=10, t=1) on the Maxwell halo ELL at
+    receivers on the first, a middle and the last shard, to 1e-7 of
+    scipy's expm (tests/test_parallel.py:136-149)."""
+    from scipy.linalg import expm
+
+    a = cases.ell_matrices()["maxwell"][0]
+    b, _ = cases.ell_start(a.shape[0], torch.float64)
+    exact = expm(cases.EXPM_T * a.toarray()) @ b.numpy()
+    op = _ell_local(k, 0, "maxwell", "halo")
+    lcs = cases.expm_receivers(op)
+    assert {op.local_index(lc) // op.rows_loc for lc in lcs} == {0, k // 2, k - 1}
+    for r in ranks(k):
+        assert sorted(r["ell"]["expm"]) == sorted(lcs)
+        for lc, sol in r["ell"]["expm"].items():
+            assert abs(float(sol) - exact[lc]) / abs(exact[lc]) < 1e-7
+
+
+# -- the repairs: checkpoints and Ritz residuals on a distributed operator --------
+
+CK_OPS = ("zslab", "halo")
+
+
+@pytest.mark.parametrize("kind", ["vector", "block", "fdtd"])
+@pytest.mark.parametrize("op_name", CK_OPS)
+def test_checkpointed_run_resumes_on_two_ranks(op_name, kind, ranks):
+    """vector/block Lanczos and FDTD, checkpointed on 2 ranks, stopped after
+    the first chunk and resumed, equal the monolithic distributed run
+    (fused=False; fdtd_block) to 1e-12 of scale, in one file."""
+    for r in ranks(cases.REPAIR_RANKS):
+        got = r["repairs"][op_name, kind]
+        assert got["files"] == ["ck.npz"]
+        first = cases.CK_CHUNK if kind == "fdtd" else 1 + cases.CK_CHUNK
+        assert got["stopped_at"] == first
+        pairs = [(got["got"], got["want"])] if kind == "fdtd" else zip(got["got"],
+                                                                      got["want"])
+        for g, w in pairs:
+            _assert_scaled(g, w, 1e-12)
+
+
+@pytest.mark.parametrize("op_name", CK_OPS)
+def test_ritz_residuals_global_on_two_ranks(op_name, ranks):
+    """ritz_residuals on 2 ranks: the same on both, and equal to the
+    single-device operator's on the gathered Ritz vectors."""
+    from lanczos_tpu_torch.methods.eigs import ritz_residuals
+    from lanczos_tpu_torch.models.maxwell import MaxwellOperator
+    from lanczos_tpu_torch.ops.formats import ell_from_scipy
+
+    res = [r["repairs"][op_name, "ritz"] for r in ranks(cases.REPAIR_RANKS)]
+    for r in res[1:]:
+        torch.testing.assert_close(r["resid"], res[0]["resid"], rtol=0, atol=0)
+        torch.testing.assert_close(r["vals"], res[0]["vals"], rtol=0, atol=0)
+    vals = res[0]["vals"]
+    if op_name == "halo":
+        a = cases.ell_matrices()["laplacian"][0]
+        single = ell_from_scipy(a, dtype=torch.float64, device="cpu")
+        vecs = torch.cat([r["vecs"] for r in res])[: a.shape[0]]
+    else:
+        single = MaxwellOperator.create(*cases.GRID, dtype=torch.float64, device="cpu")
+        dop = _dist_op(cases.REPAIR_RANKS)
+        slabs = torch.stack([r["vecs"].T.reshape((-1,) + dop.state_shape)
+                             for r in res])
+        vecs = dop.unpack_slabs(slabs).T
+    want = ritz_residuals(single, vals, vecs)
+    assert bool((want > 0).all())
+    np.testing.assert_allclose(res[0]["resid"].numpy(), want.numpy(), rtol=1e-10)
+
+
+def test_jax_written_checkpoint_resumes_on_two_ranks(ranks):
+    """A checkpoint the JAX package wrote on its 2-device halo ELL (global
+    layout (p, n_pad)) resumes on the port's 2 ranks and finishes equal to
+    JAX's uninterrupted run, to 1e-10 of scale."""
+    from lanczos_tpu.methods import checkpoint as jax_ck
+
+    jop = _jax_ell(cases.REPAIR_RANKS, "laplacian", "halo")
+    _, B = cases.ell_start(jop.n_rows_true, torch.float64)
+    want = jax_ck.block_lanczos_checkpointed(
+        jop, jop.pad_vector(B.numpy()), cases.JAX_CK_M,
+        jop.local_index(cases.ELL_LC))
+    for r in ranks(cases.REPAIR_RANKS):
+        got = r["repairs"]["jax_resumed"]
+        for g, w in zip(got, (want.alphas, want.betas, want.trace, want.beta_final)):
+            _assert_scaled(g, np.asarray(w), 1e-10)

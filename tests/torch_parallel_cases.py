@@ -7,16 +7,34 @@ and with the port's single-device operator.  The inputs come from numpy
 seeds, so every rank, and the test, makes the same ones.
 """
 
+import os
+
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 from lanczos_tpu_torch.methods import block_lanczos_fused
+from lanczos_tpu_torch.methods import checkpoint as ck
 from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
-from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
+from lanczos_tpu_torch.methods.eigs import (
+    block_lanczos_eigsh,
+    lanczos_eigsh,
+    ritz_residuals,
+)
+from lanczos_tpu_torch.methods.expm_action import (
+    block_lanczos_expm_action,
+    lanczos_expm_action,
+)
 from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
 from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
+from lanczos_tpu_torch.models.laplacian import laplacian_2d_scipy
+from lanczos_tpu_torch.models.maxwell import assemble_maxwell_A
 from lanczos_tpu_torch.ops.tsqr import tsqr_sharded
-from lanczos_tpu_torch.parallel import DistributedPallasMaxwell
+from lanczos_tpu_torch.parallel import (
+    DistributedPallasMaxwell,
+    gather_sharded_ell,
+    halo_sharded_ell,
+)
 from lanczos_tpu_torch.parallel.dist_stencil import slab_rows
 
 # z extent 30: with tz = 8 every rank of 1, 2 and 4 holds interior planes
@@ -78,9 +96,193 @@ def _refusal(call):
     return None
 
 
-def scenarios(mesh):
-    """Everything the test compares at one world size, in one spawn."""
+# -- the row-sharded ELL operators ------------------------------------------
+
+ELL_BUILDERS = {"halo": halo_sharded_ell, "gather": gather_sharded_ell}
+ELL_P, ELL_M, ELL_SEED = 3, 8, 13
+ELL_LC = 37  # a natural-order receiver
+# the f64 Lanczos cases against JAX, and the operators eigsh runs on
+ELL_LANCZOS = ("laplacian", "maxwell", "banded")
+EIGSH_GRID, EIGSH_M, EIGSH_K = (16, 15), 110, 4  # tests/test_parallel.py:122-133
+EXPM_M, EXPM_T = 10, 1.0
+# the repairs: checkpointed runs on this many ranks, stopped after a chunk
+REPAIR_RANKS, CK_M, CK_CHUNK, CK_STEPS = 2, 7, 3, 10
+JAX_CK_FILE, JAX_CK_STOPPED, JAX_CK_M = "jax_block.npz", 3, 6
+
+
+def ell_matrices():
+    """name -> (scipy matrix, reorder): a 2-D Laplacian (16 x 12), the
+    Maxwell operator at N=3 (its [E; H] order is not banded, so "auto"
+    applies RCM where the halo exceeds a shard), a random symmetric band
+    of half-width 4, and an arrow matrix without reordering (a halo of
+    several shards: k-hop exchanges at 4 ranks)."""
+    rng = np.random.default_rng(ELL_SEED)
+    n, offs = 150, list(range(-4, 5))
+    band = sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs)
+    arrow = sp.lil_matrix((256, 256))
+    arrow.setdiag(2.0)
+    arrow[0, :] = 1.0
+    arrow[:, 0] = 1.0
+    return {"laplacian": (laplacian_2d_scipy(16, 12).tocsr(), "auto"),
+            "maxwell": (assemble_maxwell_A(3, 3, 3), "auto"),
+            "banded": ((band + band.T).tocsr(), "auto"),
+            "arrow": (arrow.tocsr(), "none")}
+
+
+def ell_start(n: int, dtype):
+    """(b, B): a natural-order start vector and ELL_P-column block."""
+    rng = np.random.default_rng(ELL_SEED)
+    return (torch.from_numpy(rng.standard_normal(n)).to(dtype),
+            torch.from_numpy(rng.standard_normal((ELL_P, n))).to(dtype))
+
+
+def ell_op(mesh, name, builder, dtype=torch.float64):
+    a, reorder = ell_matrices()[name]
+    if builder == "halo":
+        return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
+    return gather_sharded_ell(a, mesh, dtype=dtype)
+
+
+def expm_receivers(op) -> list[int]:
+    """Natural-order receivers whose rows lie on the first, a middle and
+    the last shard of op's mesh."""
+    k, rows, n = op.mesh.size, op.rows_loc, op.n_rows_true
+    perm = np.arange(n) if op.perm is None else op.perm
+    return [int(perm[i]) for i in (1, (k // 2) * rows + rows // 3, n - 1)]
+
+
+def ell_scenarios(mesh):
+    """The row-sharded ELL operators on this mesh: products, round trips,
+    Lanczos, eigsh and expm."""
+    out = {"products": {}, "lanczos": {}, "eigsh": {}}
+    mats = ell_matrices()
+    for name, (a, _) in mats.items():
+        for builder in ELL_BUILDERS:
+            for dname, dtype in DTYPES.items():
+                op = ell_op(mesh, name, builder, dtype)
+                b, B = ell_start(a.shape[0], dtype)
+                out["products"][name, builder, dname] = {
+                    "mv": op.mv(op.pad_vector(b)), "mm": op.mm(op.pad_vector(B)),
+                    "roundtrip": op.unpad_vector(op.pad_vector(B)),
+                    "roundtrip1": op.unpad_vector(op.pad_vector(b)),
+                    "halo": op.halo, "rows_loc": op.rows_loc}
+    for name in ELL_LANCZOS:
+        for builder in ELL_BUILDERS:
+            op = ell_op(mesh, name, builder)
+            b, B = ell_start(op.n_rows_true, torch.float64)
+            lc = op.local_index(ELL_LC)
+            v = vector_lanczos(op, op.pad_vector(b), ELL_M, lc)
+            w = block_lanczos(op, op.pad_vector(B), ELL_M // 2, lc)
+            out["lanczos"][name, builder] = {
+                "vector": (v.alphas, v.betas, v.trace, v.beta_final),
+                "block": (w.alphas, w.betas, w.trace, w.beta_final)}
+    lap = laplacian_2d_scipy(*EIGSH_GRID).tocsr()
+    b = torch.from_numpy(np.random.default_rng(ELL_SEED).standard_normal(lap.shape[0]))
+    for builder, build in ELL_BUILDERS.items():
+        op = build(lap, mesh, dtype=torch.float64)
+        vals, _, _ = lanczos_eigsh(op, op.pad_vector(b), EIGSH_M, EIGSH_K,
+                                   which="LA", reorth="full")
+        out["eigsh"][builder] = vals
+    op = ell_op(mesh, "maxwell", "halo")
+    b, _ = ell_start(op.n_rows_true, torch.float64)
+    lcs = expm_receivers(op)
+    out["expm"] = {lc: lanczos_expm_action(op, op.pad_vector(b), EXPM_M, EXPM_T,
+                                           op.local_index(lc)) for lc in lcs}
+    return out
+
+
+class StopAfterFirstChunk(Exception):
+    pass
+
+
+def _stopping_after_first_save(real):
+    """`_Sharding.write` that raises on every rank once its first save is in
+    place: the run stops after one chunk, as a killed job would."""
+    calls = []
+
+    def write(self, save):
+        if calls:
+            raise StopAfterFirstChunk
+        calls.append(1)
+        return real(self, save)
+
+    return write
+
+
+def _stopped_then_resumed(run, path):
+    real = ck._Sharding.write
+    ck._Sharding.write = _stopping_after_first_save(real)
+    try:
+        run(path)
+        raise AssertionError("the checkpointed run did not stop")
+    except StopAfterFirstChunk:
+        pass
+    finally:
+        ck._Sharding.write = real
+    with np.load(path) as z:
+        stopped_at = int(z["j"] if "j" in z else z["step"])
+    return stopped_at, run(path)
+
+
+def _result(r):
+    return (r.alphas, r.betas, r.trace, r.beta_final)
+
+
+def repairs(mesh, tmp):
+    """The checkpointed drivers and ritz_residuals on a distributed
+    operator: each checkpointed run is stopped after its first chunk and
+    resumed (one directory a run), beside the monolithic fused=False run."""
     out = {}
+    zslab = DistributedPallasMaxwell.create(*GRID, mesh, dtype=torch.float64)
+    b, B = start(zslab.n, torch.float64)
+    c, z, ps = zslab.state_index(LC)
+    lc_slab = int(np.ravel_multi_index((c, z, ps), (6, mesh.size * zslab.spec_e.zc,
+                                                     zslab.spec_e.plane)))
+    halo = ell_op(mesh, "laplacian", "halo")
+    hb, hB = ell_start(halo.n_rows_true, torch.float64)
+    ops = {"zslab": (zslab, zslab.pack(b), zslab.pack(B), lc_slab),
+           "halo": (halo, halo.pad_vector(hb), halo.pad_vector(hB),
+                    halo.local_index(ELL_LC))}
+    for name, (op, u, U, lc) in ops.items():
+        runs = {
+            "vector": (lambda p, op=op, u=u, lc=lc: ck.vector_lanczos_checkpointed(
+                op, u, CK_M, lc, chunk=CK_CHUNK, path=p),
+                lambda: vector_lanczos(op, u, CK_M, lc, fused=False)),
+            "block": (lambda p, op=op, U=U, lc=lc: ck.block_lanczos_checkpointed(
+                op, U, CK_M, lc, chunk=CK_CHUNK, path=p),
+                lambda: block_lanczos(op, U, CK_M, lc, fused=False)),
+            "fdtd": (lambda p, op=op, U=U: ck.fdtd_checkpointed(
+                op, U, CK_STEPS, 0.1, chunk=CK_CHUNK, path=p, block=True),
+                lambda: fdtd_block(op, U, CK_STEPS, 0.1)),
+        }
+        for kind, (chunked, whole) in runs.items():
+            d = os.path.join(tmp, f"{name}-{kind}")
+            if mesh.rank == 0:
+                os.makedirs(d)
+            mesh.barrier()
+            stopped_at, got = _stopped_then_resumed(chunked, os.path.join(d, "ck.npz"))
+            want = whole()
+            if kind != "fdtd":
+                got, want = _result(got), _result(want)
+            out[name, kind] = {"got": got, "want": want, "stopped_at": stopped_at,
+                               "files": sorted(os.listdir(d))}
+        vals, vecs, _ = block_lanczos_eigsh(op, U, CK_M, 2, compute_vectors=True)
+        out[name, "ritz"] = {"vals": vals, "vecs": vecs,
+                             "resid": ritz_residuals(op, vals, vecs)}
+    jax_file = os.path.join(tmp, JAX_CK_FILE)
+    if os.path.exists(jax_file):  # written by the JAX package before the spawn
+        out["jax_resumed"] = _result(ck.block_lanczos_checkpointed(
+            halo, halo.pad_vector(hB), JAX_CK_M, halo.local_index(ELL_LC),
+            chunk=CK_CHUNK, path=jax_file))
+    return out
+
+
+def scenarios(mesh, tmp=None):
+    """Everything the test compares at one world size, in one spawn; tmp is
+    a directory every rank can reach (the checkpoint repairs)."""
+    out = {"ell": ell_scenarios(mesh)}
+    if mesh.size == REPAIR_RANKS and tmp is not None:
+        out["repairs"] = repairs(mesh, tmp)
     for name, dtype in DTYPES.items():
         op = DistributedPallasMaxwell.create(*GRID, mesh, dtype=dtype)
         b, B = start(op.n, dtype)
@@ -172,12 +374,18 @@ def sleep(mesh, seconds):
     return mesh.rank
 
 
+WINDOW_ROWS, WINDOW_HALOS = 4, (0, 1, 4, 6, 9)  # 1, 1, 2 and 3 hops
+
+
 def describe(mesh):
     """The mesh as the rank sees it, and its collectives on rank-made data."""
     lo = torch.full((3,), 10.0 * mesh.rank)
     from_left, from_right = mesh.exchange(lo, lo + 1)
+    rows = torch.arange(WINDOW_ROWS, dtype=torch.float64) + 10.0 * mesh.rank + 1
+    block = torch.stack([rows, -rows])  # (2, WINDOW_ROWS), block-major
     return {"rank": mesh.rank, "size": mesh.size, "device": str(mesh.device),
             "gather": mesh.all_gather(torch.tensor([float(mesh.rank)])),
             "sum": mesh.all_reduce_(torch.full((2,), float(mesh.rank + 1))),
             "any": mesh.any(mesh.rank == mesh.size - 1), "none": mesh.any(False),
-            "from_left": from_left, "from_right": from_right}
+            "from_left": from_left, "from_right": from_right,
+            "windows": {h: mesh.halo_window(block, h) for h in WINDOW_HALOS}}
