@@ -61,7 +61,29 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    measured residuals under 1e-3; the block eigsh at
    262,144 rows against scipy's eigsh (top-5 to 1e-4), and a .mtx round
    trip through `operator_from_file(format="windowed")`;
-8b. multidevice ell (the row-sharded ELL operators,
+8b. multidevice windowed (the row-sharded windowed-ELL operator,
+   `lanczos_tpu_torch/parallel/dist_windowed.py`, on the assembled slice's
+   matrix, f32, p=8): its 4 `HaloShardedWindowed` shards (halo 4999, one
+   hop, strips of 2,654,208) planned in this process on the one card,
+   each work strip's halo slots filled by hand from its neighbours' rows,
+   K8 on each, the products stitched and held to phase 4's single-device
+   K8 product (KERNEL_RTOL; bit-equality reported), every halo slot and
+   pad row exactly zero, each shard's K8 against its plain version; each
+   shard's K8 and its work copy timed (an interior shard also against its
+   plain version, its bound and cuSPARSE on its CSR rows); JAX's
+   test_matches_single_chip_windowed matrix (n=900, band 300) on 4
+   shards of 256 rows (halo 288, 2 hops) against scipy; then world size
+   1 through `launch.run` on NCCL: the assembled slice's
+   `block_lanczos_eigsh` on `HaloShardedWindowed` with its start block,
+   K8 exactly 12 times in the recurrence and 13 in all and no other
+   kernel (counts read from 0 in the rank, and added to the kernels
+   line), Ritz values within EIGSH_RTOL of phase 8's, measured residuals
+   under 1e-3; a `block_lanczos_checkpointed` run stopped after its first
+   chunk and resumed, against `block_lanczos(fused=False)`;
+   `operator_from_file(mesh=, format="windowed"/"auto")` and
+   `auto_operator(mesh=)` on a small .mtx; the dry run's three steps
+   (`parallel/dryrun.py`);
+8c. multidevice ell (the row-sharded ELL operators,
    `lanczos_tpu_torch/parallel/dist_operator.py`, on the assembled slice's
    matrix, f32, p=8): its 4 `halo_shard`s (halo 4999, one hop) built in
    this process on the one card, each window filled by hand from its
@@ -107,8 +129,10 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     `kernel_bench --only copy_bw,spmm_stencil,block_mix,block_grams`
     (--rows 4,000,000, --grid 96, --rows-copy 8,000,000; its roofline
     guard on), `sweep_lanczos` block p=4 at N = 64 and 80, `convergence`
-    (N=3, f64, m <= 6, 100,000 FDTD steps: K5 and K1 in f64) and
-    `suitesparse_scale` at 262,144 rows (m=12, p=8: K8), each with its
+    (N=3, f64, m <= 6, 100,000 FDTD steps: K5 and K1 in f64),
+    `suitesparse_scale` at 262,144 rows (m=12, p=8: K8) with `--dist`
+    (the windowed operator on every card, at most 8) and `tune_windowed`
+    at 1,048,576 rows (K8 on the 12 cpb x spg plans), each with its
     launch counts and its own checks;
 15. multidevice (the z-slab layer, `lanczos_tpu_torch/parallel`): K1 on
     each of 4 z-slabs of the N=160 p=4 state, built in this process on the
@@ -193,6 +217,7 @@ DRIVER_CONVERGENCE_STEPS, DRIVER_CONVERGENCE_M = 100_000, 6
 # the convergence driver at 10^5 steps: m >= 5 sits on the oracle's
 # forward-Euler floor, ~10x the 10^6-step curve's 1.7e-9
 DRIVER_CONVERGENCE_BOUND = 1e-7
+DRIVER_TUNE_ROWS = 1_048_576
 # the card's published peaks (NVIDIA's H100 SXM data sheet, at 700 W):
 # device memory, and the non-tensor-core rate for each type of operation
 HBM_BYTES_PER_S = 3.35e12
@@ -1588,11 +1613,21 @@ def phase_drivers(torch, build, results, failures):
         failures.append(f"convergence: rows {rows}, launches {launches}")
 
     out, launches = run_driver(torch, build, results, "suitesparse_scale", [
-        "--rows", str(N_ASSEMBLED_SMALL)])
+        "--rows", str(N_ASSEMBLED_SMALL), "--dist"])
     if not (max(out["measured_resid"]) < RESID_BOUND and len(out["top_ritz"]) == K_ASSEMBLED
-            and out["mtx_roundtrip"] and launches["windowed_spmm"] > 0):
+            and out["mtx_roundtrip"] and launches["windowed_spmm"] > 0
+            and out["dist_devices"] == min(torch.cuda.device_count(), 8)
+            and out["dist_spmm_nnz_per_s"] > 0):
         failures.append(f"suitesparse_scale: measured residuals "
-                        f"{out['measured_resid']}, launches {launches}")
+                        f"{out['measured_resid']}, dist {out.get('dist_devices')} "
+                        f"ranks at {out.get('dist_spmm_nnz_per_s')} nnz*col/s, "
+                        f"launches {launches}")
+
+    rows, launches = run_driver(torch, build, results, "tune_windowed", [
+        "--rows", str(DRIVER_TUNE_ROWS)])
+    timed = [r for r in rows if "seconds" in r]
+    if len(rows) != 12 or not timed or launches["windowed_spmm"] <= 0:
+        failures.append(f"tune_windowed: rows {rows}, launches {launches}")
 
 
 def multidevice_rank(mesh):
@@ -1767,6 +1802,306 @@ def phase_multidevice(torch, build, results, failures):
     except ValueError as e:
         log(f"  --devices {too_many} on {too_many - 1} card(s): ValueError ({e})")
     log("  nvidia-smi:", nvidia_smi_line())
+
+
+def windowed_rank(mesh, ritz, tmp):
+    """One rank of the multidevice windowed phase (spawned by
+    `launch.run`): the assembled slice's eigsh on `HaloShardedWindowed`,
+    its launch counts read from 0 around it (K8 only), a checkpointed
+    block run stopped after its first chunk and resumed against the
+    uninterrupted fused=False run, io with a mesh on a small .mtx, and the
+    dry run's three steps.  The matrix is rebuilt here from its seed;
+    `ritz` are the assembled slice's K8 values; `tmp` a directory."""
+    import numpy as np
+    import torch
+    from scipy.io import mmwrite
+
+    from lanczos_tpu_torch.io import auto_operator, operator_from_file
+    from lanczos_tpu_torch.methods import checkpoint as ck
+    from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh, ritz_residuals
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.kernels import build
+    from lanczos_tpu_torch.parallel import halo_sharded_windowed
+    from lanczos_tpu_torch.parallel.dryrun import dryrun_rank
+
+    out = {}
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(N_ASSEMBLED)
+    out["matrix_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = halo_sharded_windowed(a, mesh)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    x = np.random.default_rng(0).standard_normal(
+        (P_ASSEMBLED, a.shape[0])).astype(np.float32)
+    b = op.pad_vector(torch.from_numpy(x))
+    del x
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    vals, vecs, bounds = block_lanczos_eigsh(
+        op, b, M_ASSEMBLED, K_ASSEMBLED, which="LA", reorth="full",
+        normalize="qr", breakdown_eps=1e-4, replace_dead=True,
+        eig_backend="newton", compute_vectors=True)
+    torch.cuda.synchronize()
+    out["eigsh_s"] = time.perf_counter() - t0
+    out["in_recurrence"] = build.LAUNCHES["windowed_spmm"]
+    resid = ritz_residuals(op, vals, vecs)
+    torch.cuda.synchronize()
+    out["launches"] = dict(build.LAUNCHES)
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    ritz = torch.tensor(ritz, dtype=torch.float64)
+    out.update(vals=vals, resid=resid, bounds=bounds,
+               ritz_rel=((vals.double().cpu() - ritz).abs() / ritz.abs()).max().item(),
+               halo=op.halo, rows_loc=op.rows_loc, n128=op.n128)
+    del vecs
+    out["mm_ms"] = cuda_ms(torch, lambda: op.mm(b))
+
+    ref = block_lanczos(op, b, M_CHECKPOINT, 0, fused=False)
+    path = os.path.join(tmp, "ck.npz")
+    real = ck._Sharding.write
+    calls = []
+
+    def stop_after_first(self, save):
+        if calls:
+            raise StopAfterFirstChunk
+        calls.append(1)
+        return real(self, save)
+
+    ck._Sharding.write = stop_after_first
+    try:
+        ck.block_lanczos_checkpointed(op, b, M_CHECKPOINT, 0,
+                                      chunk=CHUNK_CHECKPOINT, path=path)
+        out["stopped"] = False
+    except StopAfterFirstChunk:
+        out["stopped"] = True
+    finally:
+        ck._Sharding.write = real
+    with np.load(path) as z:
+        out["stopped_at"] = int(z["j"])
+    got = ck.block_lanczos_checkpointed(op, b, M_CHECKPOINT, 0,
+                                        chunk=CHUNK_CHECKPOINT, path=path)
+    out["resumed"] = {name: (compare(torch, getattr(got, name), getattr(ref, name),
+                                     KERNEL_RTOL["float32"]),
+                             torch.equal(getattr(got, name), getattr(ref, name)))
+                      for name in ("alphas", "betas", "trace", "beta_final")}
+    del op, b, ref, got
+    torch.cuda.empty_cache()
+
+    mtx = os.path.join(tmp, "slab.mtx")
+    mmwrite(mtx, a[:2000, :2000].tocoo())
+    out["io"] = [type(operator_from_file(mtx, format=f, mesh=mesh)).__name__
+                 for f in ("windowed", "auto")]
+    out["io"].append(type(auto_operator(a[:2000, :2000], mesh=mesh)).__name__)
+    del a
+    t0 = time.perf_counter()
+    dry = dryrun_rank(mesh)
+    out["dryrun_s"] = time.perf_counter() - t0
+    out["dryrun_top"] = (float(dry["vals"][0]), float(dry["vals_w"][0]))
+    return out
+
+
+def windowed_shards_by_hand(torch, a, n_dev, X, **kw):
+    """Every rank's `HaloShardedWindowed` of a on n_dev ranks, built in
+    this process on the card (a `Mesh` with no process group), the ranks'
+    state strips of the natural-order (p, n) X, and their work strips:
+    each strip's halo slots filled by hand from its neighbours' rows (what
+    `Mesh.halo_strips` moves between cards).  (ops, strips, works, build
+    seconds)."""
+    from lanczos_tpu_torch.parallel import halo_sharded_windowed
+    from lanczos_tpu_torch.parallel.mesh import Mesh
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ops = [halo_sharded_windowed(a, Mesh(rank, n_dev, dev, None), **kw)
+           for rank in range(n_dev)]
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if ops[0].perm is not None:
+        raise RuntimeError("the by-hand shards assume no reordering")
+    h, rl = ops[0].halo, ops[0].rows_loc
+    n = X.shape[1]
+    strips = [op.pad_vector(X) for op in ops]
+    ext = torch.cat([X.new_zeros((X.shape[0], h)), X,
+                     X.new_zeros((X.shape[0], n_dev * rl - n + h))], dim=1)
+    works = []
+    for rank, strip in enumerate(strips):
+        work = strip.clone()
+        work[:, : rl + 2 * h] = ext[:, rank * rl : rank * rl + rl + 2 * h]
+        works.append(work)
+    return ops, strips, works, build_s
+
+
+def strip_outside_rows(op, y, rank):
+    """y's entries outside this rank's rows of the matrix: its halo slots,
+    the last rank's rows past n and the pad."""
+    rows = max(0, min(op.rows_loc, op.n_rows_true - rank * op.rows_loc))
+    outside = y.clone()
+    outside[:, op.halo : op.halo + rows] = 0
+    return outside
+
+
+def phase_multidevice_windowed(torch, build, results, failures, assembled):
+    """The row-sharded windowed-ELL operator on the assembled slice's
+    matrix: four shards by hand in this process, K8 on each, against the
+    single-device K8 and each shard's plain version; a two-hop case
+    against scipy; then world size 1 through launch.run on NCCL
+    (`windowed_rank`).  Leaves the matrix, its plan and the Ritz values
+    to the multidevice ell phase."""
+    import tempfile
+
+    import numpy as np
+
+    from lanczos_tpu_torch.ops.kernels.window_ell import (
+        windowed_spmm,
+        windowed_spmm_plain,
+    )
+    from lanczos_tpu_torch.parallel import launch
+
+    dev = torch.device("cuda")
+    a, A, ritz = assembled["a"], assembled["A"], assembled["ritz"]
+    n = a.shape[0]
+    x = np.random.default_rng(2).standard_normal((P_ASSEMBLED, n)).astype(np.float32)
+    X = torch.from_numpy(x).to(dev)
+    del x
+    k8 = windowed_spmm(A, A.pack(X))[:, :n].clone()
+    ops, strips, works, build_s = windowed_shards_by_hand(torch, a, MULTI_SLABS, X)
+    h, rl = ops[0].halo, ops[0].rows_loc
+    outs = [op.local.padded_mm(w) for op, w in zip(ops, works)]
+    got = ops[0].unpad_shards(torch.stack(outs))
+    err, rel, ok = compare(torch, got, k8, KERNEL_RTOL["float32"])
+    outside = any(bool(strip_outside_rows(op, y, r).any())
+                  for r, (op, y) in enumerate(zip(ops, outs)))
+    log(f"  {MULTI_SLABS} windowed shards of {rl} rows (halo {h}, "
+        f"{-(-h // rl)} hop(s), strip {ops[0].n128}; ppc "
+        f"{[op.local.ppc for op in ops]}, wsz {[op.local.wsz for op in ops]}), "
+        f"planned on the host in {build_s:.2f} s, work strips by hand: stitched "
+        f"vs the single-device K8 rel {rel:.2e} (tol {KERNEL_RTOL['float32']:.0e}, "
+        f"bit-equal {torch.equal(got, k8)}); halo slots and pad rows nonzero "
+        f"{outside}")
+    if not ok or outside:
+        failures.append(f"multidevice windowed: shards vs K8 {rel}, halo/pad "
+                        f"nonzero {outside}")
+    for r, (op, w, y) in enumerate(zip(ops, works, outs)):
+        e, rel_p, ok_p = compare(torch, y, windowed_spmm_plain(op.local, w),
+                                 KERNEL_RTOL["float32"])
+        log(f"  K8 shard {r} vs plain: max_abs_err {e:.3e} rel {rel_p:.3e} "
+            f"{'ok' if ok_p else 'FAIL'}")
+        if not ok_p:
+            failures.append(f"multidevice windowed: shard {r}'s K8 disagrees "
+                            "with its plain version")
+    del got, k8, outs
+    # each shard's K8 and its work copy, timed; the plain version and
+    # cuSPARSE on the shard's own CSR rows over the window beside them
+    for r, (op, strip, w) in enumerate(zip(ops, strips, works)):
+        L = op.local
+        buf = torch.empty_like(w)
+        ms = cuda_ms(torch, lambda: windowed_spmm(L, w, buf))
+        copy_ms = cuda_ms(torch, lambda: strip.clone())
+        line = (f"  row: K8 shard {r} of {MULTI_SLABS} p={P_ASSEMBLED}: {ms:.4f} ms, "
+                f"work copy {copy_ms:.4f} ms")
+        if r == 1:  # an interior shard: its plain version, bound and library
+            plain_ms = cuda_ms(torch, lambda: windowed_spmm_plain(L, w), iters=3)
+            lo = r * rl
+            blk = a[lo : min(lo + rl, n)]
+            csr = torch.sparse_csr_tensor(
+                torch.from_numpy(blk.indptr.astype(np.int64)).to(dev),
+                torch.from_numpy(blk.indices.astype(np.int64) - (lo - h)).to(dev),
+                torch.from_numpy(blk.data).to(dev), size=(blk.shape[0], rl + 2 * h))
+            win = w[:, : rl + 2 * h]
+            lib_ms = min(cuda_ms(torch, lambda xt=xt: torch.sparse.mm(csr, xt))
+                         for xt in (win.T.contiguous(), win.T))
+            nbytes = (sum(t.numel() * t.element_size() for t in
+                          (L.planes_data, L.planes_lidx, L.planes_off, L.wb))
+                      + 2 * w.numel() * w.element_size())
+            bound_ms, by = bound(nbytes, 2 * blk.nnz * P_ASSEMBLED, "float32")
+            line += (f"; {nbytes / 1e6:.1f} MB/call, bound {bound_ms:.4f} ms ({by}), "
+                     f"plain {plain_ms:.4f} ms, cuSPARSE on the shard's CSR "
+                     f"{lib_ms:.4f} ms ({blk.nnz} nnz)")
+            del csr, win
+        log(line)
+    log(f"  row: K8 whole matrix p={P_ASSEMBLED}: "
+        f"{results['rows']['windowed_spmm']['ms']:.4f} ms")
+    del ops, strips, works, X
+    torch.cuda.empty_cache()
+    two_hops_case(torch, failures)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (r,) = launch.run(windowed_rank, 1, [float(v) for v in ritz], tmp,
+                          device="cuda", timeout=600)
+        wall = time.perf_counter() - t0
+    results.setdefault("launches", {})["multidevice windowed"] = r["launches"]
+    vals, resid = r["vals"].numpy(), r["resid"].numpy()
+    log(f"  world size 1 through launch.run (NCCL): {wall:.1f} s; in the rank: "
+        f"matrix {r['matrix_s']:.2f} s, shard planned {r['shard_s']:.2f} s (halo "
+        f"{r['halo']}, {r['rows_loc']} rows, strip {r['n128']})")
+    log(f"  eigsh p={P_ASSEMBLED} m={M_ASSEMBLED} k={K_ASSEMBLED} on "
+        f"HaloShardedWindowed: launches {r['launches']} ({r['in_recurrence']} in "
+        f"the recurrence); Ritz {vals.tolist()}, vs the K8 run's max rel "
+        f"{r['ritz_rel']:.2e} (tol {EIGSH_RTOL:g}); measured residuals "
+        f"{resid.tolist()} (bound {RESID_BOUND:g})")
+    log(f"  row: eigsh wall {r['eigsh_s']:.3f} s on HaloShardedWindowed; peak "
+        f"device memory {r['peak_gib']:.2f} GiB; its product p={P_ASSEMBLED} "
+        f"{r['mm_ms']:.4f} ms")
+    same = {k: v[1] for k, v in r["resumed"].items()}
+    log(f"  checkpointed block run (m={M_CHECKPOINT}, chunk {CHUNK_CHECKPOINT}) "
+        f"stopped at j={r['stopped_at']} and resumed vs fused=False: bit-equal "
+        f"{same}")
+    log(f"  io with a mesh (windowed, auto, auto_operator): {r['io']}; dry run "
+        f"{r['dryrun_s']:.2f} s, top Ritz halo ELL / windowed {r['dryrun_top']}")
+    log("  nvidia-smi:", nvidia_smi_line())
+    others = {k: c for k, c in r["launches"].items() if c and k != "windowed_spmm"}
+    if r["in_recurrence"] != M_ASSEMBLED or r["launches"]["windowed_spmm"] != M_ASSEMBLED + 1 or others:
+        failures.append(f"multidevice windowed: launches {r['launches']} "
+                        f"({r['in_recurrence']} in the recurrence), expected K8 "
+                        f"{M_ASSEMBLED} and {M_ASSEMBLED + 1} and nothing else")
+    if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
+            and np.all(resid < RESID_BOUND)):
+        failures.append(f"multidevice windowed: Ritz {vals} (rel {r['ritz_rel']}), "
+                        f"residuals {resid}")
+    if not (r["stopped"] and r["stopped_at"] == 1 + CHUNK_CHECKPOINT
+            and all(v[0][2] for v in r["resumed"].values())):
+        failures.append(f"multidevice windowed: checkpoint resume {r['resumed']}, "
+                        f"stopped {r['stopped']} at {r['stopped_at']}")
+    if r["io"] != ["HaloShardedWindowed"] * 3:
+        failures.append(f"multidevice windowed: io with a mesh built {r['io']}")
+
+
+def two_hops_case(torch, failures):
+    """JAX's test_matches_single_chip_windowed matrix (n=900, a random band
+    of half-width 300 over a 30 x 30 Laplacian) on 4 windowed shards of
+    256 rows by hand: a halo of 2 hops; against scipy's f64 product, the
+    halo slots and pads zero."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from lanczos_tpu_torch.models.laplacian import laplacian_2d_scipy
+
+    n = 900
+    d = sp.random(n, n, density=0.002, random_state=3, format="coo")
+    keep = np.abs(d.row - d.col) <= 300
+    d = sp.coo_matrix((d.data[keep], (d.row[keep], d.col[keep])), shape=(n, n))
+    a = (laplacian_2d_scipy(30, 30) + d + d.T).tocsr().astype(np.float32)
+    x = np.random.default_rng(3).standard_normal((3, n))
+    X = torch.from_numpy(x).float().cuda()
+    ops, _, works, _ = windowed_shards_by_hand(torch, a, MULTI_SLABS, X, cpb=2,
+                                               spg=2, reorder="none")
+    outs = [op.local.padded_mm(w) for op, w in zip(ops, works)]
+    y = ops[0].unpad_shards(torch.stack(outs))
+    err, rel, ok = compare(torch, y.cpu(), torch.from_numpy((a.astype(np.float64) @ x.T).T),
+                           K8_SCIPY_RTOL)
+    hops = -(-ops[0].halo // ops[0].rows_loc)
+    outside = any(bool(strip_outside_rows(op, o, r).any())
+                  for r, (op, o) in enumerate(zip(ops, outs)))
+    log(f"  two-hop case: n={n} on {MULTI_SLABS} shards of {ops[0].rows_loc} rows, "
+        f"halo {ops[0].halo} ({hops} hops): vs scipy rel {rel:.2e}; halo slots and "
+        f"pads nonzero {outside}")
+    if not ok or hops != 2 or outside:
+        failures.append(f"multidevice windowed: two-hop case rel {rel}, hops "
+                        f"{hops}, halo/pad nonzero {outside}")
 
 
 def ell_rank(mesh, ritz, path):
@@ -2049,6 +2384,9 @@ def main() -> int:
         ("assembled slice",
          lambda: phase_assembled_slice(torch, build, results, failures,
                                        assembled)),
+        ("multidevice windowed",
+         lambda: phase_multidevice_windowed(torch, build, results, failures,
+                                            assembled)),
         ("multidevice ell",
          lambda: phase_multidevice_ell(torch, build, results, failures,
                                        assembled)),

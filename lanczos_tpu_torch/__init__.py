@@ -22,8 +22,9 @@ CLI (`python -m lanczos_tpu_torch [--vector] [--operator pallas|ell]
 (`native/`), and the multi-device layer (`parallel/`: `make_mesh`, one
 process a device on `torch.distributed`, the z-slab
 `DistributedPallasMaxwell`, `tsqr_sharded`, and the row-sharded
-assembled-matrix operators `HaloShardedEll` and `GatherShardedEll`).
-Not ported yet: the row-sharded windowed-ELL operator.
+assembled-matrix operators `HaloShardedWindowed` (K8 on every shard),
+`HaloShardedEll` and `GatherShardedEll`).  Not ported yet: bf16
+folded-plane states.
 Builders put their buffers on "cuda" unless given another device.
 
 The names below load lazily, as in the JAX package: `from
@@ -68,8 +69,10 @@ _API = {
     "PallasMaxwellOperator": "lanczos_tpu_torch.models.maxwell_pallas",
     "DistributedPallasMaxwell": "lanczos_tpu_torch.parallel",
     "make_mesh": "lanczos_tpu_torch.parallel",
+    "HaloShardedWindowed": "lanczos_tpu_torch.parallel",
     "HaloShardedEll": "lanczos_tpu_torch.parallel",
     "GatherShardedEll": "lanczos_tpu_torch.parallel",
+    "halo_sharded_windowed": "lanczos_tpu_torch.parallel",
     "halo_sharded_ell": "lanczos_tpu_torch.parallel",
     "gather_sharded_ell": "lanczos_tpu_torch.parallel",
     "StencilSpec": "lanczos_tpu_torch.ops.kernels",

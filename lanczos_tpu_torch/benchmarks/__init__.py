@@ -3,12 +3,15 @@
     python -m lanczos_tpu_torch.benchmarks.kernel_bench [--only a,b] [--json PATH]
     python -m lanczos_tpu_torch.benchmarks.sweep_lanczos [--vector] [--sweep-ncol]
     python -m lanczos_tpu_torch.benchmarks.convergence [--block] [--csv PATH]
-    python -m lanczos_tpu_torch.benchmarks.suitesparse_scale [--rows N] [--json PATH]
+    python -m lanczos_tpu_torch.benchmarks.suitesparse_scale [--rows N] [--dist] [--json PATH]
     python -m lanczos_tpu_torch.benchmarks.weak_scaling [--devices 1 2 4] [--json PATH]
+    python -m lanczos_tpu_torch.benchmarks.tune_windowed [--rows N] [--json PATH]
+    python -m lanczos_tpu_torch.benchmarks.plots --out DIR [--kernel-json PATH] ...
 
 Each runs on the card (`--device cuda`, the default) and raises
 RuntimeError without one; `--device cpu` runs it on the CPU (the tests).
 They print their rows to stdout and write a file only when given a path.
+`plots` draws the others' files on the host (matplotlib) into --out.
 
 The helpers here are what more than one driver uses.
 """

@@ -3,7 +3,7 @@ matrix through the windowed-ELL kernel (K8) and block-Lanczos eigsh, end
 to end on one card (port of `benchmarks/suitesparse_scale.py`, the JAX
 package's north-star configs 4-5).
 
-    python -m lanczos_tpu_torch.benchmarks.suitesparse_scale [--rows 10485760] [--json PATH]
+    python -m lanczos_tpu_torch.benchmarks.suitesparse_scale [--rows 10485760] [--dist] [--json PATH]
 
 Records:
   * the host seconds to build the matrix and to plan it (the C++ planner,
@@ -21,9 +21,16 @@ Records:
 
 The anti-overflow scale of the chained SpMM is folded into a second plan
 of A / 1024 (a power of two: the same planes, exactly scaled), so no
-extra pass over the state is timed.  --dist (JAX's row-sharded
-windowed-ELL operator) waits for its port (ROADMAP Queue 1, slice 12 of
-the multi-device layer).
+extra pass over the state is timed.
+
+--dist then times the row-sharded windowed operator (`parallel/
+dist_windowed.py`, K8 on every rank's shard after the halo exchange) on
+min(cards, 8) ranks, one a card (2 gloo ranks with --device cpu), as the
+JAX script does (`benchmarks/suitesparse_scale.py:283-294`: no
+reordering, the chain damped by 1e-2 a step): `dist_devices`, each
+rank's seconds a product, and `dist_spmm_nnz_per_s` (nnz p over the
+slowest rank's seconds).  Every rank builds the matrix from its seed and
+plans only its shard.
 """
 
 from __future__ import annotations
@@ -85,6 +92,45 @@ def convergence_curve(alphas, betas, beta_final, k, cluster_rtol=1e-4,
                                      measure(mp, w[kept], s[:, kept])]
         curve.append(row)
     return curve
+
+
+# the --dist chain lengths: fixed, so that every rank runs as many products
+# (a slope escalated on one rank's clock could leave another waiting in an
+# exchange)
+DIST_K1, DIST_K2 = 2, 50
+
+
+def dist_spmm_seconds(mesh, rows: int, p: int):
+    """One rank of --dist: (seconds of one damped product on its shard,
+    halo, rows a rank)."""
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.parallel import halo_sharded_windowed
+    from lanczos_tpu_torch.utils.bench_loop import slope_time_chain
+
+    a = synth_suitesparse_banded(rows)
+    op = halo_sharded_windowed(a, mesh, reorder="none")
+    x = np.random.default_rng(0).standard_normal((p, rows)).astype(np.float32)
+    X = op.pad_vector(torch.from_numpy(x))
+    del a, x
+    sec = slope_time_chain(lambda y, A_: A_.mm(y), X, op, damp=1e-2, k1=DIST_K1,
+                           k2=DIST_K2, k2_max=DIST_K2)
+    return sec, op.halo, op.rows_loc
+
+
+def run_dist(rows: int, p: int, nnz: int, device) -> dict:
+    """--dist: the windowed operator on min(cards, 8) ranks (2 on the CPU)."""
+    from lanczos_tpu_torch.parallel import launch
+
+    n = min(torch.cuda.device_count(), 8) if device.type == "cuda" else 2
+    ranks = launch.run(dist_spmm_seconds, n, rows, p, device=device.type,
+                       timeout=1800)
+    secs = [r[0] for r in ranks]
+    out = {"dist_devices": n, "dist_halo": ranks[0][1], "dist_rows_loc": ranks[0][2],
+           "dist_spmm_seconds": secs, "dist_spmm_nnz_per_s": nnz * p / max(secs)}
+    print(f"dist({n} {device.type} ranks, halo {ranks[0][1]}, {ranks[0][2]} rows a "
+        f"rank) spmm p={p}: {[f'{s * 1e3:.4f}' for s in secs]} ms a rank, "
+        f"{out['dist_spmm_nnz_per_s']:.4e} nnz*col/s", flush=True)
+    return out
 
 
 def run(rows: int = 10_485_760, p: int = 8, m: int = 12, k: int = 5,
@@ -201,16 +247,14 @@ def main(argv=None):
     ap.add_argument("--k", type=int, default=5)
     ap.add_argument("--tol", type=float, default=1e-3)
     ap.add_argument("--dist", action="store_true",
-                    help="the row-sharded windowed operator (not ported yet)")
+                    help="also time the row-sharded windowed operator on "
+                         "min(cards, 8) ranks")
     ap.add_argument("--json", default=None, help="also write the results here")
     add_device_argument(ap)
     args = ap.parse_args(argv)
-    if args.dist:
-        raise NotImplementedError(
-            "--dist: the row-sharded windowed-ELL operator is not ported to "
-            "lanczos_tpu_torch yet (ROADMAP Queue 1, slice 12 of the "
-            "multi-device layer)")
     out = run(args.rows, args.p, args.m, args.k, args.reorth, args.tol, args.device)
+    if args.dist:
+        out.update(run_dist(args.rows, args.p, out["nnz"], resolve_device(args.device)))
     write_json(args.json, out)
     return out
 

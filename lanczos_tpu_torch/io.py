@@ -5,9 +5,8 @@ Matrix Market (`.mtx`, `.mtx.gz`, the SuiteSparse interchange format) and
 scipy `.npz` files, built into any of the containers of `ops/formats.py`
 or the windowed-ELL operator of `ops/window_ell.py`, on `device` (default
 "cuda"), or with a `mesh` into this rank's row-sharded operator of
-`parallel/dist_operator.py` on the mesh's device.  The row-sharded
-windowed-ELL operator is not ported yet (ROADMAP Queue 1, slice 12), so
-with a mesh "windowed" and "auto" raise NotImplementedError.
+`parallel/` (the windowed `HaloShardedWindowed`, the halo and gathered
+ELL) on the mesh's device.
 """
 
 from __future__ import annotations
@@ -35,18 +34,17 @@ def load_sparse(path: str):
     raise ValueError(f"unknown sparse matrix format: {path}")
 
 
-def _no_windowed_mesh(format):
-    raise NotImplementedError(
-        f"format={format!r} with a mesh needs the row-sharded windowed-ELL "
-        "operator, which is not ported yet (ROADMAP Queue 1, slice 12); "
-        "pass format='halo' or 'gather'"
+def _sharded(a, format, mesh, dtype, reorder):
+    """This rank's row-sharded operator of a: "windowed", "halo"/"ell" or
+    "gather"."""
+    from lanczos_tpu_torch.parallel import (
+        gather_sharded_ell,
+        halo_sharded_ell,
+        halo_sharded_windowed,
     )
 
-
-def _sharded(a, format, mesh, dtype, reorder):
-    """This rank's row-sharded operator of a: "halo"/"ell" or "gather"."""
-    from lanczos_tpu_torch.parallel import gather_sharded_ell, halo_sharded_ell
-
+    if format == "windowed":
+        return halo_sharded_windowed(a, mesh, dtype=dtype, reorder=reorder)
     if format in ("halo", "ell"):
         return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
     if format == "gather":
@@ -67,20 +65,19 @@ def operator_from_file(
 
     format: "ell" | "csr" | "coo" | "bsr" | "dia" (the containers of
     `ops/formats.py`) | "windowed" (the windowed-ELL SpMM, K8) | "auto"
-    (see `auto_operator`), or with `mesh` given: "halo" or "ell" (this
-    rank's `HaloShardedEll`, `reorder` as `halo_sharded_ell` takes it) |
-    "gather" (`GatherShardedEll`); "windowed" and "auto" then raise
-    NotImplementedError.  dtype defaults to float32."""
+    (see `auto_operator`), or with `mesh` given: "windowed" (this rank's
+    `HaloShardedWindowed`, K8 on its shard) | "halo" or "ell"
+    (`HaloShardedEll`) | "gather" (`GatherShardedEll`) | "auto", each
+    taking `reorder` as its builder does.  dtype defaults to float32."""
     from lanczos_tpu_torch.ops import formats as F
 
-    if mesh is not None and format in ("windowed", "auto"):
-        _no_windowed_mesh(format)
     dtype = torch.float32 if dtype is None else dtype
     a = load_sparse(path)
+    if format == "auto":
+        return auto_operator(a, dtype=dtype, mesh=mesh, reorder=reorder,
+                             device=device)
     if mesh is not None:
         return _sharded(a, format, mesh, dtype, reorder)
-    if format == "auto":
-        return auto_operator(a, dtype=dtype, reorder=reorder, device=device)
     if format == "windowed":
         from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
 
@@ -103,18 +100,20 @@ def auto_operator(a, *, dtype=None, mesh=None, reorder: str = "auto",
     """Operator selection for an assembled scipy matrix, in the JAX
     package's order: DIA when the nonzeros lie on <= max_diags distinct
     diagonals (square matrices), else the windowed-ELL operator, else
-    gathered ELL, with a warning naming the fallback.  With a mesh the
-    JAX package tries its row-sharded windowed operator first, which is
-    not ported yet: NotImplementedError."""
+    gathered ELL, with a warning naming the fallback.  With a mesh
+    (`lanczos_tpu/io.py:138-147`): this rank's `HaloShardedWindowed`,
+    else on a PlanError or ValueError the halo ELL, else on a ValueError
+    the gathered ELL, each fallback with a warning; every rank takes the
+    same branch."""
     import scipy.sparse as sp
 
     from lanczos_tpu_torch.ops import formats as F
     from lanczos_tpu_torch.ops.window_ell import PlanError, windowed_from_scipy
 
-    if mesh is not None:
-        _no_windowed_mesh("auto")
     dtype = torch.float32 if dtype is None else dtype
     a = a.tocsr() if sp.issparse(a) else sp.csr_matrix(np.asarray(a))
+    if mesh is not None:
+        return _auto_sharded(a, mesh, dtype, reorder)
     coo = a.tocoo()
     ndiag = (len(np.unique(coo.col.astype(np.int64) - coo.row))
              if coo.nnz else 1)
@@ -129,3 +128,24 @@ def auto_operator(a, *, dtype=None, mesh=None, reorder: str = "auto",
             "back to gathered ELL (EllMatrix)", stacklevel=2,
         )
         return F.ell_from_scipy(a, dtype=dtype, device=device)
+
+
+def _auto_sharded(a, mesh, dtype, reorder):
+    from lanczos_tpu_torch.ops.window_ell import PlanError
+    from lanczos_tpu_torch.parallel import (
+        gather_sharded_ell,
+        halo_sharded_ell,
+        halo_sharded_windowed,
+    )
+
+    try:
+        return halo_sharded_windowed(a, mesh, dtype=dtype, reorder=reorder)
+    except (PlanError, ValueError) as e:
+        warnings.warn(f"auto_operator: the row-sharded windowed-ELL plan failed "
+                      f"({e}); falling back to the halo ELL", stacklevel=3)
+    try:
+        return halo_sharded_ell(a, mesh, dtype=dtype, reorder=reorder)
+    except ValueError as e:
+        warnings.warn(f"auto_operator: the halo ELL failed ({e}); falling back "
+                      "to the gathered ELL", stacklevel=3)
+    return gather_sharded_ell(a, mesh, dtype=dtype)

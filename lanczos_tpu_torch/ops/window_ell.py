@@ -237,6 +237,18 @@ def _pack_planes_greedy(indptr, indices, data, n_rows, ppc_cap,
     return planes_dat, planes_lidx, planes_fabs
 
 
+def padded_length(n: int, m: int, cpb: int, spg: int) -> int:
+    """n128, the padded state length of an n x m plan: whole groups of
+    cpb * spg chunks, at least the n rows and m + 128 columns.  The chunk
+    count is padded so that the padded x length equals the padded y
+    length: square operators then chain through `padded_mm` with no pad or
+    slice copies between calls."""
+    chunks_per_group = cpb * spg
+    min_x_chunks = _round_up(m, LANES) // LANES + 1
+    ng = max(-(-max(-(-n // LANES), min_x_chunks) // chunks_per_group), 1)
+    return ng * chunks_per_group * LANES
+
+
 def _assemble(planes_dat, planes_lidx, planes_fabs, n, m, nnz, cpb, spg,
               wsz_cap):
     """Pad the chunks to whole groups, place each group's window base and
@@ -244,12 +256,9 @@ def _assemble(planes_dat, planes_lidx, planes_fabs, n, m, nnz, cpb, spg,
     arrays and the static geometry."""
     n_chunks, ppc, _ = planes_dat.shape
     chunks_per_group = cpb * spg
-    # pad the chunk count so that the padded x length equals the padded y
-    # length: square operators then chain through `padded_mm` with no pad
-    # or slice copies between calls
-    min_x_chunks = _round_up(m, LANES) // LANES + 1
-    ng = max(-(-max(n_chunks, min_x_chunks) // chunks_per_group), 1)
-    c_pad = ng * chunks_per_group
+    n128 = padded_length(n, m, cpb, spg)
+    c_pad = n128 // LANES
+    ng = c_pad // chunks_per_group
 
     def pad_planes(x, fill=0):
         out = np.full((c_pad, ppc) + x.shape[2:], fill, x.dtype)
@@ -259,7 +268,6 @@ def _assemble(planes_dat, planes_lidx, planes_fabs, n, m, nnz, cpb, spg,
     planes_dat = pad_planes(planes_dat)
     planes_lidx = pad_planes(planes_lidx)
     planes_fabs = pad_planes(planes_fabs, fill=-1)
-    n128 = c_pad * LANES  # >= m + 128
 
     fabs_g = planes_fabs.reshape(ng, chunks_per_group * ppc)
     used = fabs_g >= 0

@@ -38,7 +38,6 @@ from __future__ import annotations
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from lanczos_tpu_torch.ops.formats import _as_2d_scipy, _round_up, np_dtype, to_buffer
 from lanczos_tpu_torch.ops.operator import LinearOperator
@@ -47,9 +46,10 @@ from lanczos_tpu_torch.parallel.mesh import Mesh
 ROW_TILE = 8  # JAX's (lanczos_tpu/ops/formats.py:30): shards match JAX's row for row
 
 
-def shard_rows(n: int, n_dev: int) -> int:
-    """rows_loc: the rows each of n_dev ranks holds."""
-    return _round_up(-(-n // n_dev), ROW_TILE)
+def shard_rows(n: int, n_dev: int, tile: int = ROW_TILE) -> int:
+    """rows_loc: the rows each of n_dev ranks holds, a multiple of `tile`
+    (ROW_TILE for the ELL operators, 128 lanes for the windowed one)."""
+    return _round_up(-(-n // n_dev), tile)
 
 
 def _csr(a):
@@ -75,16 +75,17 @@ def shard_halo(a, rows_loc: int) -> int:
                    np.maximum(hi - (r0 + rows_loc) + 1, 0).max()))
 
 
-def halo_layout(a, n_dev: int, reorder: str = "auto"):
+def halo_layout(a, n_dev: int, reorder: str = "auto", tile: int = ROW_TILE):
     """(csr, perm, halo, rows_loc): the matrix in the operator's row order
     (RCM-permuted when `reorder` asks for it: "rcm" always, "auto" when
     the natural order's halo exceeds a shard), the permutation (None
-    without one) and the global halo.  ValueError, "use
-    gather_sharded_ell", when the halo needs n_dev or more hops."""
+    without one) and the global halo, for shards of `shard_rows(n, n_dev,
+    tile)` rows.  ValueError, "use gather_sharded_ell", when the halo
+    needs n_dev or more hops."""
     if reorder not in ("none", "rcm", "auto"):
         raise ValueError(f"unknown reorder={reorder!r}")
     a = _csr(a)
-    rows_loc = shard_rows(a.shape[0], n_dev)
+    rows_loc = shard_rows(a.shape[0], n_dev, tile)
     perm = None
     halo = shard_halo(a, rows_loc)
     if reorder == "rcm" or (reorder == "auto" and halo > rows_loc):
@@ -177,48 +178,41 @@ def local_spmm(data: torch.Tensor, idx: torch.Tensor, window: torch.Tensor):
     return (data * gathered).sum(dim=2)
 
 
-class _RowShardedEll(LinearOperator):
-    """This rank's rows of a row-sharded ELL operator (rows_loc, w)."""
+class _RowSharded(LinearOperator):
+    """This rank's view of a row-sharded operator: rank r holds rows
+    [r rows_loc, (r + 1) rows_loc) of the operator's (permuted) row order
+    at positions [offset, offset + rows_loc) of its state, a strip of
+    `strip` entries; the ranks' strips joined in rank order are JAX's
+    global state.  Subclasses set `strip` and `offset`."""
 
-    shard_axis = -1  # the ranks' rows join into JAX's global (p, n_pad) state
+    shard_axis = -1  # the ranks' strips join into JAX's global (p, n) state
+    offset = 0
 
-    def __init__(self, data: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
-                 n_rows_true: int, rows_loc: int, perm=None):
+    def __init__(self, mesh: Mesh, n_rows_true: int, rows_loc: int, perm=None):
         super().__init__()
-        self.register_buffer("data", data)
-        self.register_buffer("indices", indices)
         self.mesh = mesh
         self.n_rows_true, self.rows_loc = int(n_rows_true), int(rows_loc)
         self.perm = None if perm is None else np.asarray(perm, np.int64)
+
+    @property
+    def strip(self) -> int:
+        return self.rows_loc
 
     @property
     def shape(self):
         return (self.n_rows_true, self.n_rows_true)
 
     @property
-    def dtype(self):
-        return self.data.dtype
-
-    @property
-    def n_padded(self) -> int:
-        return self.rows_loc * self.mesh.size
-
-    @property
-    def nnz(self) -> int:
-        """Stored slots over all ranks, JAX's n_padded x width."""
-        return self.n_padded * self.data.shape[1]
-
-    @property
     def state_shape(self):
-        return (self.rows_loc,)
+        return (self.strip,)
 
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         return self.mm(x[None])[0]
 
     def pad_vector(self, b) -> torch.Tensor:
         """Global natural-order b, (n,) or block-major (p, n) -> this
-        rank's permuted, zero-padded rows on its device; only those rows
-        move."""
+        rank's strip on its device, its rows permuted and placed at
+        `offset`, zeros elsewhere; only those rows move."""
         b = torch.as_tensor(b).to(self.dtype)
         lo = self.mesh.rank * self.rows_loc
         hi = min(lo + self.rows_loc, self.n_rows_true)
@@ -227,13 +221,15 @@ class _RowShardedEll(LinearOperator):
         else:
             sel = torch.from_numpy(self.perm[lo:hi]).to(b.device)
             rows = b.index_select(-1, sel)
-        rows = F.pad(rows, (0, self.rows_loc - rows.shape[-1]))
-        return rows.to(self.mesh.device)
+        out = rows.new_zeros(tuple(rows.shape[:-1]) + (self.strip,))
+        out[..., self.offset : self.offset + rows.shape[-1]] = rows
+        return out.to(self.mesh.device)
 
     def unpad_shards(self, shards: torch.Tensor) -> torch.Tensor:
-        """Every rank's rows stacked in rank order, (size, rows_loc) or
-        (size, p, rows_loc) -> the natural-order (n,) or (p, n); no
+        """Every rank's strip stacked in rank order, (size, strip) or
+        (size, p, strip) -> the natural-order (n,) or (p, n); no
         collective."""
+        shards = shards[..., self.offset : self.offset + self.rows_loc]
         y = shards.movedim(0, -2).reshape(tuple(shards.shape[1:-1]) + (-1,))
         y = y[..., : self.n_rows_true]
         if self.perm is not None:
@@ -247,24 +243,48 @@ class _RowShardedEll(LinearOperator):
         return self.unpad_shards(self.mesh.all_gather(y))
 
     def local_index(self, i: int) -> int:
-        """Position of natural-order index i in the operator's (permuted)
-        row space: the receiver index to pass as lc."""
-        if self.perm is None:
-            return int(i)
-        return int(np.flatnonzero(self.perm == int(i))[0])
+        """Flat position of natural-order index i in JAX's global state
+        (the strips joined): the receiver index to pass as lc."""
+        pos = int(i) if self.perm is None else int(np.flatnonzero(self.perm == int(i))[0])
+        rank, row = divmod(pos, self.rows_loc)
+        return rank * self.strip + self.offset + row
 
     def storage_trace_fn(self, i: int):
-        """Receiver extractor at flat index i of JAX's padded global state:
-        the value on rank i // rows_loc, zero on every other rank (the
-        Lanczos methods sum the trace over the ranks)."""
-        owner, row = divmod(int(i), self.rows_loc)
+        """Receiver extractor at flat index i of JAX's global state: the
+        value on rank i // strip, zero on every other rank (the Lanczos
+        methods sum the trace over the ranks)."""
+        owner, pos = divmod(int(i), self.strip)
         if owner == self.mesh.rank:
-            return lambda q: q[..., row].clone()
+            return lambda q: q[..., pos].clone()
         return lambda q: q.new_zeros(q.shape[:-1])
 
     def trace_fn(self, lc: int):
         """The same for a natural-order index lc."""
         return self.storage_trace_fn(self.local_index(lc))
+
+
+class _RowShardedEll(_RowSharded):
+    """This rank's rows of a row-sharded ELL operator (rows_loc, w); its
+    strip is its rows_loc rows."""
+
+    def __init__(self, data: torch.Tensor, indices: torch.Tensor, mesh: Mesh,
+                 n_rows_true: int, rows_loc: int, perm=None):
+        super().__init__(mesh, n_rows_true, rows_loc, perm)
+        self.register_buffer("data", data)
+        self.register_buffer("indices", indices)
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def n_padded(self) -> int:
+        return self.rows_loc * self.mesh.size
+
+    @property
+    def nnz(self) -> int:
+        """Stored slots over all ranks, JAX's n_padded x width."""
+        return self.n_padded * self.data.shape[1]
 
 
 class HaloShardedEll(_RowShardedEll):

@@ -89,19 +89,24 @@ class Mesh:
         """The halo-extended window ``[halo | x | halo]`` of this rank's
         block-major rows x (p, rows_loc), JAX's `_halo_exchange`
         (`dist_operator.py:52-84`): (p, rows_loc + 2 halo), zeros past the
-        mesh ends.  halo == 0 returns x itself with no communication.  A
-        halo of at most rows_loc moves exactly `halo` boundary columns each
-        way (`exchange`); a wider one sends the whole block to the ranks at
-        distance 1..hops, hops = ceil(halo / rows_loc), and receives theirs
-        in one batch, then takes the centre slice.  Every rank must pass
-        the same halo (the matrix's global one)."""
+        mesh ends.  halo == 0 returns x itself with no communication.
+        Every rank must pass the same halo (the matrix's global one)."""
         if halo == 0:
             return x
+        from_left, from_right = self.halo_strips(x, halo)
+        return torch.cat([from_left, x, from_right], dim=-1)
+
+    def halo_strips(self, x: torch.Tensor, halo: int):
+        """(from_left, from_right), each (p, halo): the `halo` rows before
+        and after this rank's rows x (p, rows_loc) in the global order,
+        zeros past the mesh ends; halo > 0.  A halo of at most rows_loc
+        moves exactly `halo` boundary columns each way (`exchange`); a
+        wider one sends the whole block to the ranks at distance 1..hops,
+        hops = ceil(halo / rows_loc), and receives theirs in one batch."""
         rows = x.shape[-1]
         hops = -(-halo // rows)
         if hops == 1:
-            from_left, from_right = self.exchange(x[..., :halo], x[..., rows - halo:])
-            return torch.cat([from_left, x, from_right], dim=-1)
+            return self.exchange(x[..., :halo], x[..., rows - halo:])
         x = x.contiguous()
         left = [torch.zeros_like(x) for _ in range(hops)]  # ranks r-hops..r-1
         right = [torch.zeros_like(x) for _ in range(hops)]  # ranks r+1..r+hops
@@ -116,9 +121,8 @@ class Mesh:
                         dist.P2POp(dist.irecv, right[k - 1], self.rank + k,
                                    self.group)]
         _wait_all(ops)
-        start = hops * rows - halo
-        ext = torch.cat(left + [x] + right, dim=-1)
-        return ext[..., start : start + rows + 2 * halo]
+        return (torch.cat(left, dim=-1)[..., hops * rows - halo:],
+                torch.cat(right, dim=-1)[..., :halo])
 
     def barrier(self) -> None:
         """Returns on each rank once every rank has called it (one

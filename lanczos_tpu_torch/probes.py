@@ -7,6 +7,7 @@
     python -m lanczos_tpu_torch.probes --ab OLD.cu
     python -m lanczos_tpu_torch.probes --gram-tiles
     python -m lanczos_tpu_torch.probes --dist-ell
+    python -m lanczos_tpu_torch.probes --dist-windowed
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -78,6 +79,14 @@ events, 20 calls after 2 warm-up calls, every rank timing the same
 chain), the eigsh of the assembled slice on `HaloShardedEll` (wall
 seconds and its Ritz values) and each rank's host seconds to build the
 matrix and its shard.
+
+With --dist-windowed it prints only this, the same for the row-sharded
+windowed-ELL operator (`HaloShardedWindowed`, K8 on every rank's shard):
+at each d, per rank, the host seconds to build the matrix and to plan its
+shard, its plan (ppc, wsz, n128), a product at p=8 (exchange, work copy
+and K8), and apart from it K8 alone on the rank's state and a device copy
+of that state (the work copy's cost), timed as above; then the assembled
+eigsh on it (wall seconds, Ritz values, measured residuals).
 """
 
 from __future__ import annotations
@@ -586,7 +595,45 @@ def _mean_ms(fn, iters=20, warmup=2):
     return start.elapsed_time(end) / iters
 
 
-def probe_dist_ell() -> None:
+def dist_windowed_rank(mesh):
+    """One rank of --dist-windowed: its windowed shard of the assembled
+    matrix, its product timed whole and in parts, then the eigsh."""
+    import numpy as np
+
+    from lanczos_tpu_torch.methods.eigs import block_lanczos_eigsh, ritz_residuals
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.parallel import halo_sharded_windowed
+
+    t0 = time.perf_counter()
+    a = synth_suitesparse_banded(ASSEMBLED_ROWS)
+    out = {"matrix_s": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    op = halo_sharded_windowed(a, mesh)
+    torch.cuda.synchronize()
+    out["shard_s"] = time.perf_counter() - t0
+    x = np.random.default_rng(0).standard_normal(
+        (ASSEMBLED_P, a.shape[0])).astype(np.float32)
+    b = op.pad_vector(torch.from_numpy(x))
+    del a, x
+    out.update(halo=op.halo, rows_loc=op.rows_loc, n128=op.n128, ppc=op.local.ppc,
+               wsz=op.local.wsz, mm_ms=_mean_ms(lambda: op.mm(b)),
+               k8_ms=_mean_ms(lambda: op.local.padded_mm(b)),
+               copy_ms=_mean_ms(lambda: b.clone()))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, vecs, _ = block_lanczos_eigsh(
+        op, b, 12, 5, which="LA", reorth="full", normalize="qr",
+        breakdown_eps=1e-4, replace_dead=True, eig_backend="newton",
+        compute_vectors=True)
+    torch.cuda.synchronize()
+    out["eigsh_s"] = time.perf_counter() - t0
+    out.update(vals=vals, resid=ritz_residuals(op, vals, vecs))
+    return out
+
+
+def _each_mesh_size(rank_fn):
+    """(d, the ranks' results, wall seconds) for d = 1, 2, 4 ranks, one a
+    card, skipping the sizes the machine has no cards for."""
     from lanczos_tpu_torch.parallel import launch
 
     cards = torch.cuda.device_count()
@@ -596,8 +643,12 @@ def probe_dist_ell() -> None:
                   flush=True)
             continue
         t0 = time.perf_counter()
-        ranks = launch.run(dist_ell_rank, d, device="cuda", timeout=900)
-        wall = time.perf_counter() - t0
+        ranks = launch.run(rank_fn, d, device="cuda", timeout=900)
+        yield d, ranks, time.perf_counter() - t0
+
+
+def probe_dist_ell() -> None:
+    for d, ranks, wall in _each_mesh_size(dist_ell_rank):
         r0 = ranks[0]
         print(f"d={d}: halo {r0['halo']}, {r0['rows_loc']} rows a rank; "
               f"run {wall:.1f} s", flush=True)
@@ -606,6 +657,20 @@ def probe_dist_ell() -> None:
                   f"all-gather ELL SpMM {r['gather_ms']:.4f} ms; matrix "
                   f"{r['matrix_s']:.2f} s, shard {r['halo_build_s']:.2f} s; "
                   f"eigsh {r['eigsh_s']:.3f} s", flush=True)
+        print(f"  Ritz {r0['vals'].tolist()}; measured residuals "
+              f"{r0['resid'].tolist()}", flush=True)
+
+
+def probe_dist_windowed() -> None:
+    for d, ranks, wall in _each_mesh_size(dist_windowed_rank):
+        r0 = ranks[0]
+        print(f"d={d}: halo {r0['halo']}, {r0['rows_loc']} rows a rank, strip "
+              f"{r0['n128']}; run {wall:.1f} s", flush=True)
+        for rank, r in enumerate(ranks):
+            print(f"  rank {rank}: windowed SpMM p={ASSEMBLED_P} {r['mm_ms']:.4f} ms "
+                  f"(K8 alone {r['k8_ms']:.4f} ms, state copy {r['copy_ms']:.4f} ms; "
+                  f"ppc {r['ppc']}, wsz {r['wsz']}); matrix {r['matrix_s']:.2f} s, "
+                  f"shard {r['shard_s']:.2f} s; eigsh {r['eigsh_s']:.3f} s", flush=True)
         print(f"  Ritz {r0['vals'].tolist()}; measured residuals "
               f"{r0['resid'].tolist()}", flush=True)
 
@@ -637,6 +702,9 @@ def main() -> None:
         return
     if "--dist-ell" in sys.argv[1:]:
         probe_dist_ell()
+        return
+    if "--dist-windowed" in sys.argv[1:]:
+        probe_dist_windowed()
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

@@ -189,13 +189,64 @@ def test_suitesparse_scale_small(tmp_path):
 
     path = str(tmp_path / "s.json")
     out = suitesparse_scale.main(["--device", "cpu", "--rows", "20000", "--m", "6",
-                                  "--json", path])
+                                  "--dist", "--json", path])
     assert json.load(open(path))["rows"] == 20000
     assert out["mtx_roundtrip"] and out["ppc"] == 15
     assert all(len(c["resid_measured"]) == len(c["ritz"]) for c in out["convergence"])
     assert max(out["measured_resid"]) < 1e-3 and len(out["top_ritz"]) == 5
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        suitesparse_scale.main(["--device", "cpu", "--dist"])
+    # --dist: the row-sharded windowed operator on 2 gloo ranks (JAX's keys)
+    assert out["dist_devices"] == 2 and len(out["dist_spmm_seconds"]) == 2
+    assert (out["dist_halo"], out["dist_rows_loc"]) == (4999, 10112)
+    assert out["dist_spmm_nnz_per_s"] == pytest.approx(
+        out["nnz"] * 8 / max(out["dist_spmm_seconds"]), rel=1e-12)
+
+
+def test_tune_windowed_sweeps_the_plan_geometry(tmp_path):
+    """Every (cpb, spg) of JAX's sweep is planned and timed, or marked
+    refused; the rows' bytes are the port's K8 model (uint8 indices)."""
+    from lanczos_tpu_torch.benchmarks import tune_windowed
+    from lanczos_tpu_torch.models.synthetic import synth_suitesparse_banded
+    from lanczos_tpu_torch.ops.window_ell import windowed_from_scipy
+
+    path = str(tmp_path / "t.json")
+    rows = tune_windowed.main(["--device", "cpu", "--rows", "6000", "--p", "2",
+                               "--json", path])
+    assert json.load(open(path)) == rows
+    assert [(r["cpb"], r["spg"]) for r in rows] == [
+        (c, g) for c in tune_windowed.CPBS for g in tune_windowed.SPGS]
+    a = synth_suitesparse_banded(6000)
+    for r in rows:
+        assert r["seconds"] > 0 and "pct_of_copy_bw" not in r
+        A = windowed_from_scipy(a, cpb=r["cpb"], spg=r["spg"], reorder="none",
+                                device="cpu")
+        nbytes = (A.planes_data.numel() * 4 + A.planes_lidx.numel()
+                  + 4 * (A.planes_off.numel() + A.wb.numel()) + 2 * 2 * A.n128 * 4)
+        assert (r["ppc"], r["wsz"]) == (A.ppc, A.wsz)
+        assert r["gbps"] == pytest.approx(nbytes / r["seconds"] / 1e9, rel=1e-12)
+
+
+def test_plots_draw_the_drivers_outputs(quick_slopes, tmp_path):
+    """plots.py on the tiny drivers' outputs: every panel with data is
+    written into --out, and only there."""
+    pytest.importorskip("matplotlib")
+    from lanczos_tpu_torch.benchmarks import convergence, plots, sweep_lanczos
+
+    kj, bl, cv = (str(tmp_path / f) for f in ("k.json", "bl.csv", "c.csv"))
+    quick_slopes.main(KB_SIZES + ["--only", "mm_ts,mm_tt,sqrtm,spmm_stencil,copy_bw,"
+                                  "spmm_windowed", "--json", kj])
+    sweep_lanczos.main(["--device", "cpu", "--n-col", "2", "--n-min", "3", "--n-max",
+                        "4", "--m1", "2", "--m2", "4", "--csv", bl])
+    convergence.main(["--device", "cpu", "--fdtd-steps", "500", "--m-max", "4",
+                      "--csv", cv])
+    out = tmp_path / "figures"
+    written = plots.main(["--out", str(out), "--kernel-json", kj, "--block-csv", bl,
+                          "--conv-csv", cv])
+    assert sorted(os.path.basename(p) for p in written) == sorted(
+        ["mm_ts.png", "mm_tt.png", "mm_tt2.png", "spmm_ell.png", "sqrtm.png",
+         "spmm_stencil.png", "block_iteration.png", "spmm_windowed.png",
+         "convergence.png"])
+    assert sorted(os.listdir(out)) == sorted(os.path.basename(p) for p in written)
+    assert all(os.path.getsize(p) > 1000 for p in written)
 
 
 def test_suitesparse_convergence_curve_matches_jax():
@@ -235,7 +286,8 @@ def test_example_runs_on_the_cpu(name):
 
 ENTRY_POINTS = ["lanczos_tpu_torch.bench"] + [
     f"lanczos_tpu_torch.benchmarks.{n}" for n in
-    ("kernel_bench", "sweep_lanczos", "convergence", "suitesparse_scale")] + [
+    ("kernel_bench", "sweep_lanczos", "convergence", "suitesparse_scale",
+     "tune_windowed")] + ["lanczos_tpu_torch.parallel.dryrun"] + [
     f"lanczos_tpu_torch.examples.{n}" for n in EXAMPLES]
 
 

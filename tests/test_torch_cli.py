@@ -343,7 +343,8 @@ def test_port_never_imports_jax():
         " 'examples.expm_maxwell', 'examples.fused_and_compensated',"
         " 'examples.windowed_general_matrix', 'examples.inplace_fast_paths',"
         " 'ops.kernels.stencil_kernel', 'methods.checkpoint', 'ops.window_ell',"
-        " 'parallel.dist_operator', 'parallel.mesh')};"
+        " 'parallel.dist_operator', 'parallel.mesh', 'parallel.dist_windowed',"
+        " 'parallel.dryrun', 'benchmarks.tune_windowed', 'benchmarks.plots')};"
         "assert need <= set(names), sorted(need - set(names));"
         "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m);"
         "assert not any(m == 'lanczos_tpu' or m.startswith('lanczos_tpu.') for m in sys.modules)"

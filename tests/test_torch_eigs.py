@@ -125,5 +125,9 @@ def test_top_level_api_loads_lazily():
     assert L.block_lanczos_eigsh is eigs.block_lanczos_eigsh
     assert L.tsqr is tsqr
     assert "windowed_from_scipy" in dir(L)
+    from lanczos_tpu_torch.parallel import dist_windowed
+
+    assert L.halo_sharded_windowed is dist_windowed.halo_sharded_windowed
+    assert L.HaloShardedWindowed is dist_windowed.HaloShardedWindowed
     with pytest.raises(AttributeError):
-        L.halo_sharded_windowed  # noqa: B018  (multi-device: not ported)
+        L.no_such_name  # noqa: B018

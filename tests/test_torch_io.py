@@ -83,19 +83,31 @@ def test_operator_from_file_defaults(tmp_path, rng):
 
 
 def test_mesh_is_not_ported(tmp_path, rng):
-    """The row-sharded windowed-ELL operator is not ported: with a mesh,
-    "windowed" and "auto" (whose first choice JAX's is) raise, naming the
-    slice that ports it; so does auto_operator."""
+    """With a mesh, "windowed" and "auto" (whose first choice JAX's is)
+    build this rank's HaloShardedWindowed, the shard `windowed_shard`
+    gives, on the mesh's device; so does auto_operator, whose class is
+    JAX's on make_mesh(k)."""
+    from lanczos_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    from lanczos_tpu_torch.parallel import dist_windowed as W
+    from lanczos_tpu_torch.parallel.mesh import Mesh
+
+    # few diagonals: DIA without a mesh, the windowed operator with one
+    a = laplacian_2d_scipy(20, 15).tocsr()
     path = str(tmp_path / "a.npz")
-    sp.save_npz(path, _random_sym(20, rng))
-    for call in (lambda: tio.operator_from_file(path, format="windowed",
-                                                mesh=object(), **CPU),
-                 lambda: tio.operator_from_file(path, format="auto",
-                                                mesh=object(), **CPU),
-                 lambda: tio.auto_operator(_random_sym(20, rng), mesh=object(),
-                                           **CPU)):
-        with pytest.raises(NotImplementedError, match="Queue 1, slice 12"):
-            call()
+    sp.save_npz(path, a)
+    for k in (1, 2):
+        want = type(jio.auto_operator(a, mesh=jax_make_mesh(k))).__name__
+        assert want == "HaloShardedWindowed"
+        for rank in range(k):
+            mesh = Mesh(rank, k, torch.device("cpu"), None)
+            arrays, *_ = W.windowed_shard(a, k, rank, np.float64)
+            ops = [tio.operator_from_file(path, format=f, mesh=mesh, dtype=torch.float64)
+                   for f in ("windowed", "auto")]
+            ops.append(tio.auto_operator(a, mesh=mesh, dtype=torch.float64))
+            for op in ops:
+                assert type(op).__name__ == want and op.mesh is mesh
+                assert op.local.planes_data.device.type == "cpu"
+                np.testing.assert_array_equal(op.local.planes_data.numpy(), arrays[0])
 
 
 @pytest.mark.parametrize("k", [1, 2])

@@ -2,7 +2,10 @@
 `ops/tsqr.py` `tsqr_sharded`) on k = 1, 2 and 4 gloo ranks on the CPU,
 against the JAX package's `DistributedPallasMaxwell` and `tsqr_sharded`
 on `make_mesh(k)` of conftest's 8 virtual devices (Pallas in interpret
-mode), and against the port's single-device `PallasMaxwellOperator`.
+mode), and against the port's single-device `PallasMaxwellOperator`;
+the row-sharded ELL and windowed-ELL operators, io with a mesh, the
+checkpoint repairs and the dry run on the same ranks, against scipy and
+the JAX package's operators.
 
 The ranks run `tests/torch_parallel_cases.py`, one spawn per world size
 for all its scenarios; every spawn has a timeout and fails when it runs
@@ -55,7 +58,9 @@ def ranks(tmp_path_factory):
         if k not in cache:
             tmp = tmp_path_factory.mktemp(f"ranks{k}")
             if k == cases.REPAIR_RANKS:
-                _jax_halo_checkpoint(str(tmp / cases.JAX_CK_FILE))
+                for key, jop in (("halo", _jax_ell(k, "laplacian", "halo")),
+                                 ("windowed", _jax_windowed(k, "lap40", jnp.float64))):
+                    _jax_checkpoint(str(tmp / cases.JAX_CK_FILES[key]), jop)
             cache[k] = launch.run(cases.scenarios, k, str(tmp), device="cpu",
                                   timeout=SPAWN_TIMEOUT)
         return cache[k]
@@ -406,8 +411,8 @@ def test_make_mesh_needs_a_process_group():
 
 def test_rank_functions_import_no_jax(tmp_path):
     """The ranks import the port and tests/torch_parallel_cases.py only;
-    the row-sharded ELL operators, io with a mesh and the native halo
-    packer run without pulling in jax either."""
+    the row-sharded ELL and windowed operators, io with a mesh, the dry
+    run and the native packers run without pulling in jax either."""
     import subprocess
     import sys
 
@@ -423,6 +428,10 @@ def test_rank_functions_import_no_jax(tmp_path):
             "op = operator_from_file(sys.argv[1], format='halo', "
             "mesh=Mesh(1, 2, torch.device('cpu'), None)); "
             "assert type(op) is D.HaloShardedEll and op.halo == 6; "
+            "op = operator_from_file(sys.argv[1], format='windowed', "
+            "mesh=Mesh(0, 1, torch.device('cpu'), None)); "
+            "assert type(op).__name__ == 'HaloShardedWindowed'; "
+            "import lanczos_tpu_torch.parallel.dryrun; "
             "print(any(m == 'jax' or m.startswith(('jax.', 'lanczos_tpu.')) "
             "for m in sys.modules))")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -516,13 +525,13 @@ def _jax_ell(k, name, builder, dtype=jnp.float64, a=None):
     return jg(mat, jax_make_mesh(k), dtype=dtype)
 
 
-def _jax_halo_checkpoint(path):
-    """A JAX checkpointed block run on the 2-device mesh's halo ELL,
-    stopped at j = JAX_CK_STOPPED and grown to m = JAX_CK_M."""
+def _jax_checkpoint(path, jop):
+    """A JAX checkpointed block run on jop (the 2-device mesh's halo ELL or
+    windowed operator), stopped at j = JAX_CK_STOPPED and grown to m =
+    JAX_CK_M."""
     from lanczos_tpu.methods import checkpoint as jax_ck
 
-    jop = _jax_ell(cases.REPAIR_RANKS, "laplacian", "halo")
-    _, B = cases.ell_start(jop.n_rows_true, torch.float64)
+    B = _start_block(jop)
     jax_ck.block_lanczos_checkpointed(
         jop, jop.pad_vector(B.numpy()), cases.JAX_CK_STOPPED,
         jop.local_index(cases.ELL_LC), chunk=cases.CK_CHUNK, path=path)
@@ -534,6 +543,19 @@ def _jax_halo_checkpoint(path):
         setattr(c, name, big)
     c.m = cases.JAX_CK_M
     c.save(path)
+
+
+def _start_block(jop):
+    """The ranks' start block of the operator's family (ell or windowed)."""
+    start = cases.windowed_start if "Windowed" in type(jop).__name__ else cases.ell_start
+    return start(jop.n_rows_true, torch.float64)[1]
+
+
+def _jax_windowed(k, name, dtype=jnp.float32):
+    from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed as jw
+
+    a, reorder = cases.windowed_matrices()[name]
+    return jw(a, jax_make_mesh(k), dtype=dtype, reorder=reorder, cpb=2, spg=2)
 
 
 def _stitched(res, k, name, builder, dname, key):
@@ -663,7 +685,7 @@ def test_ell_expm_action_at_receivers_on_every_shard(k, ranks):
 
 # -- the repairs: checkpoints and Ritz residuals on a distributed operator --------
 
-CK_OPS = ("zslab", "halo")
+CK_OPS = ("zslab", "halo", "windowed")
 
 
 @pytest.mark.parametrize("kind", ["vector", "block", "fdtd"])
@@ -700,6 +722,11 @@ def test_ritz_residuals_global_on_two_ranks(op_name, ranks):
         a = cases.ell_matrices()["laplacian"][0]
         single = ell_from_scipy(a, dtype=torch.float64, device="cpu")
         vecs = torch.cat([r["vecs"] for r in res])[: a.shape[0]]
+    elif op_name == "windowed":
+        a = cases.windowed_matrices()["lap40"][0]
+        single = ell_from_scipy(a, dtype=torch.float64, device="cpu")
+        vecs = _win_local(cases.REPAIR_RANKS, 0, "lap40").unpad_shards(
+            torch.stack([r["vecs"].T for r in res])).T
     else:
         single = MaxwellOperator.create(*cases.GRID, dtype=torch.float64, device="cpu")
         dop = _dist_op(cases.REPAIR_RANKS)
@@ -723,6 +750,173 @@ def test_jax_written_checkpoint_resumes_on_two_ranks(ranks):
         jop, jop.pad_vector(B.numpy()), cases.JAX_CK_M,
         jop.local_index(cases.ELL_LC))
     for r in ranks(cases.REPAIR_RANKS):
-        got = r["repairs"]["jax_resumed"]
+        got = r["repairs"]["jax_resumed", "halo"]
         for g, w in zip(got, (want.alphas, want.betas, want.trace, want.beta_final)):
             _assert_scaled(g, np.asarray(w), 1e-10)
+
+
+def test_jax_written_windowed_checkpoint_resumes_on_two_ranks(ranks):
+    """The same for a checkpoint the JAX package wrote on its 2-device
+    `HaloShardedWindowed` (global layout (p, 2 n128))."""
+    from lanczos_tpu.methods import checkpoint as jax_ck
+
+    jop = _jax_windowed(cases.REPAIR_RANKS, "lap40", jnp.float64)
+    B = _start_block(jop)
+    want = jax_ck.block_lanczos_checkpointed(
+        jop, jop.pad_vector(B.numpy()), cases.JAX_CK_M,
+        jop.local_index(cases.ELL_LC))
+    for r in ranks(cases.REPAIR_RANKS):
+        got = r["repairs"]["jax_resumed", "windowed"]
+        for g, w in zip(got, (want.alphas, want.betas, want.trace, want.beta_final)):
+            _assert_scaled(g, np.asarray(w), 1e-10)
+
+
+# -- the row-sharded windowed-ELL operator on the ranks ---------------------------
+# (tests/test_torch_dist_windowed.py holds its layout and by-hand products
+# in one process)
+
+WIN_RTOL = {"float32": 1e-5, "float64": 1e-12}
+WIN_CHAIN_RTOL = {"float32": 1e-4, "float64": 1e-10}  # test_dist_windowed.py:46-55
+WIN_EIGSH_RTOL = 1e-3  # tests/test_dist_windowed.py:106
+# the port's f32 Ritz values against JAX's on the same operator and start
+WIN_JAX_RITZ_RTOL = 1e-4
+
+
+def _win_local(k, rank, name, dtype=torch.float64):
+    from lanczos_tpu_torch.parallel.dist_windowed import halo_sharded_windowed
+
+    a, reorder = cases.windowed_matrices()[name]
+    return halo_sharded_windowed(a, Mesh(rank, k, torch.device("cpu"), None),
+                                 dtype=dtype, reorder=reorder, cpb=2, spg=2)
+
+
+def _win_strips(res, name, dname, key):
+    return torch.stack([r["windowed"]["products"][name, dname][key] for r in res])
+
+
+@pytest.mark.parametrize("dname", DTYPES)
+@pytest.mark.parametrize("name", list(cases.windowed_matrices()))
+@pytest.mark.parametrize("k", RANKS)
+def test_windowed_products_match_scipy(k, name, dname, ranks):
+    """mv and mm on the k ranks (K8's plain version on each rank's shard
+    after the halo exchange), stitched, against scipy's product (f32 to
+    1e-5 of scale, f64 to 1e-12); unpad_vector inverts pad_vector
+    exactly on every rank."""
+    res = ranks(k)
+    a = cases.windowed_matrices()[name][0]
+    b, B = cases.windowed_start(a.shape[0], torch.float64)
+    op = _win_local(k, 0, name, cases.DTYPES[dname])
+    for key, x in (("mv", b), ("mm", B)):
+        got = op.unpad_shards(_win_strips(res, name, dname, key))
+        _assert_scaled(got, (a @ x.numpy().T).T, WIN_RTOL[dname])
+    for r in res:
+        got = r["windowed"]["products"][name, dname]["roundtrip"]
+        torch.testing.assert_close(got, B.to(got.dtype), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_windowed_chain_keeps_halos_zero(k, ranks):
+    """Two chained products (JAX's test_chain_preserves_zero_halos): every
+    strip's halo slots and pads stay exactly zero, the result matches
+    scipy's A(A X), and the sum of squares over the strips is the
+    unpadded one's."""
+    res = ranks(k)
+    for name, (a, _) in cases.windowed_matrices().items():
+        _, B = cases.windowed_start(a.shape[0], torch.float64)
+        want = (a @ (a @ B.numpy().T)).T
+        for dname in DTYPES:
+            strips = _win_strips(res, name, dname, "chain")
+            ops = [_win_local(k, rank, name, cases.DTYPES[dname]) for rank in range(k)]
+            rows = [max(0, min(op.rows_loc, a.shape[0] - rank * op.rows_loc))
+                    for rank, op in enumerate(ops)]
+            for rank, (op, y) in enumerate(zip(ops, strips)):
+                outside = y.clone()
+                outside[:, op.halo : op.halo + rows[rank]] = 0
+                assert not outside.any(), (name, dname, rank)
+            _assert_scaled(ops[0].unpad_shards(strips), want, WIN_CHAIN_RTOL[dname])
+            full = float((strips.double() ** 2).sum())
+            assert full == pytest.approx(float((want ** 2).sum()),
+                                         rel=WIN_CHAIN_RTOL[dname])
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_windowed_eigsh_matches_dense_and_jax(k, ranks):
+    """block_lanczos_eigsh (p=3, m=12, reorth full, f32) on the spiked
+    Laplacian: the top 3 within 1e-3 of the dense spectrum
+    (tests/test_dist_windowed.py:94-106), within 1e-4 of JAX's eigsh on
+    its operator on make_mesh(k), and the same on every rank."""
+    from lanczos_tpu.methods.eigs import block_lanczos_eigsh as jax_eigsh
+
+    res = ranks(k)
+    a = cases.windowed_matrices()["spiked"][0]
+    want = np.sort(np.linalg.eigvalsh(a.toarray()))[::-1][: cases.WIN_EIGSH_K]
+    jop = _jax_windowed(k, "spiked")
+    B = cases.windowed_start(a.shape[0], torch.float32)[1]
+    jvals, _, _ = jax_eigsh(jop, jop.pad_vector(B.numpy()), cases.WIN_EIGSH_M,
+                            cases.WIN_EIGSH_K, reorth="full")
+    for r in res:
+        vals = r["windowed"]["eigsh"].numpy()
+        np.testing.assert_allclose(vals, want, rtol=WIN_EIGSH_RTOL)
+        np.testing.assert_allclose(vals, np.asarray(jvals), rtol=WIN_JAX_RITZ_RTOL)
+        torch.testing.assert_close(r["windowed"]["eigsh"], res[0]["windowed"]["eigsh"],
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_windowed_io_and_auto_with_a_mesh(k, ranks):
+    """operator_from_file(mesh=) with "windowed" and "auto" builds
+    HaloShardedWindowed; auto_operator(mesh=) on a matrix whose first
+    shard has too many planes a chunk falls back to the halo ELL on every
+    rank, with a warning, as JAX's auto does on make_mesh(k), and its
+    product matches scipy."""
+    from lanczos_tpu.io import auto_operator as jax_auto
+
+    want_type = type(jax_auto(cases.plan_error_matrix(), mesh=jax_make_mesh(k),
+                              dtype=jnp.float64)).__name__
+    assert want_type == "HaloShardedEll"
+    a = cases.plan_error_matrix()
+    _, B = cases.windowed_start(a.shape[0], torch.float64)
+    res = ranks(k)
+    for r in res:
+        io = r["windowed"]["io"]
+        assert io["types"] == ["HaloShardedWindowed"] * 2
+        assert io["fallback"] == want_type
+        assert any("windowed-ELL plan failed" in w for w in io["fallback_warnings"])
+    # the shard that exceeds the cap is rank 0's; every other rank falls
+    # back because of it
+    assert "planes/chunk" in res[0]["windowed"]["io"]["fallback_warnings"][0]
+    from lanczos_tpu_torch.parallel import dist_operator as D
+
+    op = D.halo_sharded_ell(a, Mesh(0, k, torch.device("cpu"), None), dtype=torch.float64)
+    got = op.unpad_shards(torch.stack([r["windowed"]["io"]["fallback_mm"] for r in res]))
+    _assert_scaled(got, (a @ B.numpy().T).T, WIN_RTOL["float64"])
+
+
+@pytest.mark.parametrize("k", RANKS)
+def test_dryrun_rank_matches_jax(k, ranks):
+    """The dry run's three steps on the k ranks: its windowed (qr-TSQR) and
+    halo-ELL top Ritz values against JAX's block_lanczos_eigsh on its
+    operators on make_mesh(k) (the third and second steps of
+    __graft_entry__.dryrun_multichip), the same on every rank."""
+    from lanczos_tpu.methods.eigs import block_lanczos_eigsh as jax_eigsh
+    from lanczos_tpu.models.laplacian import laplacian_2d_scipy as jax_lap
+    from lanczos_tpu.parallel import halo_sharded_ell as jh
+    from lanczos_tpu.parallel.dist_windowed import halo_sharded_windowed as jw
+    from lanczos_tpu_torch.parallel import dryrun
+
+    a = jax_lap(16, 3 * k)
+    x = np.random.default_rng(0).standard_normal((dryrun.P, a.shape[0])).astype(np.float32)
+    jop = jh(a, jax_make_mesh(k), dtype=jnp.float32)
+    want, _, _ = jax_eigsh(jop, jop.pad_vector(x), dryrun.M, 2, which="LA")
+    jw_op = jw(a, jax_make_mesh(k), cpb=2, spg=2)
+    want_w, _, _ = jax_eigsh(jw_op, jw_op.pad_vector(x), dryrun.M, 2, which="LA",
+                             normalize="qr", breakdown_eps=1e-6, replace_dead=True)
+    res = ranks(k)
+    for r in res:
+        got = r["windowed"]["dryrun"]
+        np.testing.assert_allclose(got["vals"].numpy(), np.asarray(want),
+                                   rtol=WIN_JAX_RITZ_RTOL)
+        np.testing.assert_allclose(got["vals_w"].numpy(), np.asarray(want_w),
+                                   rtol=WIN_JAX_RITZ_RTOL)
+        torch.testing.assert_close(got["vals_w"], res[0]["windowed"]["dryrun"]["vals_w"],
+                                   rtol=0, atol=0)

@@ -8,6 +8,7 @@ seeds, so every rank, and the test, makes the same ones.
 """
 
 import os
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -34,6 +35,7 @@ from lanczos_tpu_torch.parallel import (
     DistributedPallasMaxwell,
     gather_sharded_ell,
     halo_sharded_ell,
+    halo_sharded_windowed,
 )
 from lanczos_tpu_torch.parallel.dist_stencil import slab_rows
 
@@ -107,7 +109,8 @@ EIGSH_GRID, EIGSH_M, EIGSH_K = (16, 15), 110, 4  # tests/test_parallel.py:122-13
 EXPM_M, EXPM_T = 10, 1.0
 # the repairs: checkpointed runs on this many ranks, stopped after a chunk
 REPAIR_RANKS, CK_M, CK_CHUNK, CK_STEPS = 2, 7, 3, 10
-JAX_CK_FILE, JAX_CK_STOPPED, JAX_CK_M = "jax_block.npz", 3, 6
+JAX_CK_FILES = {"halo": "jax_block.npz", "windowed": "jax_windowed_block.npz"}
+JAX_CK_STOPPED, JAX_CK_M = 3, 6
 
 
 def ell_matrices():
@@ -191,6 +194,97 @@ def ell_scenarios(mesh):
     return out
 
 
+# -- the row-sharded windowed-ELL operator -----------------------------------
+
+WIN_P, WIN_SEED = 3, 7
+WIN_EIGSH_M, WIN_EIGSH_K = 12, 3  # tests/test_dist_windowed.py:100-106
+
+
+def windowed_matrices():
+    """name -> (scipy matrix, reorder): tests/test_dist_windowed.py's
+    fixtures.  The 60 x 60 and 40 x 40 Laplacians; a 30 x 30 Laplacian
+    plus random noise in a band of half-width 300 (n=900: a halo of two
+    128-row shards), unreordered; a 2 x 200 bipartite matrix, which "rcm"
+    reorders; the 40 x 40 Laplacian with three spikes on its diagonal."""
+    n = 900
+    d = sp.random(n, n, density=0.002, random_state=3, format="coo")
+    keep = np.abs(d.row - d.col) <= 300
+    d = sp.coo_matrix((d.data[keep], (d.row[keep], d.col[keep])), shape=(n, n))
+    n2 = 200
+    b = sp.diags([np.ones(n2), 0.5 * np.ones(n2 - 1)], [0, 1], shape=(n2, n2))
+    spikes = np.zeros(1600)
+    spikes[:3] = [10.0, 8.0, 6.0]
+    return {"lap60": (laplacian_2d_scipy(60, 60).tocsr(), "auto"),
+            "lap40": (laplacian_2d_scipy(40, 40).tocsr(), "auto"),
+            "band300": ((laplacian_2d_scipy(30, 30) + d + d.T).tocsr(), "none"),
+            "bipartite": (sp.bmat([[None, b], [b.T, None]]).tocsr(), "rcm"),
+            "spiked": ((laplacian_2d_scipy(40, 40) + sp.diags(spikes)).tocsr(), "auto")}
+
+
+def plan_error_matrix():
+    """A 512-row matrix whose first 16 rows hold 60 nonzeros each: more
+    planes a chunk than the windowed plan's cap of 48, on the first shard
+    only at 2 or 4 ranks; the halo ELL takes it."""
+    a = sp.lil_matrix((512, 512))
+    a.setdiag(2.0)
+    for i in range(16):
+        a[i, :60] = 1.0
+    a = a.tocsr()
+    return (a + a.T).tocsr()
+
+
+def windowed_start(n: int, dtype):
+    """(b, B): a natural-order start vector and WIN_P-column block."""
+    rng = np.random.default_rng(WIN_SEED)
+    return (torch.from_numpy(rng.standard_normal(n)).to(dtype),
+            torch.from_numpy(rng.standard_normal((WIN_P, n))).to(dtype))
+
+
+def windowed_op(mesh, name, dtype=torch.float64):
+    a, reorder = windowed_matrices()[name]
+    return halo_sharded_windowed(a, mesh, dtype=dtype, reorder=reorder, cpb=2, spg=2)
+
+
+def windowed_scenarios(mesh, tmp):
+    """The row-sharded windowed-ELL operator on this mesh: products (one
+    chained), eigsh, io and auto with a mesh, and the dry run."""
+    from lanczos_tpu_torch.io import auto_operator, operator_from_file
+    from lanczos_tpu_torch.parallel.dryrun import dryrun_rank
+
+    out = {"products": {}}
+    for name, (a, _) in windowed_matrices().items():
+        for dname, dtype in DTYPES.items():
+            op = windowed_op(mesh, name, dtype)
+            b, B = windowed_start(a.shape[0], dtype)
+            U = op.pad_vector(B)
+            out["products"][name, dname] = {
+                "mv": op.mv(op.pad_vector(b)), "mm": op.mm(U),
+                "chain": op.mm(op.mm(U)), "roundtrip": op.unpad_vector(U)}
+    a = windowed_matrices()["spiked"][0]
+    op = windowed_op(mesh, "spiked", torch.float32)
+    _, B = windowed_start(a.shape[0], torch.float32)
+    vals, _, _ = block_lanczos_eigsh(op, op.pad_vector(B), WIN_EIGSH_M, WIN_EIGSH_K,
+                                     reorth="full")
+    out["eigsh"] = vals
+    path = os.path.join(tmp, "win.npz")
+    if mesh.rank == 0:
+        sp.save_npz(path, windowed_matrices()["lap40"][0])
+    mesh.barrier()
+    pe = plan_error_matrix()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        fallback = auto_operator(pe, mesh=mesh, dtype=torch.float64)
+    _, B = windowed_start(pe.shape[0], torch.float64)
+    out["io"] = {
+        "types": [type(operator_from_file(path, format=f, mesh=mesh)).__name__
+                  for f in ("windowed", "auto")],
+        "fallback": type(fallback).__name__,
+        "fallback_warnings": [str(w.message) for w in caught],
+        "fallback_mm": fallback.mm(fallback.pad_vector(B))}
+    out["dryrun"] = dryrun_rank(mesh)
+    return out
+
+
 class StopAfterFirstChunk(Exception):
     pass
 
@@ -240,9 +334,13 @@ def repairs(mesh, tmp):
                                                      zslab.spec_e.plane)))
     halo = ell_op(mesh, "laplacian", "halo")
     hb, hB = ell_start(halo.n_rows_true, torch.float64)
+    win = windowed_op(mesh, "lap40")
+    wb, wB = windowed_start(win.n_rows_true, torch.float64)
     ops = {"zslab": (zslab, zslab.pack(b), zslab.pack(B), lc_slab),
            "halo": (halo, halo.pad_vector(hb), halo.pad_vector(hB),
-                    halo.local_index(ELL_LC))}
+                    halo.local_index(ELL_LC)),
+           "windowed": (win, win.pad_vector(wb), win.pad_vector(wB),
+                        win.local_index(ELL_LC))}
     for name, (op, u, U, lc) in ops.items():
         runs = {
             "vector": (lambda p, op=op, u=u, lc=lc: ck.vector_lanczos_checkpointed(
@@ -269,11 +367,15 @@ def repairs(mesh, tmp):
         vals, vecs, _ = block_lanczos_eigsh(op, U, CK_M, 2, compute_vectors=True)
         out[name, "ritz"] = {"vals": vals, "vecs": vecs,
                              "resid": ritz_residuals(op, vals, vecs)}
-    jax_file = os.path.join(tmp, JAX_CK_FILE)
-    if os.path.exists(jax_file):  # written by the JAX package before the spawn
-        out["jax_resumed"] = _result(ck.block_lanczos_checkpointed(
-            halo, halo.pad_vector(hB), JAX_CK_M, halo.local_index(ELL_LC),
-            chunk=CK_CHUNK, path=jax_file))
+    # written by the JAX package before the spawn, on its halo ELL and its
+    # windowed operator
+    for key, (op, U) in {"halo": (halo, halo.pad_vector(hB)),
+                         "windowed": (win, win.pad_vector(wB))}.items():
+        jax_file = os.path.join(tmp, JAX_CK_FILES[key])
+        if os.path.exists(jax_file):
+            out["jax_resumed", key] = _result(ck.block_lanczos_checkpointed(
+                op, U, JAX_CK_M, op.local_index(ELL_LC), chunk=CK_CHUNK,
+                path=jax_file))
     return out
 
 
@@ -281,6 +383,8 @@ def scenarios(mesh, tmp=None):
     """Everything the test compares at one world size, in one spawn; tmp is
     a directory every rank can reach (the checkpoint repairs)."""
     out = {"ell": ell_scenarios(mesh)}
+    if tmp is not None:
+        out["windowed"] = windowed_scenarios(mesh, tmp)
     if mesh.size == REPAIR_RANKS and tmp is not None:
         out["repairs"] = repairs(mesh, tmp)
     for name, dtype in DTYPES.items():
