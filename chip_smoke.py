@@ -51,6 +51,20 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    K2, K3 every step, no K4, K5 for every FDTD step;
 7. the compensated slice (--compensated, m=6, p=4): the 3-call fused step
    with K7 for every Gram (m + 1 calls) and no K3 or K4;
+7b. bf16 folded-plane states (`PallasMaxwellOperator.create(dtype=
+   torch.bfloat16)`: f32 weights, f32 sums, bf16 storage) at N=160: K1
+   at p=8 and p=1, K2 and K3 at p=1 (the fused vector route's calls) and
+   K7 at p=4, each against its plain version (K1, K2 within one bf16 ulp;
+   K3 within f32 K3's KERNEL_RTOL; K7 within K7_RTOL), timed against it and
+   against a device copy of the same bytes; the vector slice's fused
+   route (vector_lanczos, m=8, from the CLI's start vector): K1, K2, K3
+   bf16 on every step and no other kernel, beta_0 within one bf16 ulp of
+   the f32 slice's and its first step within 2e-2 of scale (every step's
+   distance logged), A b within JAX's 5e-2 of the f32 operator's; 50 FDTD
+   steps at p=4 (K1 bf16 every step, no K5) against the same loop with
+   K1's plain version (2e-2 of scale), ms a step beside f32's K5; and
+   block_lanczos(compensated=True) at p=4 (K7 bf16 m + 1 times, K1 and K2
+   bf16 m times), finite, its distance from f32 logged;
 8. the assembled slice: `block_lanczos_eigsh` (p=8, m=12, k=5, reorth
    full, TSQR, breakdown_eps 1e-4, replace_dead) on the padded windowed
    operator of the 10.5M-row matrix, then `ritz_residuals`: K8 exactly 12
@@ -126,7 +140,8 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     BENCH_RTOL; K1 is also timed by `utils.timing.benchmark_chained`, so
     that the three protocols stand side by side;
 14. drivers: each benchmark driver's `main` once, at a cut size:
-    `kernel_bench --only copy_bw,spmm_stencil,block_mix,block_grams`
+    `kernel_bench --only copy_bw,spmm_stencil,spmm_stencil_bf16,block_mix,
+    block_grams`
     (--rows 4,000,000, --grid 96, --rows-copy 8,000,000; its roofline
     guard on), `sweep_lanczos` block p=4 at N = 64 and 80, `convergence`
     (N=3, f64, m <= 6, 100,000 FDTD steps: K5 and K1 in f64),
@@ -159,7 +174,8 @@ paths driven: slices, bench and drivers; bound_ms the larger of the bytes
 over the card's memory rate and the operations over its peak rate; K1,
 K2, K3, K5 and K8 also at p=1, in rows of their own that count the
 launches at p=1 of the vector slices: the CLI's and the assembled
-eigsh's), the nvidia-smi line, and as the last
+eigsh's; the bf16 kernels in rows of their own, "... bf16", counting
+their bf16 launches), the nvidia-smi line, and as the last
 line {"ok": true, "device": {...}}.  Without a CUDA device, or without the
 rest of the repository beside it, the script exits non-zero and prints no
 result.
@@ -238,6 +254,12 @@ REPLACES = {
 # every step of the assembled vector eigsh
 P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step",
            "block_mix")
+# the bf16 kernels' rows (K1 at p=8, and at p=1 with K2 and K3 in the bf16
+# vector slice; K7 at p=4), keyed by their launch counters (build.LAUNCHES:
+# bf16 launches count apart)
+BF16_ROWS = ("apply_stencil_pair bf16", "apply_stencil_pair bf16 p=1",
+             "block_mix bf16 p=1", "block_grams bf16 p=1",
+             "block_grams_compensated bf16")
 # phase 3's geometries: (nx, ny, nz), p, dtype name; the first is timed
 KERNEL_CASES = (
     ((N_SLICE,) * 3, P_SLICE, "float32"),
@@ -331,13 +353,18 @@ def phase_build(build):
         raise RuntimeError(f"the native engine did not build:\n{native_error[0]}")
     # ptxas -v: registers and spills per kernel instantiation, e.g.
     # "stencil_gram_kernel<f,4,0,1>: 127 registers, 0 bytes spill stores"
-    # (type, MAXP, TILED, FULL) or "gram_kernel<f,d,f,8,4,4>" (operand,
-    # sum and output types, R, C, VEC)
+    # (type, MAXP, TILED, FULL), "gram_kernel<f,d,f,8,4,4>" (operand,
+    # sum and output types, R, C, VEC) or "stencil_pair_kernel<bf16,f,2>"
+    # (state and weight types, lanes a thread)
     name, spills = None, ""
+    bf16 = "13__nv_bfloat16"
     for ln in build.build_log.splitlines():
-        m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I([fd]+)((?:L[ib]\d+E)*)E)?", ln)
+        m = re.search(r"\d([a-z][a-z_]*_kernel)(?:I((?:13__nv_bfloat16|[fd])+)"
+                      r"((?:L[ib]\d+E)*)E)?", ln)
         if "Compiling entry function" in ln and m:
-            args = list(m.group(2) or "") + re.findall(r"L[ib](\d+)E", m.group(3) or "")
+            types = re.findall(bf16 + "|[fd]", m.group(2) or "")
+            args = [("bf16" if t == bf16 else t) for t in types] + re.findall(
+                r"L[ib](\d+)E", m.group(3) or "")
             name = f"{m.group(1)}<{','.join(args)}>"
         m = re.search(r"(\d+) bytes spill stores", ln)
         if m:
@@ -933,6 +960,268 @@ def phase_compensated_slice(torch, build, results, failures):
     }, P_SLICE, failures, "compensated slice")
     op, b, tf = block_fixture(torch)
     block_lanczos_ms(torch, op, b, tf, compensated=True)
+
+
+# the bf16 phase: K1 at p=8 (the f32 p=4 call's bytes) and p=1, K2 and K3
+# at p=1 (the fused vector route), K7 at p=4; the vector slice's Krylov
+# dimension; FDTD steps at the block width, timed
+P_BF16_K1, P_BF16_K7, FDTD_BF16_STEPS = 8, 4, 50
+# one bf16 ulp of x is at most 2^-7 |x|: the kernel and its plain version
+# both sum in f32 and round once, and FMA contraction may move the f32 sum
+# across a rounding boundary; elements under 1e-6 of the largest |value|
+# are held to 1e-6 of it
+BF16_ULP = 2.0**-7
+# bf16 against f32 (and against the plain route): 2e-2 of scale, a few bf16
+# ulps (2^-8 each) of rounding carried over the first step or the 50 steps
+BF16_VS_F32 = 2e-2
+
+
+def within_bf16_ulp(torch, got, want):
+    """(max |got - want|, ok): elementwise within one bf16 ulp of want."""
+    got, want = got.float(), want.float()
+    bound = torch.clamp(BF16_ULP * want.abs(), min=1e-6 * want.abs().max().item())
+    diff = (got - want).abs()
+    return diff.max().item(), bool((diff <= bound).all())
+
+
+def lanczos_vs_f32(torch, r16, r32):
+    """Per-step differences of a bf16 Lanczos run from the f32 one: T's
+    entries (alphas, betas[1:]) over T's scale, betas[0] relative, the
+    trace over its scale."""
+    def per_step(a, b, scale):
+        return ((a.float() - b).abs() / scale).reshape(a.shape[0], -1).amax(1).tolist()
+
+    t = torch.cat([r32.alphas.flatten(), r32.betas[1:].flatten()]).abs().max()
+    b0 = ((r16.betas[0].float() - r32.betas[0]).abs().max()
+          / r32.betas[0].abs().max()).item()
+    return (per_step(r16.alphas, r32.alphas, t),
+            per_step(r16.betas[1:], r32.betas[1:], t), b0,
+            per_step(r16.trace, r32.trace, r32.trace.abs().max()))
+
+
+def phase_bf16(torch, build, results, failures):
+    """bf16 folded-plane states (f32 weights and sums) at N=160: each bf16
+    kernel against its plain version, timed beside a device copy of the
+    same bytes; then the vector slice's fused route at p=1 and the FDTD
+    oracle at p=4 on the bf16 operator, and a compensated block run (K7),
+    each with its launch counts read from 0."""
+    from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block
+    from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.models.rhs import gaussian_matrix_B, gaussian_vector_b
+    from lanczos_tpu_torch.ops.kernels import block_dense
+    from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair_plain
+
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    op = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, dtype=bf16, device=dev)
+    op32 = PallasMaxwellOperator.create(N_SLICE, N_SLICE, N_SLICE, device=dev)
+    if not (op.dtype == bf16 and op.wz_t.dtype == torch.float32
+            and torch.equal(op.wz_t, op32.wz_t)):
+        failures.append("bf16: the operator's weights are not the f32 ones")
+    S = math.prod(op.state_shape)
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows = results.setdefault("rows", {})
+
+    def rand(p):
+        x = torch.randn((p,) + op.state_shape, generator=g, device=dev)
+        return (x / x.flatten(1).norm(dim=1).view(-1, 1, 1, 1)).to(bf16)
+
+    def record(name, key, label, err, ok, kernel_fn, plain_fn, nbytes, ops,
+               ops_type="float32", library_fn=None, library_note=""):
+        log(f"  {label}: max_abs_err {err:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"bf16 {label} disagrees with its plain version")
+        ms, plain_ms = cuda_ms(torch, kernel_fn), cuda_ms(torch, plain_fn)
+        library_ms = None if library_fn is None else cuda_ms(torch, library_fn)
+        src = torch.empty(nbytes // 4, dtype=torch.float16, device=dev)
+        dst = torch.empty_like(src)
+        copy_ms = cuda_ms(torch, lambda: dst.copy_(src))  # the same bytes
+        del src, dst
+        log(f"    {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, device "
+            f"copy of the same {nbytes / 1e6:.1f} MB {copy_ms:.4f} ms; "
+            f"{nbytes / ms / 1e6:.1f} GB/s" + library_note)
+        rows.setdefault(key, kernel_row(name, err, ms, plain_ms, nbytes, ops,
+                                        ops_type, library_ms, key))
+
+    log(f"bf16 kernels vs plain at N={N_SLICE} (bf16 states, f32 weights and sums)")
+    for p, key in ((P_BF16_K1, "apply_stencil_pair bf16"),
+                   (1, "apply_stencil_pair bf16 p=1")):
+        u = rand(p)
+        plain = lambda: apply_stencil_pair_plain(  # noqa: E731
+            u, op.wz_t, op.wplane_s, op.spec_e, op.spec_h)
+        got = op.mm(u)
+        err, ok = within_bf16_ulp(torch, got, plain())
+        record("apply_stencil_pair", key, f"K1 bf16 p={p}", err,
+               ok and got.dtype == bf16, lambda: op.mm(u), plain,
+               2 * u.numel() * 2, 12 * p * S)
+        del u, got
+
+    # K2 and K3 at p=1: the fused vector route's calls (3 operands into a
+    # new buffer; (q,), v with include_zz); one buffer holds the three, so
+    # one torch.mm on the bf16 inputs is the library's (bf16 coefficients
+    # and a bf16 result, where the kernels keep f32 coefficients and return
+    # an f32 Gram)
+    stack = rand(3)
+    xs = list(stack.split(1))
+    coeffs = 0.1 * torch.randn((3, 1), generator=g, device=dev)
+    got = block_dense.block_mix(coeffs, xs)
+    err, ok = within_bf16_ulp(torch, got, block_dense.block_mix_plain(coeffs, xs))
+    c16 = coeffs.to(bf16)
+    record("block_mix", "block_mix bf16 p=1", "K2 bf16 block_mix 3 operands p=1",
+           err, ok and got.dtype == bf16, lambda: block_dense.block_mix(coeffs, xs),
+           lambda: block_dense.block_mix_plain(coeffs, xs), 4 * S * 2, 2 * 3 * S,
+           library_fn=lambda: c16.T @ stack.flatten(1),
+           library_note="; library: torch.mm on bf16 (coefficients rounded "
+                        "to bf16, bf16 out)")
+    q, v = xs[0], xs[1]
+    # K3 bf16: bf16 products are exact in f32, so it differs from its plain
+    # version only by the order of the f32 sums over the state's 28M
+    # elements, as f32 K3 does: the f32 Gram's KERNEL_RTOL of scale
+    got = block_dense.block_grams((q,), v, include_zz=True)
+    err, _, ok = compare(torch, got, block_dense.block_grams_plain(
+        (q,), v, include_zz=True), KERNEL_RTOL["float32"])
+    record("block_grams", "block_grams bf16 p=1",
+           "K3 bf16 block_grams (q,), v, include_zz p=1", err,
+           ok and got.dtype == torch.float32,
+           lambda: block_dense.block_grams((q,), v, include_zz=True),
+           lambda: block_dense.block_grams_plain((q,), v, include_zz=True),
+           2 * S * 2, 2 * 2 * S,
+           library_fn=lambda: stack[:2].flatten(1) @ v.flatten(1).T,
+           library_note="; library: torch.mm on bf16 (a bf16 Gram)")
+    for label, ops, zz in (("(), b, include_zz", (), True),
+                           ("(x0, x1, x2), z", tuple(xs), False)):
+        got = block_dense.block_grams(ops, v, include_zz=zz)
+        err, _, ok = compare(torch, got, block_dense.block_grams_plain(
+            ops, v, include_zz=zz), KERNEL_RTOL["float32"])
+        log(f"  K3 bf16 block_grams {label} p=1: max_abs_err {err:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"bf16 K3 {label} disagrees with its plain version")
+    del stack, xs, q, v, got
+
+    # K7 at p=4: bf16 widened to f32, f64 sums, an f32 Gram
+    q, v = rand(P_BF16_K7), rand(P_BF16_K7)
+    got = block_dense.block_grams_compensated((q,), v, include_zz=True)
+    want = block_dense.block_grams_compensated_plain((q,), v, include_zz=True)
+    err, rel, ok = compare(torch, got, want, K7_RTOL)
+    record("block_grams_compensated", "block_grams_compensated bf16",
+           f"K7 bf16 block_grams_compensated (q,), v, include_zz p={P_BF16_K7}",
+           err, ok and got.dtype == torch.float32,
+           lambda: block_dense.block_grams_compensated((q,), v, include_zz=True),
+           lambda: block_dense.block_grams_compensated_plain((q,), v, include_zz=True),
+           2 * q.numel() * 2, 2 * (2 * P_BF16_K7) * P_BF16_K7 * S,
+           ops_type="float64")
+    del q, v, got, want
+
+    # the vector slice's fused route at p=1 on the bf16 operator, from the
+    # CLI's start vector, against the f32 slice
+    tf = op.trace_fn(LC)
+    b_np = gaussian_vector_b(N_SLICE, op.n).astype("float32")
+    b32 = op32.pack(torch.from_numpy(b_np).to(dev))
+    b16 = op.pack(torch.from_numpy(b_np).to(dev))
+    log(f"bf16 vector slice: vector_lanczos(fused=True), N={N_SLICE}, m={M_VECTOR}")
+    build.reset_launches()
+    r16 = vector_lanczos(op, b16, M_VECTOR, trace_fn=tf, fused=True)
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, "bf16 vector")
+    log(f"  launches: { {k: c for k, c in launches.items() if c} }")
+    for name in ("apply_stencil_pair bf16", "block_mix bf16", "block_grams bf16"):
+        results.setdefault("p1_launches", {})[name] = launches[name]
+    want = {"apply_stencil_pair bf16": M_VECTOR, "block_mix bf16": M_VECTOR,
+            "block_grams bf16": M_VECTOR + 1}
+    if {k: c for k, c in launches.items() if c} != want:
+        failures.append(f"bf16 vector slice: launches {launches}, expected {want} "
+                        "and nothing else (no K4, no K5, no f32 kernel)")
+    r32 = vector_lanczos(op32, b32, M_VECTOR, trace_fn=tf, fused=True)
+    finite = all(bool(torch.isfinite(t.float()).all())
+                 for t in (r16.alphas, r16.betas, r16.trace))
+    if not (finite and r16.alphas.dtype == bf16 and r16.trace.shape == (M_VECTOR,)):
+        failures.append("bf16 vector slice: not finite / not bf16 of shape (m,)")
+    d_alpha, d_beta, d_b0, d_trace = lanczos_vs_f32(torch, r16, r32)
+    log(f"  vs the f32 slice, per step: |d alpha|/T {[f'{x:.2e}' for x in d_alpha]}; "
+        f"|d beta_j|/T {[f'{x:.2e}' for x in d_beta]}; |d beta_0|/beta_0 {d_b0:.2e}; "
+        f"|d trace|/max {[f'{x:.2e}' for x in d_trace]}")
+    # held: ||b|| to one bf16 ulp, and the first step (alpha_0, beta_1,
+    # trace_0) to BF16_VS_F32 of scale; later steps are logged, not held:
+    # from the slice's smooth start vector each product A q amplifies the
+    # states' bf16 rounding (white, 2^-9 of scale) against the smooth
+    # signal, so the two runs part by tens of percent within m=8 (PERF.md)
+    first = max(d_alpha[0], d_beta[0], d_trace[0])
+    if not (d_b0 <= BF16_ULP and first <= BF16_VS_F32):
+        failures.append(f"bf16 vector slice: beta_0 {d_b0:.2e} from f32 (bound "
+                        f"{BF16_ULP:.2e}), first step {first:.2e} (bound "
+                        f"{BF16_VS_F32:g})")
+    # the operator itself against f32 on the slice's start vector, at JAX's
+    # bound for its bf16 operator (tests/test_maxwell_pallas.py)
+    y16, y32 = op.mv(b16).float(), op32.mv(b32)
+    rel = ((y16 - y32).abs().max() / y32.abs().max()).item()
+    log(f"  A b: bf16 operator vs f32, {rel:.3e} of scale (bound 5e-2)")
+    if not rel < 5e-2:
+        failures.append(f"bf16 operator: A b {rel:.3e} of scale from f32")
+    del y16, y32
+    ms16 = cuda_ms(torch, lambda: vector_lanczos(op, b16, M_VECTOR, trace_fn=tf,
+                                                 fused=True), iters=3, warmup=1)
+    ms32 = cuda_ms(torch, lambda: vector_lanczos(op32, b32, M_VECTOR, trace_fn=tf,
+                                                 fused=True), iters=3, warmup=1)
+    log(f"  lanczos (m={M_VECTOR}): bf16 {ms16 / M_VECTOR:.3f} ms/iteration, f32 "
+        f"{ms32 / M_VECTOR:.3f}")
+
+    # FDTD at p=4: K1 then a bf16 add each step, never K5
+    B_np = gaussian_matrix_B(N_SLICE, op.n, P_SLICE).astype("float32")
+    B16 = op.pack(torch.from_numpy(B_np).to(dev))
+    t_end = FDTD_BF16_STEPS / FDTD_STEPS  # the CLI's dt
+    log(f"bf16 FDTD: fdtd_block, p={P_SLICE}, {FDTD_BF16_STEPS} steps")
+    build.reset_launches()
+    u16 = fdtd_block(op, B16, FDTD_BF16_STEPS, t_end)
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, "bf16 fdtd")
+    log(f"  launches: { {k: c for k, c in launches.items() if c} }")
+    if {k: c for k, c in launches.items() if c} != {
+            "apply_stencil_pair bf16": FDTD_BF16_STEPS}:
+        failures.append(f"bf16 FDTD: launches {launches}, expected K1 bf16 "
+                        f"{FDTD_BF16_STEPS} times and no K5")
+    # the plain route: the same loop with K1's plain version
+    a_dt = op.scaled(torch.tensor(t_end / FDTD_BF16_STEPS, dtype=bf16))
+    plain = B16
+    for _ in range(FDTD_BF16_STEPS):
+        plain = plain + apply_stencil_pair_plain(plain, a_dt.wz_t, a_dt.wplane_s,
+                                                 a_dt.spec_e, a_dt.spec_h)
+    err, rel, ok = compare(torch, u16, plain, BF16_VS_F32)
+    log(f"  vs the plain route: max_abs_err {err:.3e} rel {rel:.3e} "
+        f"(tol {BF16_VS_F32:g}) {'ok' if ok else 'FAIL'}")
+    if not (ok and u16.dtype == bf16):
+        failures.append("bf16 FDTD disagrees with its plain route")
+    step16 = fdtd_ms(torch, fdtd_block, op, B16, FDTD_BF16_STEPS)
+    step32 = fdtd_ms(torch, fdtd_block, op32, op32.pack(torch.from_numpy(B_np).to(dev)),
+                     FDTD_BF16_STEPS)
+    log(f"  fdtd: bf16 {step16:.4f} ms/step (K1 + add), f32 {step32:.4f} "
+        f"ms/step (K5), p={P_SLICE}")
+    del u16, plain, a_dt
+
+    # K7 on a main path: block Lanczos with compensated Grams on the bf16
+    # operator (the 3-call fused step: K2, K1, K7; JAX's runs too)
+    log(f"bf16 compensated block run: block_lanczos(compensated=True), "
+        f"p={P_SLICE}, m={M_SLICE}")
+    op_tf = op.trace_fn(LC)
+    build.reset_launches()
+    rb = block_lanczos(op, B16, M_SLICE, trace_fn=op_tf, compensated=True)
+    torch.cuda.synchronize()
+    launches = record_launches(build, results, "bf16 compensated")
+    log(f"  launches: { {k: c for k, c in launches.items() if c} }")
+    want = {"block_grams_compensated bf16": M_SLICE + 1,
+            "apply_stencil_pair bf16": M_SLICE, "block_mix bf16": M_SLICE}
+    if {k: c for k, c in launches.items() if c} != want:
+        failures.append(f"bf16 compensated run: launches {launches}, expected {want}")
+    if not all(bool(torch.isfinite(t.float()).all())
+               for t in (rb.alphas, rb.betas, rb.trace)):
+        failures.append("bf16 compensated run: not finite")
+    rb32 = block_lanczos(op32, op32.pack(torch.from_numpy(B_np).to(dev)), M_SLICE,
+                         trace_fn=op_tf, compensated=True)
+    d_alpha, d_beta, d_b0, d_trace = lanczos_vs_f32(torch, rb, rb32)
+    log(f"  vs f32, per step: |d alpha|/T {[f'{x:.2e}' for x in d_alpha]}; "
+        f"|d beta_j|/T {[f'{x:.2e}' for x in d_beta]}; |d beta_0| {d_b0:.2e}; "
+        f"|d trace|/max {[f'{x:.2e}' for x in d_trace]}")
 
 
 def small_windowed_cases():
@@ -1587,12 +1876,14 @@ def run_driver(torch, build, results, name, argv):
 def phase_drivers(torch, build, results, failures):
     """Each benchmark driver once at a cut size, with its own checks."""
     kb, launches = run_driver(torch, build, results, "kernel_bench", [
-        "--only", "copy_bw,spmm_stencil,block_mix,block_grams",
+        "--only", "copy_bw,spmm_stencil,spmm_stencil_bf16,block_mix,block_grams",
         "--rows", "4000000", "--grid", "96", "--rows-copy", "8000000"])
-    for name in ("apply_stencil_pair", "block_mix", "block_grams"):
+    for name in ("apply_stencil_pair", "block_mix", "block_grams",
+                 "apply_stencil_pair bf16"):
         if launches[name] <= 0:
             failures.append(f"kernel_bench: {name} never launched")
-    if set(kb) != {"copy_bw", "spmm_stencil", "block_mix", "block_grams"}:
+    if set(kb) != {"copy_bw", "spmm_stencil", "spmm_stencil_bf16", "block_mix",
+                   "block_grams"}:
         failures.append(f"kernel_bench: campaigns {sorted(kb)}")
 
     rows, launches = run_driver(torch, build, results, "sweep_lanczos", [
@@ -2381,6 +2672,7 @@ def main() -> int:
          lambda: phase_vector_slice(torch, build, results, failures)),
         ("compensated slice",
          lambda: phase_compensated_slice(torch, build, results, failures)),
+        ("bf16", lambda: phase_bf16(torch, build, results, failures)),
         ("assembled slice",
          lambda: phase_assembled_slice(torch, build, results, failures,
                                        assembled)),
@@ -2417,7 +2709,7 @@ def main() -> int:
     log(f"[all phases: {time.perf_counter() - t_start:.1f} s]")
 
     rows = results.get("rows", {})
-    keys = list(REPLACES) + [f"{k} p=1" for k in P1_ROWS]
+    keys = list(REPLACES) + [f"{k} p=1" for k in P1_ROWS] + list(BF16_ROWS)
     missing = [k for k in keys if k not in rows]
     if failures or missing:
         for f in failures or [f"no kernel results for {missing}"]:
@@ -2430,9 +2722,10 @@ def main() -> int:
     at_p1 = results.get("p1_launches", {})
 
     def launches(key):
-        name, _, width = key.partition(" ")
-        total = sum(c[name] for c in paths.values())
-        return at_p1.get(name, 0) if width else total - at_p1.get(name, 0)
+        counter = key.removesuffix(" p=1")  # a LAUNCHES name
+        total = sum(c.get(counter, 0) for c in paths.values())
+        at_one = at_p1.get(counter, 0)
+        return at_one if key.endswith(" p=1") else total - at_one
 
     kernels = [rows[k] | {"launches": launches(k)} for k in keys]
     if any(k["launches"] <= 0 for k in kernels):

@@ -13,6 +13,8 @@ Campaigns (`BENCHES`), each on the port's counterpart of the JAX one:
                          --grid-ell 160, the reference's 24.6M rows, builds)
   spmm_dia, spmm_bsr     DIA and BSR (windowed engine = K8, einsum engine)
   spmm_stencil           the Maxwell stencil SpMM: K1
+  spmm_stencil_bf16      the same on the bf16 operator's state (f32 weights
+                         and sums): K1's bf16 instantiation
   spmm_windowed          the windowed-ELL SpMM: K8
   copy_bw                y <- 1 - y, one read and one write of the state
   block_mix              K2, into a fresh buffer and in place
@@ -250,24 +252,26 @@ def bench_spmm_bsr(args, dev):
     return out
 
 
-def bench_spmm_stencil(args, dev):
+def bench_spmm_stencil(args, dev, dtype=torch.float32):
     """The Maxwell stencil SpMM, K1, with the copy rate of the same state
-    measured in the same window beside each row (`pct_of_copy`)."""
+    measured in the same window beside each row (`pct_of_copy`).  Bytes
+    count the state's own element size (2 for a bf16 state)."""
     from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
 
     N = args.grid
-    op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    op = PallasMaxwellOperator.create(N, N, N, dtype=dtype, device=dev)
     x1 = op.pack(_randn((op.n,), dev))
     damped = op.scaled(norm_scale(op.mv, x1))
     rows, out = op.n, []
     for p in [1, 2, 4, 8]:
         x = op.pack(_randn((rows,) if p == 1 else (p, rows), dev))
+        bs = x.element_size()
         step = (lambda y, a: a.mv(y)) if p == 1 else (lambda y, a: a.mm(y))
         s = slope_time_chain(step, x, damped, damp=None)
-        state_rate = 2 * x.numel() * 4 / s / 1e9  # physical padded, r+w
+        state_rate = 2 * x.numel() * bs / s / 1e9  # physical padded, r+w
         row = {"n_col": p, "rows": rows, "seconds": s,
                "nnz_per_s": 4 * rows * p / s,
-               "gbps": 2 * rows * p * 4 / s / 1e9,
+               "gbps": 2 * rows * p * bs / s / 1e9,
                "gflops": 8.0 * rows * p / s / 1e9}
         if dev.type == "cuda":
             rate = copy_rate(x)
@@ -437,6 +441,10 @@ BENCHES = {
     "spmm_ell": bench_spmm_ell,
     "spmm_dia": bench_spmm_dia,
     "spmm_stencil": bench_spmm_stencil,
+    # bf16 states halve the bytes of the memory-bound K1 (JAX
+    # bench_spmm_stencil_bf16)
+    "spmm_stencil_bf16": lambda args, dev: bench_spmm_stencil(
+        args, dev, dtype=torch.bfloat16),
     "spmm_windowed": bench_spmm_windowed,
     "spmm_bsr": bench_spmm_bsr,
     "copy_bw": bench_copy_bw,

@@ -11,7 +11,11 @@
 // (the Python wrapper hands in outputs and scratch from torch.empty) and
 // returns cudaGetLastError(), which the wrapper raises on.  dtype 0 is
 // float32, 1 is float64; both accumulate in their own type, except K7,
-// which takes float32 and accumulates in float64.
+// which takes float32 and accumulates in float64.  dtype 2 is a bfloat16
+// state (K1, K2, K3 and K7 only; the others refuse it): bf16 loads and
+// stores, float32 weights, coefficients and sums, one round-to-nearest-
+// even store (JAX's astype), as the Pallas kernels promote a bf16 state to
+// their f32 weights (lanczos_tpu/ops/pallas/stencil_kernel.py:193-197).
 //
 // K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
 // (Zc, P) fields), and do a handful of flops per element, so device memory
@@ -33,12 +37,34 @@
 // adds them in block order.  No float atomics, so the Lanczos
 // coefficients repeat run to run.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 #include <type_traits>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
+
+// A state element of type S as the compute type W, and back: bf16 widens
+// exactly to float and is stored rounded to nearest even; float32 and
+// float64 states compute in their own type.
+template <typename W, typename S>
+__device__ __forceinline__ W widen(S v) {
+  if constexpr (std::is_same_v<S, bf16>)
+    return W(__bfloat162float(v));
+  else
+    return W(v);
+}
+
+template <typename S, typename W>
+__device__ __forceinline__ S narrow(W v) {
+  if constexpr (std::is_same_v<S, bf16>)
+    return __float2bfloat16_rn(float(v));
+  else
+    return S(v);
+}
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
@@ -155,6 +181,15 @@ __device__ __forceinline__ void block_sum(T (&acc)[NACC], T* red) {
 // no order and would overwrite rows a neighbour still stages, so out is a
 // second buffer (the caller swaps the two), never u.  No sum crosses a
 // block: the result repeats bit for bit.
+// K1 also takes a bf16 state (dtype 2), as the Pallas kernel does
+// (stencil_kernel.py:109-113, :193-197): the same strips, 512 lanes, and
+// f32 plane weights in registers; a staged row is bf16, 8 lanes a 16-byte
+// cp.async (halos in whole 8-lane words, so row % 8 == 0 and the f32
+// z-weights after the ring stay 16-byte aligned); a tap widens its bf16
+// read from shared memory to f32, the sums run in f32 and the store
+// rounds once, to nearest even.  Half the bytes of f32 at the same
+// arithmetic: 2 * 449.8 MB at N=160 p=8 (0.2686 ms at 3.35 TB/s), 2 *
+// 56.2 MB at p=1.  K5 takes no bf16 (JAX's plan refuses it).
 
 // staged rows: z-1, z, z+1, two ahead, and the row the slowest warp may
 // still read while the others stage the next one
@@ -271,14 +306,19 @@ __device__ __forceinline__ void stage_sources(const int (&off)[6],
 // words.  One barrier a row: a thread may stage a row, or fetch the next
 // row's z-weights, while a slower warp still computes the previous row,
 // whose slots and z-weight buffer the new ones do not touch.
-template <typename T, bool kAddInput, int LPT>
+// The state (u, out, the staged rows) is of type S, the weights and sums of
+// type W: S = W for float32 and float64; a bf16 state (S = bf16, W =
+// float) is staged as it is stored, 8 lanes a 16-byte copy, widened when a
+// tap reads it from shared memory, and rounded once on store.
+template <typename S, typename W, bool kAddInput, int LPT>
 __device__ __forceinline__ void strip_stencil_body(
-    const T* __restrict__ u, T* __restrict__ out, const T* __restrict__ wz,
-    const T* __restrict__ wp, const StripArgs& a) {
-  constexpr int V = 16 / (int)sizeof(T);
+    const S* __restrict__ u, S* __restrict__ out, const W* __restrict__ wz,
+    const W* __restrict__ wp, const StripArgs& a) {
+  constexpr int V = 16 / (int)sizeof(S);
   extern __shared__ __align__(16) unsigned char stencil_smem[];
-  T* ring = reinterpret_cast<T*>(stencil_smem);
-  T* wrows = ring + kStencilSlots * a.row;  // 16-byte aligned: row % V == 0
+  S* ring = reinterpret_cast<S*>(stencil_smem);
+  // 16-byte aligned: row % V == 0, so the ring is whole 16-byte words
+  W* wrows = reinterpret_cast<W*>(ring + kStencilSlots * a.row);
   const int l0 = blockIdx.x * a.width;
   const int w = min(a.width, a.plane - l0);
   const int z0 = blockIdx.y * a.zchunk;
@@ -300,10 +340,10 @@ __device__ __forceinline__ void strip_stencil_body(
         wh = c / 3;
       }
   // the strip's plane weights, kept for every row and column
-  T wpr[6][kMaxTaps][LPT];
+  W wpr[6][kMaxTaps][LPT];
 #pragma unroll
   for (int c = 0; c < 6; ++c) {
-    const T* wph = wp + (long long)(c / 3) * a.nt * a.plane + l0;
+    const W* wph = wp + (long long)(c / 3) * a.nt * a.plane + l0;
 #pragma unroll
     for (int k = 0; k < kMaxTaps; ++k) {
 #pragma unroll
@@ -311,7 +351,7 @@ __device__ __forceinline__ void strip_stencil_body(
         const int i = threadIdx.x + j * kThreads;
         wpr[c][k][j] = k < a.n[c] && i < w
                            ? __ldg(wph + (long long)a.t[c][k] * a.plane + i)
-                           : T(0);
+                           : W(0);
       }
     }
   }
@@ -322,7 +362,7 @@ __device__ __forceinline__ void strip_stencil_body(
   for (int b = 0; b < a.p; ++b) {
     for (int z = z0; z < z1; ++z) {
       const int sc = b * nr + (z - z0 + 1);  // this row's item
-      T* wrow = wrows + (sc & 1) * kRowWeights;
+      W* wrow = wrows + (sc & 1) * kRowWeights;
       // items up to sc + 1 + kStencilAhead go into the slots of items
       // before sc - 2, whose last reader finished before the last barrier;
       // a new column's first row skips two items, so it waits for the
@@ -332,11 +372,12 @@ __device__ __forceinline__ void strip_stencil_body(
         if (issued < items) {
           const int bb = issued / nr;
           const int zz = z0 - 1 + issued - bb * nr;
-          T* slot = ring + (issued % kStencilSlots) * a.row;
+          S* slot = ring + (issued % kStencilSlots) * a.row;
           if (zz < 0 || zz >= a.zc) {
-            for (int e = threadIdx.x; e < a.row; e += kThreads) slot[e] = T(0);
+            for (int e = threadIdx.x; e < a.row; e += kThreads)
+              slot[e] = narrow<S>(W(0));
           } else {
-            const T* plane = u + bb * a.state + (long long)zz * a.plane;
+            const S* plane = u + bb * a.state + (long long)zz * a.plane;
 #pragma unroll
             for (int m = 0; m < kStageCopies; ++m)
               if (src[m] >= 0)
@@ -349,21 +390,21 @@ __device__ __forceinline__ void strip_stencil_body(
       if (threadIdx.x < kRowWeights)
         wrow[threadIdx.x] =
             wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + z) * a.nt + wcol)
-                      : T(0);
+                      : W(0);
       cp_async_wait<kStencilAhead>();  // items up to sc + 1 have landed
       __syncthreads();  // ... for every thread, with zeros and z-weights
       const int rm = ((sc - 1) % kStencilSlots) * a.row;
       const int r0 = (sc % kStencilSlots) * a.row;
       const int rp = ((sc + 1) % kStencilSlots) * a.row;
-      T* ob = out + b * a.state + (long long)z * a.plane + l0;
+      S* ob = out + b * a.state + (long long)z * a.plane + l0;
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
         const int h = c / 3;
-        T wzv[kMaxTaps];
+        W wzv[kMaxTaps];
         lds4(wrow + c * kMaxTaps, wzv);
         // each tap's staged row at this thread's first lane; lane j is
         // j * kThreads elements on
-        const T* rt[kMaxTaps];
+        const S* rt[kMaxTaps];
 #pragma unroll
         for (int k = 0; k < kMaxTaps; ++k) {
           const int d = a.dz[c][k];
@@ -372,10 +413,10 @@ __device__ __forceinline__ void strip_stencil_body(
         }
         // every lane of the strip reads staged lanes (a plane narrower
         // than the strip is staged wrapped); only the stores stop at w
-        auto tap = [&](int k, int j) { return rt[k][j * kThreads]; };
-        T acc[LPT];
+        auto tap = [&](int k, int j) { return widen<W>(rt[k][j * kThreads]); };
+        W acc[LPT];
 #pragma unroll
-        for (int j = 0; j < LPT; ++j) acc[j] = T(0);
+        for (int j = 0; j < LPT; ++j) acc[j] = W(0);
         if (a.paired[h]) {
 #pragma unroll
           for (int k = 0; k + 1 < kMaxTaps; k += 2) {
@@ -403,12 +444,13 @@ __device__ __forceinline__ void strip_stencil_body(
               acc[j] += (tap(k, j) * wpr[c][k][j]) * wzv[k];
           }
         }
-        const T* center = ring + r0 + a.off[c] + a.left[c] + threadIdx.x;
-        T* oc = ob + (long long)c * comp + threadIdx.x;
+        const S* center = ring + r0 + a.off[c] + a.left[c] + threadIdx.x;
+        S* oc = ob + (long long)c * comp + threadIdx.x;
 #pragma unroll
         for (int j = 0; j < LPT; ++j) {
           if (threadIdx.x + j * kThreads < w)
-            oc[j * kThreads] = kAddInput ? center[j * kThreads] + acc[j] : acc[j];
+            oc[j * kThreads] = narrow<S>(
+                kAddInput ? widen<W>(center[j * kThreads]) + acc[j] : acc[j]);
         }
       }
     }
@@ -416,20 +458,20 @@ __device__ __forceinline__ void strip_stencil_body(
   cp_async_wait<0>();  // only empty groups can still be open
 }
 
-template <typename T, int LPT>
-__global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
-    stencil_pair_kernel(const T* __restrict__ u, T* __restrict__ out,
-                        const T* __restrict__ wz, const T* __restrict__ wp,
+template <typename S, typename W, int LPT>
+__global__ void __launch_bounds__(kThreads, StripTraits<S, LPT>::kMinBlocks)
+    stencil_pair_kernel(const S* __restrict__ u, S* __restrict__ out,
+                        const W* __restrict__ wz, const W* __restrict__ wp,
                         const __grid_constant__ StripArgs a) {
-  strip_stencil_body<T, false, LPT>(u, out, wz, wp, a);
+  strip_stencil_body<S, W, false, LPT>(u, out, wz, wp, a);
 }
 
-template <typename T, int LPT>
-__global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
-    fdtd_step_kernel(const T* __restrict__ u, T* __restrict__ out,
-                     const T* __restrict__ wz, const T* __restrict__ wp,
+template <typename S, typename W, int LPT>
+__global__ void __launch_bounds__(kThreads, StripTraits<S, LPT>::kMinBlocks)
+    fdtd_step_kernel(const S* __restrict__ u, S* __restrict__ out,
+                     const W* __restrict__ wz, const W* __restrict__ wp,
                      const __grid_constant__ StripArgs a) {
-  strip_stencil_body<T, true, LPT>(u, out, wz, wp, a);
+  strip_stencil_body<S, W, true, LPT>(u, out, wz, wp, a);
 }
 
 // ---------------------------------------------------------------------------
@@ -440,42 +482,48 @@ __global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
 // (K, p_out) coefficients sit in shared memory.  One thread owns one
 // position across all rows and reads all K inputs there before it writes
 // any output, so out may alias x0 (inplace=True) without a race; for that
-// reason no pointer here is __restrict__.
-template <typename T, int MAXPO>
+// reason no pointer here is __restrict__.  States of type T, coefficients
+// and sums of type W (T = W, but float for a bf16 state: one rounding on
+// store, block_dense.py:142-143; 4 * 56.2 MB for the fused vector route's
+// 3-operand call at N=160 p=1).
+template <typename T, typename W, int MAXPO>
 __global__ void __launch_bounds__(kThreads)
     block_mix_kernel(const T* x0, int p0, const T* x1, int p1, const T* x2,
-                     int p2, const T* coeffs, T* out, int p_out,
+                     int p2, const W* coeffs, T* out, int p_out,
                      long long S) {
   extern __shared__ __align__(16) unsigned char smem[];
-  T* sc = reinterpret_cast<T*>(smem);
+  W* sc = reinterpret_cast<W*>(smem);
   const int K = p0 + p1 + p2;
   for (int i = threadIdx.x; i < K * p_out; i += blockDim.x) sc[i] = coeffs[i];
   __syncthreads();
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
        s += stride) {
-    T acc[MAXPO];
+    W acc[MAXPO];
 #pragma unroll
-    for (int j = 0; j < MAXPO; ++j) acc[j] = T(0);
+    for (int j = 0; j < MAXPO; ++j) acc[j] = W(0);
     for (int k = 0; k < K; ++k) {
       const T* row = k < p0 ? x0 + (long long)k * S
                      : k < p0 + p1 ? x1 + (long long)(k - p0) * S
                                    : x2 + (long long)(k - p0 - p1) * S;
-      const T xv = row[s];
-      const T* ck = sc + k * p_out;
+      const W xv = widen<W>(row[s]);
+      const W* ck = sc + k * p_out;
 #pragma unroll
       for (int j = 0; j < MAXPO; ++j)
         if (j < p_out) acc[j] += ck[j] * xv;
     }
 #pragma unroll
     for (int j = 0; j < MAXPO; ++j)
-      if (j < p_out) out[(long long)j * S + s] = acc[j];
+      if (j < p_out) out[(long long)j * S + s] = narrow<T>(acc[j]);
   }
 }
 
 // ---------------------------------------------------------------------------
 // K3: gram(cat(x0..x3), z)[k, j] = <row_k, z_j>, f32 sums for f32 and f64
-// for f64; K7 runs the same kernel with f64 sums of f32 operands.
+// for f64; K7 runs the same kernel with f64 sums of f32 operands.  bf16
+// operands (gram<bf16, float, float>, and K7's gram<bf16, double, float>)
+// load 8 a 16-byte word, keep them packed (Pack<bf16, 8>) and widen each
+// exactly to the sum type: an f32 Gram, as JAX's (block_dense.py:232).
 // Replaces block_grams (lanczos_tpu/ops/pallas/block_dense.py:210); with
 // include_zz the wrapper passes z itself as x3.
 // Bound: device memory.  Each operand row is read once; the main path's
@@ -527,26 +575,67 @@ __device__ __forceinline__ const T* row_ptr(const Rows<T>& rows, int k,
 }
 
 // VEC consecutive elements at p: one 16-byte load when VEC > 1 (p then
-// 16-byte aligned), else one scalar load.
+// 16-byte aligned), else one scalar load.  Element i as the sum type Acc:
+// get<Acc>(i).
 template <typename T, int VEC>
-__device__ __forceinline__ void load_vec(const T* __restrict__ p,
-                                         T (&v)[VEC]) {
-  if constexpr (VEC == 1) {
-    v[0] = __ldg(p);
-  } else if constexpr (VEC == 4) {
-    static_assert(sizeof(T) == 4, "four-wide loads are float4");
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    v[0] = f.x;
-    v[1] = f.y;
-    v[2] = f.z;
-    v[3] = f.w;
-  } else {
-    static_assert(VEC == 2 && sizeof(T) == 8, "two-wide loads are double2");
-    const double2 d = __ldg(reinterpret_cast<const double2*>(p));
-    v[0] = d.x;
-    v[1] = d.y;
+struct Pack {
+  T v[VEC];
+
+  __device__ __forceinline__ void load(const T* __restrict__ p) {
+    if constexpr (VEC == 1) {
+      v[0] = __ldg(p);
+    } else if constexpr (VEC == 4) {
+      static_assert(sizeof(T) == 4, "four-wide loads are float4");
+      const float4 f = __ldg(reinterpret_cast<const float4*>(p));
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
+    } else {
+      static_assert(VEC == 2 && sizeof(T) == 8, "two-wide loads are double2");
+      const double2 d = __ldg(reinterpret_cast<const double2*>(p));
+      v[0] = d.x;
+      v[1] = d.y;
+    }
   }
-}
+
+  template <typename Acc>
+  __device__ __forceinline__ Acc get(int i) const {
+    return Acc(v[i]);
+  }
+};
+
+// Eight bf16 a 16-byte load, kept as the four 32-bit words they arrive in
+// (half the registers of eight widened floats); a bf16 is the high half of
+// the float it widens to, so element i widens exactly by a shift or a mask.
+template <>
+struct Pack<bf16, 8> {
+  uint4 w;
+
+  __device__ __forceinline__ void load(const bf16* __restrict__ p) {
+    w = __ldg(reinterpret_cast<const uint4*>(p));
+  }
+
+  template <typename Acc>
+  __device__ __forceinline__ Acc get(int i) const {
+    const unsigned word = i < 4 ? (i < 2 ? w.x : w.y) : (i < 6 ? w.z : w.w);
+    return Acc(__uint_as_float(i & 1 ? word & 0xffff0000u : word << 16));
+  }
+};
+
+template <>
+struct Pack<bf16, 1> {
+  bf16 v;
+
+  __device__ __forceinline__ void load(const bf16* __restrict__ p) {
+    v = __ldg(p);
+  }
+
+  template <typename Acc>
+  __device__ __forceinline__ Acc get(int) const {
+    return widen<Acc>(v);
+  }
+};
 
 // Register budget of an R x C tile summed in Acc: its accumulators take
 // R * C * sizeof(Acc) / 4 registers.  Up to 8 leave room for 4 blocks of
@@ -569,14 +658,14 @@ __device__ __forceinline__ void gram_trip(const T* (&xr)[R],
                                           const T* (&zr)[C],
                                           long long v, long long stride,
                                           Acc (&acc)[R * C]) {
-  T xv[NV][R][VEC], zv[NV][C][VEC];
+  Pack<T, VEC> xv[NV][R], zv[NV][C];
 #pragma unroll
   for (int u = 0; u < NV; ++u) {
     const long long e = (v + u * stride) * VEC;
 #pragma unroll
-    for (int j = 0; j < C; ++j) load_vec<T, VEC>(zr[j] + e, zv[u][j]);
+    for (int j = 0; j < C; ++j) zv[u][j].load(zr[j] + e);
 #pragma unroll
-    for (int k = 0; k < R; ++k) load_vec<T, VEC>(xr[k] + e, xv[u][k]);
+    for (int k = 0; k < R; ++k) xv[u][k].load(xr[k] + e);
   }
 #pragma unroll
   for (int u = 0; u < NV; ++u)
@@ -586,7 +675,8 @@ __device__ __forceinline__ void gram_trip(const T* (&xr)[R],
       for (int j = 0; j < C; ++j)
 #pragma unroll
         for (int i = 0; i < VEC; ++i)
-          acc[k * C + j] += Acc(xv[u][k][i]) * Acc(zv[u][j][i]);
+          acc[k * C + j] += xv[u][k].template get<Acc>(i) *
+                            zv[u][j].template get<Acc>(i);
 }
 
 // The (K, p) Gram of operands of type T with sums in Acc, rounded to TOut
@@ -1402,7 +1492,9 @@ int strip_plan(const int* plan, int zc, int plane, int ncomp, int vec,
 // at the thread's own lanes); a plan or tap table the kernel cannot run (a
 // halo short of a tap's roll, a plan that strip_plan refuses, a
 // shared-memory size that is not the plan's) gives cudaErrorInvalidValue.
-template <typename T>
+// The ring holds state elements (T), the extra ones weights (W: float for
+// a bf16 state; K4 takes f32 and f64 only, so its dst_old rows are W too).
+template <typename T, typename W = T>
 int strip_args(const int* taps, const int* plan, int p, int zc, int plane,
                int nt, int ring_rows, int extra, bool own_lane_z,
                StripArgs& a, dim3& grid, size_t& smem, int& lpt) {
@@ -1425,7 +1517,7 @@ int strip_args(const int* taps, const int* plan, int p, int zc, int plane,
     a.off[c] = sp.off[c];
     a.left[c] = sp.left[c];
   }
-  smem = ((size_t)ring_rows * a.row + extra) * sizeof(T);
+  smem = (size_t)ring_rows * a.row * sizeof(T) + (size_t)extra * sizeof(W);
   if (smem != (size_t)plan[5]) return bad;
   for (int h = 0; h < 2; ++h) a.paired[h] = tp.paired[h];
   for (int c = 0; c < 6; ++c) {
@@ -1547,11 +1639,14 @@ int blocks_per_sm(Kernel kernel, int prepared, size_t smem,
 }
 
 // One K1/K5 instantiation: its launch, and its blocks an SM.  The
-// shared-memory attributes are set once per device.
-template <typename T, bool kAddInput, int LPT>
+// shared-memory attributes are set once per device.  State T, weights W.
+template <typename T, typename W, bool kAddInput, int LPT>
 struct Strip {
   static auto kernel() {
-    return kAddInput ? fdtd_step_kernel<T, LPT> : stencil_pair_kernel<T, LPT>;
+    if constexpr (kAddInput)
+      return fdtd_step_kernel<T, W, LPT>;
+    else
+      return stencil_pair_kernel<T, W, LPT>;
   }
 
   static int prepare() {
@@ -1566,7 +1661,7 @@ struct Strip {
     if (err) return err;
     kernel()<<<grid, kThreads, smem, st>>>(
         static_cast<const T*>(u), static_cast<T*>(out),
-        static_cast<const T*>(wz), static_cast<const T*>(wp), a);
+        static_cast<const W*>(wz), static_cast<const W*>(wp), a);
     return finish();
   }
 
@@ -1575,7 +1670,7 @@ struct Strip {
   }
 };
 
-template <typename T, bool kAddInput>
+template <typename T, bool kAddInput, typename W = T>
 int strip_stencil(const void* u, void* out, const void* wz, const void* wp,
                   const int* taps, const int* plan, int p, int zc, int plane,
                   int nt, cudaStream_t st) {
@@ -1583,19 +1678,20 @@ int strip_stencil(const void* u, void* out, const void* wz, const void* wp,
   dim3 grid;
   size_t smem = 0;
   int lpt = 0;
-  const int err = strip_args<T>(taps, plan, p, zc, plane, nt, kStencilSlots,
-                                2 * kRowWeights, false, a, grid, smem, lpt);
+  const int err = strip_args<T, W>(taps, plan, p, zc, plane, nt,
+                                   kStencilSlots, 2 * kRowWeights, false, a,
+                                   grid, smem, lpt);
   if (err) return err;
-  return lpt == 1 ? Strip<T, kAddInput, 1>::launch(u, out, wz, wp, a, grid,
-                                                   smem, st)
-                  : Strip<T, kAddInput, 2>::launch(u, out, wz, wp, a, grid,
-                                                   smem, st);
+  return lpt == 1 ? Strip<T, W, kAddInput, 1>::launch(u, out, wz, wp, a,
+                                                      grid, smem, st)
+                  : Strip<T, W, kAddInput, 2>::launch(u, out, wz, wp, a,
+                                                      grid, smem, st);
 }
 
-template <typename T, bool kAddInput>
+template <typename T, bool kAddInput, typename W = T>
 int strip_occupancy(int lpt, size_t smem) {
-  if (lpt == 1) return Strip<T, kAddInput, 1>::occupancy(smem);
-  if (lpt == 2) return Strip<T, kAddInput, 2>::occupancy(smem);
+  if (lpt == 1) return Strip<T, W, kAddInput, 1>::occupancy(smem);
+  if (lpt == 2) return Strip<T, W, kAddInput, 2>::occupancy(smem);
   return -1;
 }
 
@@ -1714,34 +1810,34 @@ int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
              : GenStrip<T, 2, 0>::launch(u, out, wz, wp, a, grid, smem, st);
 }
 
-template <typename T, int MAXPO>
+template <typename T, typename W, int MAXPO>
 int block_mix_t(const void* x0, int p0, const void* x1, int p1,
                 const void* x2, int p2, const void* coeffs, void* out,
                 int p_out, long long S, int nblocks, cudaStream_t st) {
-  const size_t smem = sizeof(T) * (size_t)(p0 + p1 + p2) * p_out;
-  block_mix_kernel<T, MAXPO><<<nblocks, kThreads, smem, st>>>(
+  const size_t smem = sizeof(W) * (size_t)(p0 + p1 + p2) * p_out;
+  block_mix_kernel<T, W, MAXPO><<<nblocks, kThreads, smem, st>>>(
       static_cast<const T*>(x0), p0, static_cast<const T*>(x1), p1,
-      static_cast<const T*>(x2), p2, static_cast<const T*>(coeffs),
+      static_cast<const T*>(x2), p2, static_cast<const W*>(coeffs),
       static_cast<T*>(out), p_out, S);
   return finish();
 }
 
-template <typename T>
+template <typename T, typename W = T>
 int block_mix(const void* x0, int p0, const void* x1, int p1, const void* x2,
               int p2, const void* coeffs, void* out, int p_out, long long S,
               int nblocks, cudaStream_t st) {
   if (p_out <= 4)
-    return block_mix_t<T, 4>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                             nblocks, st);
+    return block_mix_t<T, W, 4>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                S, nblocks, st);
   if (p_out <= 8)
-    return block_mix_t<T, 8>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                             nblocks, st);
+    return block_mix_t<T, W, 8>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                S, nblocks, st);
   if (p_out <= 16)
-    return block_mix_t<T, 16>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                              nblocks, st);
+    return block_mix_t<T, W, 16>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                 S, nblocks, st);
   if (p_out <= 32)
-    return block_mix_t<T, 32>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                              nblocks, st);
+    return block_mix_t<T, W, 32>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                 S, nblocks, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1825,24 +1921,45 @@ int windowed_spmm(const void* data, const void* lidx, const void* off,
 
 extern "C" {
 
+// dtype: 0 float32, 1 float64, 2 a bf16 state (f32 weights, coefficients
+// and sums) where the kernel has it; any other code is refused.
+constexpr int kF32 = 0, kF64 = 1, kBF16 = 2;
+constexpr int kBadType = (int)cudaErrorInvalidValue;
+
 int lt_stencil_pair(int dtype, const void* u, void* out, const void* wz,
                     const void* wp, const int* taps, const int* plan, int p,
                     int zc, int plane, int nt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? strip_stencil<float, false>(u, out, wz, wp, taps, plan,
-                                                  p, zc, plane, nt, st)
-                    : strip_stencil<double, false>(u, out, wz, wp, taps, plan,
-                                                   p, zc, plane, nt, st);
+  switch (dtype) {
+    case kF32:
+      return strip_stencil<float, false>(u, out, wz, wp, taps, plan, p, zc,
+                                         plane, nt, st);
+    case kF64:
+      return strip_stencil<double, false>(u, out, wz, wp, taps, plan, p, zc,
+                                          plane, nt, st);
+    case kBF16:
+      return strip_stencil<bf16, false, float>(u, out, wz, wp, taps, plan, p,
+                                               zc, plane, nt, st);
+  }
+  return kBadType;
 }
 
 int lt_block_mix(int dtype, const void* x0, int p0, const void* x1, int p1,
                  const void* x2, int p2, const void* coeffs, void* out,
                  int p_out, long long S, int nblocks, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? block_mix<float>(x0, p0, x1, p1, x2, p2, coeffs, out,
-                                       p_out, S, nblocks, st)
-                    : block_mix<double>(x0, p0, x1, p1, x2, p2, coeffs, out,
-                                        p_out, S, nblocks, st);
+  switch (dtype) {
+    case kF32:
+      return block_mix<float>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
+                              nblocks, st);
+    case kF64:
+      return block_mix<double>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
+                               nblocks, st);
+    case kBF16:
+      return block_mix<bf16, float>(x0, p0, x1, p1, x2, p2, coeffs, out,
+                                    p_out, S, nblocks, st);
+  }
+  return kBadType;
 }
 
 int lt_block_grams(int dtype, const void* x0, int p0, const void* x1, int p1,
@@ -1851,14 +1968,21 @@ int lt_block_grams(int dtype, const void* x0, int p0, const void* x1, int p1,
                    int vec, void* partial, int nblocks, void* ticket,
                    void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? gram<float, float, float>(x0, p0, x1, p1, x2, p2, x3, p3, z,
-                                         p, S, tile_r, tile_c, vec, partial,
-                                         nblocks, ticket, out, st)
-             : gram<double, double, double>(x0, p0, x1, p1, x2, p2, x3, p3,
-                                            z, p, S, tile_r, tile_c, vec,
-                                            partial, nblocks, ticket, out,
-                                            st);
+  switch (dtype) {
+    case kF32:
+      return gram<float, float, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p,
+                                       S, tile_r, tile_c, vec, partial,
+                                       nblocks, ticket, out, st);
+    case kF64:
+      return gram<double, double, double>(x0, p0, x1, p1, x2, p2, x3, p3, z,
+                                          p, S, tile_r, tile_c, vec, partial,
+                                          nblocks, ticket, out, st);
+    case kBF16:  // an f32 Gram of bf16 states (block_dense.py:232)
+      return gram<bf16, float, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p,
+                                      S, tile_r, tile_c, vec, partial,
+                                      nblocks, ticket, out, st);
+  }
+  return kBadType;
 }
 
 int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
@@ -1867,44 +1991,67 @@ int lt_stencil_pair_gram(int dtype, const void* q, void* dst, const void* wz,
                          void* partial, void* ticket, void* g3,
                          void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? stencil_pair_gram<float>(q, dst, wz, wp, taps, plan, pt, p, zc,
-                                        plane, nt, partial, ticket, g3, st)
-             : stencil_pair_gram<double>(q, dst, wz, wp, taps, plan, pt, p,
-                                         zc, plane, nt, partial, ticket, g3,
-                                         st);
+  switch (dtype) {
+    case kF32:
+      return stencil_pair_gram<float>(q, dst, wz, wp, taps, plan, pt, p, zc,
+                                      plane, nt, partial, ticket, g3, st);
+    case kF64:
+      return stencil_pair_gram<double>(q, dst, wz, wp, taps, plan, pt, p, zc,
+                                       plane, nt, partial, ticket, g3, st);
+  }
+  return kBadType;
 }
 
 int lt_fdtd_step(int dtype, const void* u, void* out, const void* wz,
                  const void* wp, const int* taps, const int* plan, int p,
                  int zc, int plane, int nt, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? strip_stencil<float, true>(u, out, wz, wp, taps, plan,
-                                                 p, zc, plane, nt, st)
-                    : strip_stencil<double, true>(u, out, wz, wp, taps, plan,
-                                                  p, zc, plane, nt, st);
+  switch (dtype) {
+    case kF32:
+      return strip_stencil<float, true>(u, out, wz, wp, taps, plan, p, zc,
+                                        plane, nt, st);
+    case kF64:
+      return strip_stencil<double, true>(u, out, wz, wp, taps, plan, p, zc,
+                                         plane, nt, st);
+  }
+  return kBadType;
 }
 
-int lt_block_grams_compensated(const void* x0, int p0, const void* x1, int p1,
-                               const void* x2, int p2, const void* x3, int p3,
-                               const void* z, int p, long long S, int tile_r,
-                               int tile_c, int vec, void* partial,
-                               int nblocks, void* ticket, void* out,
-                               void* stream) {
-  return gram<float, double, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p, S,
-                                    tile_r, tile_c, vec, partial, nblocks,
-                                    ticket, out,
-                                    static_cast<cudaStream_t>(stream));
+// K7: float32 states (dtype 0), or bf16 ones (2) widened to float32 as
+// JAX's K7 upcasts them (block_dense.py:495,500); f64 sums, an f32 Gram.
+int lt_block_grams_compensated(int dtype, const void* x0, int p0,
+                               const void* x1, int p1, const void* x2,
+                               int p2, const void* x3, int p3, const void* z,
+                               int p, long long S, int tile_r, int tile_c,
+                               int vec, void* partial, int nblocks,
+                               void* ticket, void* out, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return gram<float, double, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p,
+                                        S, tile_r, tile_c, vec, partial,
+                                        nblocks, ticket, out, st);
+    case kBF16:
+      return gram<bf16, double, float>(x0, p0, x1, p1, x2, p2, x3, p3, z, p,
+                                       S, tile_r, tile_c, vec, partial,
+                                       nblocks, ticket, out, st);
+  }
+  return kBadType;
 }
 
 int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
                      const void* off, const void* wb, const void* x, void* y,
                      int p, int ppc, int cpg, long long n128, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0 ? windowed_spmm<float>(data, lidx, off, wb, x, y, p, ppc,
-                                           cpg, n128, st)
-                    : windowed_spmm<double>(data, lidx, off, wb, x, y, p,
-                                            ppc, cpg, n128, st);
+  switch (dtype) {
+    case kF32:
+      return windowed_spmm<float>(data, lidx, off, wb, x, y, p, ppc, cpg,
+                                  n128, st);
+    case kF64:
+      return windowed_spmm<double>(data, lidx, off, wb, x, y, p, ppc, cpg,
+                                   n128, st);
+  }
+  return kBadType;
 }
 
 // Blocks of the Gram kernel an SM holds, the grid's cap per SM
@@ -1914,23 +2061,29 @@ int lt_gram_blocks_per_sm() { return kGramBlocksPerSM; }
 // Blocks an SM holds on the current device of K1 (kernel 0) or K5 (1)
 // with `variant` lanes a thread, or of K4 (2) for p <= `variant` (4 or 8),
 // at `smem` bytes of shared memory (what the plan assumes; probes print
-// it); -1 on an error.
+// it); -1 on an error.  K1 takes dtype 0, 1 and 2; K4 and K5 0 and 1.
 int lt_stencil_blocks_per_sm(int dtype, int kernel, int variant,
                              long long smem) {
   const size_t b = (size_t)smem;
   if (kernel == 2 && (variant == 4 || variant == 8)) {
-    if (dtype == 0)
+    if (dtype == kF32)
       return variant == 4 ? GramStrip<float, 4, false, true>::occupancy(b)
                           : GramStrip<float, 8, false>::occupancy(b);
-    return variant == 4 ? GramStrip<double, 4, false, true>::occupancy(b)
-                        : GramStrip<double, 8, false>::occupancy(b);
+    if (dtype == kF64)
+      return variant == 4 ? GramStrip<double, 4, false, true>::occupancy(b)
+                          : GramStrip<double, 8, false>::occupancy(b);
+    return -1;
   }
   if (kernel != 0 && kernel != 1) return -1;
-  if (dtype == 0)
+  if (dtype == kF32)
     return kernel ? strip_occupancy<float, true>(variant, b)
                   : strip_occupancy<float, false>(variant, b);
-  return kernel ? strip_occupancy<double, true>(variant, b)
-                : strip_occupancy<double, false>(variant, b);
+  if (dtype == kF64)
+    return kernel ? strip_occupancy<double, true>(variant, b)
+                  : strip_occupancy<double, false>(variant, b);
+  if (dtype == kBF16 && kernel == 0)
+    return strip_occupancy<bf16, false, float>(variant, b);
+  return -1;
 }
 
 int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
@@ -1939,13 +2092,17 @@ int lt_apply_stencil(int dtype, const void* u, void* out, const void* wz,
                      long long in_stride, long long out_stride,
                      long long wz_tap, long long wz_z, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return dtype == 0
-             ? apply_stencil<float>(u, out, wz, wp, taps, plan, cols, p, n_in,
-                                    zc, plane, in_stride, out_stride, wz_tap,
-                                    wz_z, st)
-             : apply_stencil<double>(u, out, wz, wp, taps, plan, cols, p,
-                                     n_in, zc, plane, in_stride, out_stride,
-                                     wz_tap, wz_z, st);
+  switch (dtype) {
+    case kF32:
+      return apply_stencil<float>(u, out, wz, wp, taps, plan, cols, p, n_in,
+                                  zc, plane, in_stride, out_stride, wz_tap,
+                                  wz_z, st);
+    case kF64:
+      return apply_stencil<double>(u, out, wz, wp, taps, plan, cols, p, n_in,
+                                   zc, plane, in_stride, out_stride, wz_tap,
+                                   wz_z, st);
+  }
+  return kBadType;
 }
 
 }  // extern "C"

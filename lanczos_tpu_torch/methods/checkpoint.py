@@ -33,6 +33,10 @@ every rank all-gathers the states along the operator's `shard_axis`
 ones), rank 0 writes, and every rank waits until the file is in place.
 On resume every rank reads the file and takes its own rows.  On one
 device none of this runs: no collective, no extra synchronisation.
+
+No driver here takes a bf16 state (ValueError before any work): NumPy has
+no bf16, and the JAX package writes a bf16 run's states as raw 2-byte
+records (|V2) that its own resume cannot read back.
 """
 
 from __future__ import annotations
@@ -71,6 +75,12 @@ def _atomic_savez(path: str, **arrays) -> None:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise
+
+
+def _refuse_bf16(x: torch.Tensor) -> None:
+    if x.dtype == torch.bfloat16:
+        raise ValueError("checkpointed runs take float32 or float64 states, "
+                         "not bfloat16 (an .npz has no bfloat16)")
 
 
 def _host(x: torch.Tensor) -> np.ndarray:
@@ -208,6 +218,7 @@ def vector_lanczos_checkpointed(
     every chunk.  Matches `vector_lanczos(..., reorth='none',
     fused=False)`.  The coefficients live on the host between chunks; the
     result's tensors are on b's device."""
+    _refuse_bf16(b)
     sh = _Sharding(a)
     trace_at = trace_fn or _default_trace(a, sh, lc, block=False)
     dev = b.device
@@ -270,6 +281,7 @@ def block_lanczos_checkpointed(
     `resume` continues the saved run (its m must be this m, else
     ValueError).  Returns a BlockLanczosResult (basis=None) on b's
     device."""
+    _refuse_bf16(b)
     p = b.shape[0]
     sh = _Sharding(a)
     trace_at = trace_fn or _default_trace(a, sh, lc, block=True)
@@ -337,6 +349,7 @@ def fdtd_checkpointed(
     with `scaled`, one K5 launch a step on the folded-plane operator,
     ping-ponging two buffers that never include u0, so the result equals
     `fdtd_block` / `fdtd_vector` bit for bit."""
+    _refuse_bf16(u0)
     dt = torch.tensor(float(t_end) / nsteps, dtype=u0.dtype, device=u0.device)
     sh = _Sharding(a)
     start, u = 0, u0

@@ -5,6 +5,7 @@ Diagonalize the (block-)tridiagonal T of a Lanczos run and optionally lift
 the Ritz vectors through the stored basis; |beta_m s_{m,i}| (its block
 form ||beta_m S_{m,i}||) is the standard Lanczos residual bound, and
 `ritz_residuals` measures the true residuals with one more product.
+Neither eigsh takes a bf16 state (`smalleig.refuse_bf16`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ import torch
 from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
 from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
+from lanczos_tpu_torch.ops.smalleig import refuse_bf16
 from lanczos_tpu_torch.ops.tridiag import (
     assemble_block_tridiagonal,
     assemble_tridiagonal,
@@ -76,6 +78,7 @@ def lanczos_eigsh(
     """Top-k Ritz pairs from an m-step single-vector Lanczos run.
 
     Returns (values (k,), vectors (n, k) or None, residual bounds (k,))."""
+    refuse_bf16(b, "lanczos_eigsh")
     res = vector_lanczos(a, b, m, reorth=reorth, store_basis=compute_vectors,
                          breakdown_tol=breakdown_tol, trace_fn=trace_fn,
                          fused=fused)
@@ -111,6 +114,7 @@ def block_lanczos_eigsh(
     """Top-k Ritz pairs from an m-step block-Lanczos run.  b is BLOCK-MAJOR
     (p, n).  Returns (values (k,), vectors (n, k) or None, residual
     bounds (k,)).  The solver options forward to `block_lanczos`."""
+    refuse_bf16(b, "block_lanczos_eigsh")
     res = block_lanczos(
         a, b, m, reorth=reorth, store_basis=compute_vectors,
         eig_backend=eig_backend, normalize=normalize,

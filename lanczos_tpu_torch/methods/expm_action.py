@@ -8,6 +8,10 @@ the reference driver:
           (test_lanczos.cu:270-287)
 where T is the (block-)tridiagonal Lanczos matrix and q_trace holds the
 receiver row of each Krylov block (the basis itself is never stored).
+
+expm(T) takes `torch.linalg.eigh`, which has no bf16 (nor has JAX's, which
+raises NotImplementedError on a bf16 T after the whole Lanczos run): both
+actions refuse a bf16 state with a ValueError before any work.
 """
 
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 from lanczos_tpu_torch.methods.block_lanczos import block_lanczos
 from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
-from lanczos_tpu_torch.ops.smalleig import expm_sym
+from lanczos_tpu_torch.ops.smalleig import expm_sym, refuse_bf16
 from lanczos_tpu_torch.ops.tridiag import (
     assemble_block_tridiagonal,
     assemble_tridiagonal,
@@ -39,6 +43,7 @@ def lanczos_expm_action(
     """Scalar approximation of [expm(t_end*A) b]_lc via m-step Lanczos, a
     0-d tensor on b's device.  For non-flat operator states pass trace_fn
     (see `vector_lanczos`); the keyword options forward to it."""
+    refuse_bf16(b, "the expm action")
     res = vector_lanczos(a, b, m, lc, reorth=reorth,
                          breakdown_tol=breakdown_tol, trace_fn=trace_fn,
                          fused=fused)
@@ -67,6 +72,7 @@ def block_lanczos_expm_action(
     """Row lc (length p) of expm(t_end*A) B via m-step block Lanczos, on
     b's device.  B is BLOCK-MAJOR (p, *state); for non-flat operator states
     pass trace_fn.  The keyword options forward to `block_lanczos`."""
+    refuse_bf16(b, "the expm action")
     res = block_lanczos(a, b, m, lc, reorth=reorth, eig_backend=eig_backend,
                         breakdown_tol=breakdown_tol, trace_fn=trace_fn,
                         normalize=normalize, breakdown_eps=breakdown_eps,

@@ -7,6 +7,10 @@ reference validates Lanczos-expm against (test_lanczos.cu:118-123,
 into its weights.  The folded-plane operator also has `fdtd_step`, the
 one-pass step u + (dt A) u (K5) at every block width, which writes into a
 second buffer: the loop swaps two buffers of its own and never writes u0.
+As JAX's `_inplace_step`, the loop takes it only where the operator's
+`supports_fdtd_inplace(p)` holds: on a bf16 state it does not, and each
+step is K1 then a bf16 add (dt made in the state's dtype, so rounded to
+bf16 before it is folded into the f32 weights, as JAX does).
 The distributed operator has `scaled` and no `fdtd_step` (JAX's branch):
 it steps u + (dt A) u as K1 plus an add, since K5's identity term on its
 halo-filled work copy would copy the halo planes into the state's pads.
@@ -23,14 +27,16 @@ import torch
 def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
                 block: bool, bufs=None) -> torch.Tensor:
     """nsteps forward-Euler steps u <- u + dt A u from u, which it never
-    writes.  An operator with `scaled` takes dt into its weights and steps
+    writes.  An operator with `scaled` takes dt into its weights and, where
+    its `supports_fdtd_inplace` takes u's width and dtype, steps
     through its one-pass `fdtd_step`, each step into whichever of the two
     buffers `bufs` (made here when None) does not hold the current state:
     the result is then one of them, and a later call with the same bufs
-    continues from it.  An operator with `scaled` and no `fdtd_step` steps
+    continues from it.  An operator with `scaled` and no such step steps
     u + (dt A) u, and other operators u + dt * (A u), into new tensors.
     Returns u itself when nsteps is 0."""
-    if hasattr(a, "fdtd_step"):
+    p = u.shape[0] if block else 1
+    if hasattr(a, "fdtd_step") and a.supports_fdtd_inplace(p, u.dtype):
         # dt folded into the weights (JAX `_maybe_fold_dt`), one pass a step
         step = a.scaled(dt).fdtd_step
         if bufs is None:

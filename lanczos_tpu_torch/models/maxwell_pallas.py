@@ -11,6 +11,14 @@ Z_OFF = 8, Zc = round_up(Z_OFF + nz + 2, TZ) and P = round_up((ny+3)(nx+3),
 K1), the fused iteration's A @ q + Grams pass is K4
 (`ops/kernels/stencil_gram.py`), and the FDTD step u + (dt A) u is K5
 (`ops/kernels/stencil_fdtd.py`).
+
+A bf16 state (`create(..., dtype=torch.bfloat16)`, JAX's `dtype=bfloat16`)
+halves the state's bytes: the weights stay f32, and K1 promotes each bf16
+input to them, sums in f32 and rounds once on store.  `dtype` is then the
+state's bf16, apart from the weights'.  As in JAX, only K1 reads bf16
+planes: neither the fused pass (K4) nor the one-pass FDTD step (K5) takes
+them, so the fused recurrence runs its 3-call step and FDTD steps K1 then
+an add (`supports_stencil_gram` and `supports_fdtd_inplace` are false).
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ import torch.nn.functional as F
 
 from lanczos_tpu_torch.models.maxwell import _build_taps, maxwell_component_shapes
 from lanczos_tpu_torch.ops.kernels import stencil_fdtd, stencil_gram
+from lanczos_tpu_torch.ops.kernels.build import acc_dtype
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     StencilSpec,
     apply_stencil_pair,
@@ -92,12 +101,19 @@ def _host_taps(nx: int, ny: int, nz: int, np_dtype):
 class PallasMaxwellOperator(LinearOperator):
     """A = D @ diag(w) as the curl-pair stencil on stacked fields.  The
     weights wz_t (2, Zc, n_taps) and wplane_s (2, n_taps, P), stacked per
-    half (E rows, H rows), are registered buffers."""
+    half (E rows, H rows), are registered buffers; `state_dtype` is the
+    states' type (the weights', or bf16 with f32 weights)."""
 
     def __init__(self, nx, ny, nz, wz_t: torch.Tensor, wplane_s: torch.Tensor,
-                 specs: tuple[StencilSpec, StencilSpec]):
+                 specs: tuple[StencilSpec, StencilSpec],
+                 state_dtype: torch.dtype | None = None):
         super().__init__()
         self.nx, self.ny, self.nz = nx, ny, nz
+        self.state_dtype = wz_t.dtype if state_dtype is None else state_dtype
+        if acc_dtype(self.state_dtype) != wz_t.dtype:
+            raise TypeError(f"{self.state_dtype} states take "
+                            f"{acc_dtype(self.state_dtype)} weights, got "
+                            f"{wz_t.dtype}")
         # the kernels take contiguous weights
         self.register_buffer("wz_t", wz_t.contiguous())
         self.register_buffer("wplane_s", wplane_s.contiguous())
@@ -112,15 +128,17 @@ class PallasMaxwellOperator(LinearOperator):
     @classmethod
     def create(cls, nx: int, ny: int, nz: int, dtype=torch.float32,
                device="cuda") -> "PallasMaxwellOperator":
-        """dtype float32 or float64 (bf16 states are not ported yet)."""
+        """dtype: the states' float32, float64 or bfloat16; a bf16 state
+        keeps f32 weights, as JAX's does (`lanczos_tpu/models/
+        maxwell_pallas.py:60-76`)."""
         device = target_device(device)
-        np_dtype = _np_dtype(dtype)
-        specs, wz_t, wplane_s = _host_taps(nx, ny, nz, np_dtype)
+        state = _state_dtype(dtype)
+        specs, wz_t, wplane_s = _host_taps(nx, ny, nz, _np_dtype(acc_dtype(state)))
         return cls(
             nx, ny, nz,
             torch.as_tensor(wz_t, device=device),
             torch.as_tensor(wplane_s, device=device),
-            specs,
+            specs, state,
         )
 
     @classmethod
@@ -129,8 +147,11 @@ class PallasMaxwellOperator(LinearOperator):
                     ) -> "PallasMaxwellOperator":
         """The operator from weight arrays made elsewhere (e.g. the JAX
         operator's ``np.asarray(op.wz_t)``, ``np.asarray(op.wplane_s)``);
-        the tap metadata is rebuilt from the geometry."""
+        the tap metadata is rebuilt from the geometry.  dtype is the
+        states' type: a bf16 operator's weights come in as f32 (a JAX bf16
+        operator's are)."""
         device = target_device(device)
+        state = _state_dtype(dtype)
         specs, wz_ref, wp_ref = _host_taps(nx, ny, nz, np.float64)
         wz_t, wplane_s = np.asarray(wz_t), np.asarray(wplane_s)
         if wz_t.shape != wz_ref.shape or wplane_s.shape != wp_ref.shape:
@@ -140,9 +161,9 @@ class PallasMaxwellOperator(LinearOperator):
             )
         return cls(
             nx, ny, nz,
-            torch.tensor(wz_t, dtype=dtype, device=device),
-            torch.tensor(wplane_s, dtype=dtype, device=device),
-            specs,
+            torch.tensor(wz_t, dtype=acc_dtype(state), device=device),
+            torch.tensor(wplane_s, dtype=acc_dtype(state), device=device),
+            specs, state,
         )
 
     # -- LinearOperator interface ------------------------------------------
@@ -153,7 +174,8 @@ class PallasMaxwellOperator(LinearOperator):
 
     @property
     def dtype(self):
-        return self.wz_t.dtype
+        """The states' type (not the weights' on a bf16 operator)."""
+        return self.state_dtype
 
     @property
     def state_shape(self):
@@ -171,6 +193,11 @@ class PallasMaxwellOperator(LinearOperator):
 
     def supports_stencil_gram(self, p: int, dtype=None) -> bool:
         return stencil_gram.supports(p, self.dtype if dtype is None else dtype)
+
+    def supports_fdtd_inplace(self, p: int, dtype=None) -> bool:
+        """Whether `fdtd_step` (K5) takes p block columns of this dtype:
+        f32 and f64 at every p, no bf16 (JAX's `plan_fdtd_inplace`)."""
+        return stencil_fdtd.supports(p, self.dtype if dtype is None else dtype)
 
     def fdtd_step(self, u: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
         """out = u + A u in one pass (K5) and returns out, which must be
@@ -197,7 +224,8 @@ class PallasMaxwellOperator(LinearOperator):
         spent.  Shares the plane weights."""
         s = torch.as_tensor(s, dtype=self.wz_t.dtype, device=self.wz_t.device)
         return type(self)(self.nx, self.ny, self.nz, self.wz_t * s,
-                          self.wplane_s, (self.spec_e, self.spec_h))
+                          self.wplane_s, (self.spec_e, self.spec_h),
+                          self.state_dtype)
 
     # -- state packing ------------------------------------------------------
 
@@ -262,11 +290,23 @@ class PallasMaxwellOperator(LinearOperator):
 
 
 def _np_dtype(dtype) -> np.dtype:
+    """The weights' NumPy type: float32 or float64."""
     if dtype in (torch.float32, np.float32, "float32"):
         return np.dtype(np.float32)
     if dtype in (torch.float64, np.float64, "float64"):
         return np.dtype(np.float64)
+    raise ValueError(f"the Maxwell weights are float32 or float64, got {dtype}")
+
+
+def _state_dtype(dtype) -> torch.dtype:
+    """The states' torch type, from a torch dtype, a NumPy type or a name:
+    float32, float64 or bfloat16."""
+    if dtype in (torch.float32, np.float32, "float32"):
+        return torch.float32
+    if dtype in (torch.float64, np.float64, "float64"):
+        return torch.float64
+    if dtype in (torch.bfloat16, "bfloat16"):
+        return torch.bfloat16
     raise ValueError(
-        f"PallasMaxwellOperator takes float32 or float64, got {dtype} "
-        "(bf16 states are not ported yet)"
-    )
+        f"PallasMaxwellOperator takes float32, float64 or bfloat16 states, "
+        f"got {dtype}")

@@ -17,6 +17,12 @@ operand once:
   H100 an f32 x f32 product is exact in f64, so the kernel accumulates in
   f64 and rounds the total to f32 once.
 
+bf16 states (the bf16 folded-plane operator's, JAX's `dtype=bfloat16`):
+K2 takes f32 coefficients, sums in f32 and rounds once to bf16 on store;
+K3 returns an f32 Gram; K7 widens bf16 to f32 (exact) and returns f32, as
+JAX's K7 upcasts them.  The accumulation type is `acc_dtype`: f32, or the
+state's own if wider.
+
 On CUDA tensors they launch block_mix_kernel and gram_kernel (K3, and K7
 with f64 sums) of `csrc/lanczos_kernels.cu`; on CPU tensors they run the
 plain versions.  The Gram launch is set by pure functions of the call:
@@ -31,14 +37,10 @@ import torch
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.kernels import build
+from lanczos_tpu_torch.ops.kernels.build import acc_dtype
 
 MAX_P_OUT = 32  # csrc block_mix instantiations
 MAX_OPERANDS = 3
-
-
-def acc_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The accumulation type: f32, or the state's own if wider."""
-    return torch.promote_types(torch.float32, dtype)
 
 
 def block_mix_plain(coeffs: torch.Tensor, xs, inplace: bool = False):
@@ -81,11 +83,11 @@ def block_mix(coeffs: torch.Tensor, xs, inplace: bool = False) -> torch.Tensor:
     ps, p_out = _mix_checks(coeffs, xs, inplace)
     if xs[0].device.type == "cpu":
         return block_mix_plain(coeffs, xs, inplace)
-    build.require_cuda("block_mix", *xs)
+    build.require_cuda("block_mix", *xs, bf16=True)
     if p_out > MAX_P_OUT:
         raise ValueError(f"CUDA block_mix takes p_out <= {MAX_P_OUT}")
-    # f32 and f64 states accumulate in their own type
-    cf = coeffs.to(device=xs[0].device, dtype=xs[0].dtype).contiguous()
+    # f32 and f64 states accumulate in their own type, bf16 ones in f32
+    cf = coeffs.to(device=xs[0].device, dtype=acc_dtype(xs[0].dtype)).contiguous()
     out = xs[0] if inplace else torch.empty(
         (p_out,) + tuple(xs[0].shape[1:]), dtype=xs[0].dtype,
         device=xs[0].device,
@@ -94,7 +96,7 @@ def block_mix(coeffs: torch.Tensor, xs, inplace: bool = False) -> torch.Tensor:
     rows = ps + [0] * (MAX_OPERANDS - len(xs))
     S = xs[0][0].numel()
     build.launch(
-        "block_mix", out, "lt_block_mix", build.dtype_code(xs[0]), ptrs[0],
+        "block_mix", out, "lt_block_mix", build.dtype_code(xs[0], True), ptrs[0],
         rows[0], ptrs[1], rows[1], ptrs[2], rows[2], cf.data_ptr(),
         out.data_ptr(), p_out, S, build.grid_blocks(S),
         build.stream_handle(out),
@@ -138,7 +140,7 @@ def gram_tile(K: int, p: int) -> tuple[int, int]:
 
 
 def gram_vector_width(S: int, itemsize: int, ptrs) -> int:
-    """Elements per load of gram_kernel: 16 bytes' worth (4 f32, 2 f64)
+    """Elements per load of gram_kernel: 16 bytes' worth (4 f32, 2 f64, 8 bf16)
     when every operand row starts on a 16-byte boundary (each operand's
     pointer is aligned and a row of S elements is a multiple of 16 bytes),
     else 1, the scalar instantiation."""
@@ -173,7 +175,7 @@ def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
     `entry` (its leading arguments `lead`): the (K, p) result from
     per-block partial sums in `acc`, added in block order by the grid's
     last block."""
-    build.require_cuda(name, z, *xs)
+    build.require_cuda(name, z, *xs, bf16=True)
     p = z.shape[0]
     ops = list(xs) + ([z] if include_zz else [])
     ptrs = [x.data_ptr() for x in ops] + [None] * (4 - len(ops))
@@ -198,20 +200,22 @@ def _gram_launch(name, entry, lead, xs, z, include_zz, acc, out_dtype):
 def block_grams(xs, z: torch.Tensor, include_zz: bool = False) -> torch.Tensor:
     """gram(cat(xs), z): (K, p) with K = sum p_i (+ p with include_zz,
     which appends gram(z, z) as the trailing p rows).  xs: 0..3 operands
-    (p_i, *state) shaped like z; accumulates in f32 (f64 for f64 states).
-    The CUDA path sums across thread blocks in a fixed order, so the
-    result repeats bit for bit from run to run."""
+    (p_i, *state) shaped like z; accumulates in f32 (f64 for f64 states),
+    and returns that type (an f32 Gram of bf16 states).  The CUDA path
+    sums across thread blocks in a fixed order, so the result repeats bit
+    for bit from run to run."""
     xs = _gram_operands("block_grams", xs, z, include_zz)
     if z.device.type == "cpu":
         return block_grams_plain(xs, z, include_zz)
+    acc = acc_dtype(z.dtype)
     return _gram_launch("block_grams", "lt_block_grams",
-                        (build.dtype_code(z),), xs, z, include_zz, z.dtype,
-                        z.dtype)
+                        (build.dtype_code(z, True),), xs, z, include_zz, acc,
+                        acc)
 
 
 def block_grams_compensated_plain(xs, z: torch.Tensor, include_zz: bool = False):
-    """Plain torch version of `block_grams_compensated`: the Gram in f64,
-    rounded to f32 once."""
+    """Plain torch version of `block_grams_compensated`: the Gram in f64
+    (bf16 and f32 widen exactly), rounded to f32 once."""
     ops = list(xs) + ([z] if include_zz else [])
     cat = torch.cat([x.reshape(x.shape[0], -1) for x in ops]).double()
     return (cat @ z.reshape(z.shape[0], -1).double().T).float()
@@ -219,18 +223,20 @@ def block_grams_compensated_plain(xs, z: torch.Tensor, include_zz: bool = False)
 
 def block_grams_compensated(xs, z: torch.Tensor,
                             include_zz: bool = False) -> torch.Tensor:
-    """`block_grams` of f32 operands with O(eps_f32) error: every product
-    is exact in f64 and the sums run in f64 (per thread, per block, then
-    across blocks in block order), rounded to the (K, p) f32 result once.
-    f64 states raise: they need no compensation (use `block_grams`), and
-    the JAX kernel would silently cast them to f32."""
+    """`block_grams` of f32 (or bf16) operands with O(eps_f32) error:
+    every product is exact in f64 and the sums run in f64 (per thread, per
+    block, then across blocks in block order), rounded to the (K, p) f32
+    result once.  bf16 states widen to f32, as the JAX kernel upcasts
+    them.  f64 states raise: they need no compensation (use
+    `block_grams`), and the JAX kernel would silently cast them to f32."""
     xs = _gram_operands("block_grams_compensated", xs, z, include_zz)
-    if z.dtype != torch.float32:
+    if z.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(
-            f"block_grams_compensated takes float32 states, got {z.dtype}"
+            f"block_grams_compensated takes float32 or bfloat16 states, got "
+            f"{z.dtype}"
         )
     if z.device.type == "cpu":
         return block_grams_compensated_plain(xs, z, include_zz)
     return _gram_launch("block_grams_compensated",
-                        "lt_block_grams_compensated", (), xs, z, include_zz,
-                        torch.float64, torch.float32)
+                        "lt_block_grams_compensated", (build.dtype_code(z, True),),
+                        xs, z, include_zz, torch.float64, torch.float32)

@@ -9,8 +9,9 @@ reuses the library.  A failed build raises.  Nothing here runs at import:
 CPU-only installs import every module and never build.
 
 Every launch goes through `launch`: it enters the tensor's device, calls
-the C entry point, adds to `LAUNCHES` (kernel launches by wrapper name)
-and raises on the entry point's error.  So a launch runs on the card that
+the C entry point, adds to `LAUNCHES` (kernel launches by wrapper name,
+and apart from them, under "<name> bf16", those on bf16 states) and
+raises on the entry point's error.  So a launch runs on the card that
 holds its tensors, as JAX places work by the array's device, and a run
 can show that its main path went through the kernels.
 """
@@ -45,9 +46,16 @@ LAUNCHES = {
     "block_grams_compensated": 0,
     "windowed_spmm": 0,
     "apply_stencil": 0,
+    # the four kernels that take bf16 states, counted apart on them
+    "apply_stencil_pair bf16": 0,
+    "block_mix bf16": 0,
+    "block_grams bf16": 0,
+    "block_grams_compensated bf16": 0,
 }
 
-DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
+# the .cu's dtype codes; 2 is a bf16 state with f32 weights, coefficients
+# and sums, which K1, K2, K3 and K7 take
+DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
@@ -63,8 +71,8 @@ _SIGNATURES = {
     ),
     "lt_fdtd_step": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
     "lt_block_grams_compensated": (
-        _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I, _P,
-        _P, _P,
+        _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I,
+        _P, _P, _P,
     ),
     "lt_windowed_spmm": (
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P,
@@ -151,11 +159,12 @@ def check(err: int, name: str) -> None:
 def launch(name: str, t: torch.Tensor, entry: str, *args, count: int = 1) -> None:
     """Calls the C entry point `entry` with `args` on t's device (its
     launches go to that card's stream, which the caller passes in args),
-    adds `count` kernel launches to LAUNCHES[name] and raises on the
-    entry point's error."""
+    adds `count` kernel launches to LAUNCHES[name], or to LAUNCHES[name +
+    " bf16"] when t is a bf16 state, and raises on the entry point's
+    error."""
     with torch.cuda.device(t.device):
         err = getattr(library(), entry)(*args)
-    LAUNCHES[name] += count
+    LAUNCHES[name + " bf16" if t.dtype == torch.bfloat16 else name] += count
     check(err, name)
 
 
@@ -164,18 +173,31 @@ def stream_handle(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def dtype_code(t: torch.Tensor) -> int:
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type a kernel computes in for a state of `dtype`: its weights,
+    coefficients and sums.  f32, or the state's own if wider: a bf16 state
+    promotes to f32, as JAX promotes it to its f32 weights."""
+    return torch.promote_types(torch.float32, dtype)
+
+
+def dtype_code(t: torch.Tensor, bf16: bool = False) -> int:
+    """t's dtype code for the .cu; bf16 states only where the kernel has
+    them (`bf16=True`: K1, K2, K3, K7)."""
+    if t.dtype == torch.bfloat16 and not bf16:
+        raise TypeError("this CUDA kernel takes float32 or float64 states, "
+                        "not bfloat16")
     try:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(
-            f"CUDA kernels take float32 or float64, got {t.dtype}"
+            f"CUDA kernels take float32, float64 or (K1, K2, K3, K7) bfloat16 "
+            f"states, got {t.dtype}"
         ) from None
 
 
-def require_cuda(name: str, *tensors: torch.Tensor) -> None:
+def require_cuda(name: str, *tensors: torch.Tensor, bf16: bool = False) -> None:
     """The checks every launch shares: CUDA, one device, one dtype,
-    contiguous."""
+    contiguous; `bf16` as in `dtype_code`."""
     dev, dt = tensors[0].device, tensors[0].dtype
     for t in tensors:
         if t.device.type != "cuda" or t.device != dev:
@@ -184,7 +206,7 @@ def require_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise TypeError(f"{name}: mixed dtypes {dt} and {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    dtype_code(tensors[0])
+    dtype_code(tensors[0], bf16)
 
 
 def sm_count(device: torch.device) -> int:

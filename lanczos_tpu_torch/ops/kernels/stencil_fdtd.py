@@ -13,9 +13,11 @@ overwrite the z-halo rows and +-xc lanes another block still reads.  This
 step writes into a second buffer instead (ping-pong; `methods/fdtd.py`
 swaps the two): the same bytes, one more state of memory.  The Pallas
 plan's VMEM gate (p <= 2, f32 only) is a TPU limit and is not ported:
-the step takes every p and both float types the operator takes, and
-paired or unpaired halves, as the Pallas kernel does (an unpaired half
-sums its taps one at a time, (v * wp) * wz in spec order).
+the step takes every p, f32 and f64, and paired or unpaired halves, as
+the Pallas kernel does (an unpaired half sums its taps one at a time,
+(v * wp) * wz in spec order).  It takes no bf16 state, on any device: the
+Pallas plan refuses every type but f32 (`plan_fdtd_inplace`), so a bf16
+FDTD step is K1 and then an add, in JAX and here (`supports`).
 
 On a CUDA tensor `fdtd_step` launches fdtd_step_kernel of
 `csrc/lanczos_kernels.cu`, K1's strip kernel with the identity term
@@ -34,6 +36,15 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     check_geometry,
     launch_pair,
 )
+
+
+DTYPES = (torch.float32, torch.float64)
+
+
+def supports(p: int, dtype: torch.dtype) -> bool:
+    """Whether the one-pass step takes p block columns of this dtype:
+    every p >= 1, f32 and f64 (no bf16)."""
+    return dtype in DTYPES and p >= 1
 
 
 def fdtd_step_plain(u, out, wz_t, wplane, spec_a, spec_b):
@@ -61,6 +72,9 @@ def fdtd_step(
             "fdtd_step writes into a second buffer: out must not be u "
             "(neighbouring positions still read u)"
         )
+    if u.dtype not in DTYPES:
+        raise ValueError(f"fdtd_step takes float32 or float64 states, not "
+                         f"{u.dtype}: a bfloat16 state steps K1 then an add")
     if u.device.type == "cpu":
         return fdtd_step_plain(u, out, wz_t, wplane, spec_a, spec_b)
     build.require_cuda("fdtd_step", u, out, wz_t, wplane)

@@ -42,9 +42,9 @@ MAX_P = GRAM_MAX_P  # csrc stencil_gram_kernel instantiations (registers: 3 p^2 
 
 
 def supports(p: int, dtype: torch.dtype) -> bool:
-    """Whether the fused pass takes p block columns of this dtype: f32
-    (as the Pallas kernel) and p <= MAX_P (the kernel keeps 3 p^2 Gram
-    sums per thread in registers)."""
+    """Whether the fused recurrence routes p block columns of this dtype
+    through the fused pass: f32 (as the Pallas plan; no bf16) and p <=
+    MAX_P (the kernel keeps 3 p^2 Gram sums per thread in registers)."""
     return dtype == torch.float32 and 1 <= p <= MAX_P
 
 
@@ -76,6 +76,9 @@ def apply_stencil_pair_gram(
         )
     if q.data_ptr() == dst.data_ptr():
         raise ValueError("q and dst must be different buffers")
+    if q.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"apply_stencil_pair_gram takes float32 or float64 "
+                         f"states, not {q.dtype} (no bfloat16, as in JAX)")
     if q.device.type == "cpu":
         return apply_stencil_pair_gram_plain(q, dst, wz_t, wplane, spec_a, spec_b)
     build.require_cuda("apply_stencil_pair_gram", q, dst, wz_t, wplane)

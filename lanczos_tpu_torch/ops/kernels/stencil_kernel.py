@@ -28,6 +28,13 @@ z-taps read at the thread's own lane), `generic_plan` and `generic_halos`
 for K6.  Tap tables and plans are cached per spec (pair), so a loop of
 launches (the FDTD oracle's 10^6 steps) rebuilds neither.
 
+K1 also takes a bf16 state with f32 weights (the bf16 folded-plane
+operator): it promotes each bf16 input to the f32 weights, sums in f32 and
+rounds once to bf16 on store, as the Pallas kernel does (:193-197).  K6,
+and an unpaired half of K1 (two K6 launches), refuse bf16: on the TPU the
+generic kernel rolls bf16 lanes with no upcast (:343-344), which Mosaic's
+32-bit rotate does not take.
+
 A z-row outside [0, Zc) reads as 0 in both versions below.  The Pallas
 kernels read a clamped neighbour block there instead: the two agree
 wherever the z-weights of rows 0 and Zc-1 are zero, which every operator
@@ -58,12 +65,14 @@ STENCIL_THREADS = 256  # csrc kThreads: threads a block
 STENCIL_SLOTS = 6  # csrc kStencilSlots: staged rows (z-1..z+1, two ahead, one behind)
 STENCIL_ROW_WEIGHTS = 6 * MAX_TAPS_PER_COMP  # csrc kRowWeights: a row's z-weights
 STENCIL_STAGE_COPIES = 8  # csrc kStageCopies: 16-byte copies a thread a row
-# lanes a block owns, by itemsize: two a thread in f32, one in f64 (the
-# f32 pick is `probes --stencil-tiles`'s, PERF.md)
-STENCIL_WIDTH = {4: 512, 8: 256}
+# lanes a block owns, by the state's itemsize: two a thread in f32 and bf16
+# (whose weights and sums are f32, so a thread's registers are f32's), one
+# in f64 (the f32 pick is `probes --stencil-tiles`'s, PERF.md)
+STENCIL_WIDTH = {2: 512, 4: 512, 8: 256}
 # csrc StripTraits::kMinBlocks, by (itemsize, lanes a thread): the blocks an
 # SM holds by registers (__launch_bounds__); csrc instantiates these
-STENCIL_MIN_BLOCKS = {(4, 1): 4, (4, 2): 2, (8, 1): 2, (8, 2): 2}
+STENCIL_MIN_BLOCKS = {(2, 1): 2, (2, 2): 2, (4, 1): 4, (4, 2): 2, (8, 1): 2,
+                      (8, 2): 2}
 SM_THREADS = 2048  # resident threads an SM (Hopper)
 SM_SHARED_BYTES = 233_472  # shared memory an SM (228 KB)
 BLOCK_SHARED_BYTES = 232_448  # the most one block may opt in to (227 KB)
@@ -281,8 +290,13 @@ def apply_stencil_pair_plain(
 ) -> torch.Tensor:
     """Plain torch version of the pair: u (p, 6, Zc, P) -> A u, same
     shape.  A paired half takes the Pallas kernel's factored form, an
-    unpaired one K6's plain version on the component slices."""
+    unpaired one K6's plain version on the component slices.  A bf16 u
+    is promoted to the weights' f32, summed in f32 and rounded once."""
     _check_pair(spec_a, spec_b)
+    if u.dtype != wz_t.dtype:
+        check_weights(u, wz_t, wplane)
+        return apply_stencil_pair_plain(
+            u.to(wz_t.dtype), wz_t, wplane, spec_a, spec_b).to(u.dtype)
     out = torch.empty_like(u)
     for h, spec in enumerate((spec_a, spec_b)):
         base = 3 * (1 - h)  # half h reads the OPPOSITE half's components
@@ -407,9 +421,10 @@ def _strip_plan(name: str, zc: int, plane: int, halo_left, halo_right,
                 extra: int, min_blocks: int, zchunk: int | None,
                 columns: int = 1) -> StencilPlan:
     """The plan every strip kernel shares: a `width`-lane strip, halos
-    rounded up to 16 bytes, a ring of `ring_rows` staged rows and `extra`
-    elements of shared memory (z-weights; K4's dst_old rows), and the
-    z-chunk whose grid of strips x chunks
+    rounded up to 16 bytes, a ring of `ring_rows` staged rows of the
+    state's `itemsize` and `extra` elements of shared memory in the
+    weights' type (z-weights, f32 for a bf16 state; K4's dst_old rows, K4
+    taking f32 and f64 only), and the z-chunk whose grid of strips x chunks
     finishes soonest in whole waves (`_waves_cost`, fewer chunks on a
     tie), given the blocks an SM holds by threads, shared memory and
     registers (`min_blocks`, the kernel's __launch_bounds__)."""
@@ -420,7 +435,7 @@ def _strip_plan(name: str, zc: int, plane: int, halo_left, halo_right,
     left = tuple(-(-h // vec) * vec for h in halo_left)
     right = tuple(-(-h // vec) * vec for h in halo_right)
     row = sum(width + a + b for a, b in zip(left, right))
-    smem = (ring_rows * row + extra) * itemsize
+    smem = ring_rows * row * itemsize + extra * max(itemsize, 4)
     copies = STENCIL_STAGE_COPIES * STENCIL_THREADS * vec  # elements a row
     if smem > BLOCK_SHARED_BYTES or row > copies:
         raise ValueError(f"{name} staging needs {smem} bytes of shared memory "
@@ -442,15 +457,15 @@ def stencil_plan(zc: int, plane: int, halo_left, halo_right, p: int,
                  itemsize: int, sms: int, *, width: int | None = None,
                  zchunk: int | None = None) -> StencilPlan:
     """K1/K5's launch for a (p, 6, zc, plane) state of `itemsize`-byte
-    elements on a card of `sms` SMs; halo_left/right per input component
-    (`stencil_halos`).  The strip is STENCIL_WIDTH lanes, one or two on
+    elements (2: K1 on a bf16 state) on a card of `sms` SMs;
+    halo_left/right per input component (`stencil_halos`).  The strip is STENCIL_WIDTH lanes, one or two on
     each of the block's threads (a plane narrower than the strip is staged
     wrapped, and only its own lanes are stored), with a ring of
     STENCIL_SLOTS rows.  `width` and `zchunk` override the pick (`probes
     --stencil-tiles`).  A pure function of its arguments; the block
     columns loop inside a block, so p only has to be >= 1."""
-    if p < 1 or itemsize not in (4, 8):
-        raise ValueError(f"stencil_plan takes p >= 1 and 4- or 8-byte "
+    if p < 1 or itemsize not in (2, 4, 8):
+        raise ValueError(f"stencil_plan takes p >= 1 and 2-, 4- or 8-byte "
                          f"elements, got p={p}, itemsize={itemsize}")
     width = STENCIL_WIDTH[itemsize] if width is None else width
     lpt = width // STENCIL_THREADS
@@ -559,20 +574,30 @@ def generic_plan(spec: StencilSpec, p: int, itemsize: int,
 def launch_pair(name: str, entry: str, u, out, wz_t, wplane, spec_a, spec_b,
                 nt: int) -> None:
     """K1 or K5 (`entry`) from u into out, both (p, 6, Zc, P) on the card:
-    the cached tap table and plan, 16-byte staging copies."""
+    the cached tap table and plan, 16-byte staging copies.  A bf16 u (K1
+    only; K5's wrapper refuses it) goes with f32 weights."""
     if u.data_ptr() % 16:
         raise ValueError(f"{name}: u must start on a 16-byte boundary")
     p = u.shape[0]
     plan = pair_plan(spec_a, spec_b, p, u.element_size(), build.sm_count(u.device))
     build.launch(
-        name, u, entry, build.dtype_code(u), u.data_ptr(), out.data_ptr(),
+        name, u, entry, build.dtype_code(u, True), u.data_ptr(), out.data_ptr(),
         wz_t.data_ptr(), wplane.data_ptr(), tap_table(spec_a, spec_b),
         plan.ints, p, spec_a.zc, spec_a.plane, nt, build.stream_handle(u),
     )
 
 
+def check_weights(u: torch.Tensor, wz_t, wplane) -> None:
+    """The weights' type for u's: the state's own, or f32 for a bf16
+    state (JAX's bf16 operator keeps f32 weights)."""
+    want = build.acc_dtype(u.dtype)
+    if wz_t.dtype != want or wplane.dtype != want:
+        raise TypeError(f"a {u.dtype} state takes {want} weights, got "
+                        f"{wz_t.dtype}/{wplane.dtype}")
+
+
 def check_geometry(u: torch.Tensor, wz_t, wplane, spec: StencilSpec) -> int:
-    """Shape checks shared by K1 and K4; returns the taps per half."""
+    """Shape checks shared by K1, K4 and K5; returns the taps per half."""
     if u.ndim != 4 or tuple(u.shape[1:]) != (6, spec.zc, spec.plane):
         raise ValueError(
             f"state must be (p, 6, {spec.zc}, {spec.plane}), got {tuple(u.shape)}"
@@ -599,11 +624,20 @@ def apply_stencil_pair(
     P).  Returns a new tensor shaped like u.  CPU tensors take the plain
     version; CUDA tensors K1 when both halves are paired, else two K6
     launches (a paired half then sums its taps unfactored, which differs
-    from the factored form in rounding only)."""
+    from the factored form in rounding only).  u may be bf16 with f32
+    weights (K1: f32 sums, one rounding on store); a bf16 pair with an
+    unpaired half raises ValueError on every device, as K6 does."""
+    if u.dtype == torch.bfloat16 and not (spec_a.paired and spec_b.paired):
+        raise ValueError("a bfloat16 state takes paired halves only: an "
+                         "unpaired half is K6, which refuses bfloat16")
     if u.device.type == "cpu":
         return apply_stencil_pair_plain(u, wz_t, wplane, spec_a, spec_b)
     _check_pair(spec_a, spec_b)
-    build.require_cuda("apply_stencil_pair", u, wz_t, wplane)
+    build.require_cuda("apply_stencil_pair", u, bf16=True)
+    build.require_cuda("apply_stencil_pair", wz_t, wplane)
+    if wz_t.device != u.device:
+        raise ValueError(f"apply_stencil_pair: all tensors must be on {u.device}")
+    check_weights(u, wz_t, wplane)
     nt = check_geometry(u, wz_t, wplane, spec_a)
     out = torch.empty_like(u)
     if not (spec_a.paired and spec_b.paired):

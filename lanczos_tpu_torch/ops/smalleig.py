@@ -8,7 +8,11 @@ and inv-sqrtm of a p x p SPD Gram every iteration (reference
   p x p matmuls and no data-dependent control flow, so it never waits on
   the device;
 * "newton": coupled Newton-Schulz for sqrtm and inv-sqrtm together;
-* "lax": `torch.linalg.eigh` (the JAX package's `jnp.linalg.eigh`).
+* "lax": `torch.linalg.eigh` (the JAX package's `jnp.linalg.eigh`),
+  which takes no bf16 matrix in either package: JAX raises
+  NotImplementedError, the port ValueError.  So `expm_sym`, which takes
+  it, refuses a bf16 T, and the expm actions and eigsh refuse a bf16 state
+  (`refuse_bf16`); the Jacobi and Newton backends run in bf16.
 """
 
 from __future__ import annotations
@@ -107,8 +111,20 @@ def eigh(a: torch.Tensor, backend: str = "jacobi", sweeps: int = 10):
     if backend == "jacobi":
         return jacobi_eigh(a, sweeps=sweeps)
     if backend == "lax":
+        if a.dtype == torch.bfloat16:
+            raise ValueError("eigh backend 'lax' takes no bfloat16 matrix "
+                             "(nor does jnp.linalg.eigh)")
         return torch.linalg.eigh(a)
     raise ValueError(f"unknown eigh backend {backend!r}")
+
+
+def refuse_bf16(b: torch.Tensor, what: str) -> None:
+    """`what` (an expm action, an eigsh) ends in `eigh(T, "lax")`, which
+    takes no bf16 T: refuse a bf16 state b before any work (JAX fails in
+    eigh after its Lanczos run)."""
+    if b.dtype == torch.bfloat16:
+        raise ValueError(f"{what} takes no bfloat16 state: it ends in eigh, "
+                         "which has no bfloat16 (as in JAX)")
 
 
 def newton_sqrtm_invsqrtm(a: torch.Tensor, iters: int = 18):

@@ -22,6 +22,11 @@ the ranks and refuse the fused recurrence, whose K4 Gram would be local.
 It has `scaled` and no `fdtd_step`: the FDTD oracle steps u + (dt A) u as
 K1 plus an add (JAX's branch), because K5's identity term on the
 halo-filled work copy would write the halo planes into the pads.
+
+It takes f32 and f64 states only.  JAX's `create(dtype=bfloat16)` builds
+bf16 weights (unlike its single-device operator's f32 ones), which its own
+K1 refuses at the default tz=8, so there is no bf16 z-slab behaviour to
+match: `create` refuses bf16 with a ValueError, before any collective.
 """
 
 from __future__ import annotations
@@ -101,7 +106,10 @@ class DistributedPallasMaxwell(LinearOperator):
     def create(cls, nx: int, ny: int, nz: int, mesh: Mesh,
                dtype=torch.float32, tz: int = TZ) -> "DistributedPallasMaxwell":
         """This rank's operator, its weights on `mesh.device`; dtype
-        float32 or float64."""
+        float32 or float64 (bfloat16 raises ValueError)."""
+        if dtype in (torch.bfloat16, "bfloat16"):
+            raise ValueError("DistributedPallasMaxwell takes float32 or "
+                             "float64 states, not bfloat16")
         specs, wz_t, wplane_s, zl = slab_weights(
             nx, ny, nz, mesh.size, mesh.rank, tz, _np_dtype(dtype))
         return cls(nx, ny, nz, torch.as_tensor(wz_t, device=mesh.device),

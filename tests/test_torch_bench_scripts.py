@@ -112,6 +112,21 @@ def test_kernel_bench_campaigns(campaigns, quick_slopes, tmp_path):
         assert all(mono[p] > 0 for p in (2, 4, 8))
 
 
+def test_kernel_bench_spmm_stencil_bf16_counts_the_states_bytes(quick_slopes, tmp_path):
+    """spmm_stencil_bf16 runs K1's plain version on the bf16 operator's
+    state: its GB/s counts 2 bytes an element, spmm_stencil's 4."""
+    path = str(tmp_path / "k.json")
+    quick_slopes.main(KB_SIZES + ["--only", "spmm_stencil,spmm_stencil_bf16",
+                                  "--json", path])
+    with open(path) as f:
+        d = json.load(f)
+    for name, bs in (("spmm_stencil", 4), ("spmm_stencil_bf16", 2)):
+        assert [r["n_col"] for r in d[name]] == [1, 2, 4, 8]
+        for r in d[name]:
+            want = 2 * r["rows"] * r["n_col"] * bs / r["seconds"] / 1e9
+            assert math.isclose(r["gbps"], want, rel_tol=1e-12), (name, r)
+
+
 def test_kernel_bench_roofline_guard():
     from lanczos_tpu_torch.benchmarks import kernel_bench
 

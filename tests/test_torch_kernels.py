@@ -128,7 +128,8 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
-        "windowed_spmm", "apply_stencil",
+        "windowed_spmm", "apply_stencil", "apply_stencil_pair bf16",
+        "block_mix bf16", "block_grams bf16", "block_grams_compensated bf16",
     }
 
 
@@ -227,6 +228,7 @@ def test_launch_enters_the_tensors_device(monkeypatch):
 
     class OnCard:  # stands in for a tensor on the second card
         device = torch.device("cuda", 1)
+        dtype = torch.float32
 
     monkeypatch.setattr(torch.cuda, "device", device)
     monkeypatch.setattr(build, "library", lambda: FakeLib())
@@ -1072,3 +1074,76 @@ def test_k8_refuses_an_aliased_out(cuda):
             windowed_spmm(A, X, out)
     with pytest.raises(TypeError, match="planes"):
         windowed_spmm(A, X.double())
+
+
+# -- bf16 states (K1, K2, K3, K7): bf16 loads and stores, f32 sums ------------
+
+BF16_ULP = 2.0**-7  # one bf16 ulp of x is at most 2^-7 |x|
+
+
+def _within_bf16_ulp(got, want):
+    """Elementwise within one bf16 ulp of the plain version (both sum in
+    f32; FMA contraction may move the f32 sum across a rounding boundary);
+    elements under 1e-6 of the largest |want| are held to 1e-6 of it."""
+    got, want = got.float().cpu(), want.float().cpu()
+    bound = torch.clamp(BF16_ULP * want.abs(), min=1e-6 * want.abs().max().item())
+    assert bool(((got - want).abs() <= bound).all()), (got - want).abs().max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(3, 2), (11, 3), (37, 1), (11, 8)])
+def test_k1_bf16_matches_plain_within_one_ulp(n, p, cuda):
+    op = PallasMaxwellOperator.create(n, n, n, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(n + p)
+    u = op.pack(torch.randn((p, op.n), generator=g).to(cuda))
+    before = build.LAUNCHES["apply_stencil_pair bf16"]
+    got = op.mm(u)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["apply_stencil_pair bf16"] == before + 1
+    assert got.dtype == torch.bfloat16
+    _within_bf16_ulp(got, apply_stencil_pair_plain(u, op.wz_t, op.wplane_s,
+                                                   op.spec_e, op.spec_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", [1, 4])
+def test_k2_k3_k7_bf16_match_plain(p, cuda):
+    """K2: one bf16 ulp; K3: an f32 Gram within 1e-6 of sum |x||z| (bf16
+    products are exact in f32, only the sums' order differs); K7: f64 sums
+    rounded once, as K7_RTOL."""
+    op = PallasMaxwellOperator.create(11, 11, 11, dtype=torch.bfloat16, device=cuda)
+    g = torch.Generator(device="cpu").manual_seed(p)
+    xs = [op.pack(torch.randn((p, op.n), generator=g).to(cuda)) for _ in range(3)]
+    coeffs = torch.randn((3 * p, p), generator=g).to(cuda)
+    _within_bf16_ulp(block_dense.block_mix(coeffs, xs),
+                     block_dense.block_mix_plain(coeffs, xs))
+    work = [x.clone() for x in xs]
+    _within_bf16_ulp(block_dense.block_mix(coeffs, work, inplace=True),
+                     block_dense.block_mix_plain(coeffs, xs))
+    for ops, zz in (((xs[0],), True), (tuple(xs), False), ((), True)):
+        got = block_dense.block_grams(ops, xs[1], include_zz=zz)
+        want = block_dense.block_grams_plain(ops, xs[1], include_zz=zz)
+        assert got.dtype == torch.float32
+        absx = [x.float().abs().flatten(1) for x in ops + ((xs[1],) if zz else ())]
+        bound = 1e-6 * (torch.cat(absx) @ xs[1].float().abs().flatten(1).T)
+        assert bool(((got - want).abs() <= bound).all())
+    got = block_dense.block_grams_compensated((xs[0],), xs[1], include_zz=True)
+    want = block_dense.block_grams_compensated_plain((xs[0],), xs[1], include_zz=True)
+    assert got.dtype == torch.float32
+    assert (got - want).abs().max().item() <= K7_RTOL * want.abs().max().item()
+    before = dict(build.LAUNCHES)
+    block_dense.block_grams((xs[0],), xs[1])
+    assert build.LAUNCHES["block_grams bf16"] == before["block_grams bf16"] + 1
+    assert build.LAUNCHES["block_grams"] == before["block_grams"]
+
+
+@pytest.mark.cuda
+def test_k4_k5_k6_refuse_bf16_on_the_card(cuda):
+    op = PallasMaxwellOperator.create(3, 3, 3, dtype=torch.bfloat16, device=cuda)
+    u = op.pack(torch.ones((2, op.n), device=cuda))
+    with pytest.raises(ValueError, match="bfloat16"):
+        op.fdtd_step(u, torch.empty_like(u))
+    with pytest.raises(ValueError, match="bfloat16"):
+        op.stencil_gram(u, u.clone())
+    with pytest.raises(ValueError, match="bfloat16"):
+        apply_stencil(u[:, :3].contiguous(), op.wz_t[0].T, op.wplane_s[0], op.spec_e)
