@@ -254,10 +254,12 @@ REPLACES = {
 # every step of the assembled vector eigsh
 P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step",
            "block_mix")
-# the bf16 kernels' rows (K1 at p=8, and at p=1 with K2 and K3 in the bf16
-# vector slice; K7 at p=4), keyed by their launch counters (build.LAUNCHES:
-# bf16 launches count apart)
-BF16_ROWS = ("apply_stencil_pair bf16", "apply_stencil_pair bf16 p=1",
+# the bf16 kernels' rows (K1 at p=8, at p=4 with K2 in the bf16 FDTD and
+# block runs, and at p=1 with K2 and K3 in the bf16 vector slice; K7 at
+# p=4), keyed by their launch counters (build.LAUNCHES: bf16 launches count
+# apart)
+BF16_ROWS = ("apply_stencil_pair bf16", "apply_stencil_pair bf16 p=4",
+             "apply_stencil_pair bf16 p=1", "block_mix bf16 p=4",
              "block_mix bf16 p=1", "block_grams bf16 p=1",
              "block_grams_compensated bf16")
 # phase 3's geometries: (nx, ny, nz), p, dtype name; the first is timed
@@ -962,9 +964,10 @@ def phase_compensated_slice(torch, build, results, failures):
     block_lanczos_ms(torch, op, b, tf, compensated=True)
 
 
-# the bf16 phase: K1 at p=8 (the f32 p=4 call's bytes) and p=1, K2 and K3
-# at p=1 (the fused vector route), K7 at p=4; the vector slice's Krylov
-# dimension; FDTD steps at the block width, timed
+# the bf16 phase: K1 at p=8 (the f32 p=4 call's bytes), p=4 (the FDTD and
+# block runs') and p=1, K2 at p=1 (the fused vector route) and p=4 (the
+# block route's 3-call step), K3 at p=1, K7 at p=4; the vector slice's
+# Krylov dimension; FDTD steps at the block width, timed
 P_BF16_K1, P_BF16_K7, FDTD_BF16_STEPS = 8, 4, 50
 # one bf16 ulp of x is at most 2^-7 |x|: the kernel and its plain version
 # both sum in f32 and round once, and FMA contraction may move the f32 sum
@@ -1010,7 +1013,7 @@ def phase_bf16(torch, build, results, failures):
     from lanczos_tpu_torch.methods.vector_lanczos import vector_lanczos
     from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
     from lanczos_tpu_torch.models.rhs import gaussian_matrix_B, gaussian_vector_b
-    from lanczos_tpu_torch.ops.kernels import block_dense
+    from lanczos_tpu_torch.ops.kernels import block_dense, stencil_kernel
     from lanczos_tpu_torch.ops.kernels.stencil_kernel import apply_stencil_pair_plain
 
     dev, bf16 = torch.device("cuda"), torch.bfloat16
@@ -1045,7 +1048,15 @@ def phase_bf16(torch, build, results, failures):
                                         ops_type, library_ms, key))
 
     log(f"bf16 kernels vs plain at N={N_SLICE} (bf16 states, f32 weights and sums)")
+    loads = stencil_kernel.curl_taps(op.spec_e, op.spec_h)
+    if loads is None:
+        failures.append("bf16: the operator's taps lack the curl's structure")
+    else:
+        log(f"  K1 bf16 taps, two lanes a load (the curl's): {sum(map(len, loads))}, "
+            f"of which rolled {sum(t > 0 for c in loads for t in c)}, at an odd "
+            f"offset (a byte permute) {sum(t == 2 for c in loads for t in c)}")
     for p, key in ((P_BF16_K1, "apply_stencil_pair bf16"),
+                   (P_SLICE, "apply_stencil_pair bf16 p=4"),
                    (1, "apply_stencil_pair bf16 p=1")):
         u = rand(p)
         plain = lambda: apply_stencil_pair_plain(  # noqa: E731
@@ -1056,6 +1067,24 @@ def phase_bf16(torch, build, results, failures):
                ok and got.dtype == bf16, lambda: op.mm(u), plain,
                2 * u.numel() * 2, 12 * p * S)
         del u, got
+
+    # K2 at p=4: the block route's 3-call step (3 operands into a new
+    # buffer; K4 takes no bf16); the library's torch.mm as at p=1 below
+    stack = rand(3 * P_SLICE)
+    xs = list(stack.split(P_SLICE))
+    coeffs = 0.1 * torch.randn((3 * P_SLICE, P_SLICE), generator=g, device=dev)
+    got = block_dense.block_mix(coeffs, xs)
+    err, ok = within_bf16_ulp(torch, got, block_dense.block_mix_plain(coeffs, xs))
+    c16 = coeffs.to(bf16)
+    record("block_mix", "block_mix bf16 p=4",
+           f"K2 bf16 block_mix 3 operands p={P_SLICE}", err,
+           ok and got.dtype == bf16, lambda: block_dense.block_mix(coeffs, xs),
+           lambda: block_dense.block_mix_plain(coeffs, xs), 4 * P_SLICE * S * 2,
+           2 * 3 * P_SLICE * P_SLICE * S,
+           library_fn=lambda: c16.T @ stack.flatten(1),
+           library_note="; library: torch.mm on bf16 (coefficients rounded "
+                        "to bf16, bf16 out)")
+    del stack, xs, got
 
     # K2 and K3 at p=1: the fused vector route's calls (3 operands into a
     # new buffer; (q,), v with include_zz); one buffer holds the three, so
@@ -1177,6 +1206,8 @@ def phase_bf16(torch, build, results, failures):
     torch.cuda.synchronize()
     launches = record_launches(build, results, "bf16 fdtd")
     log(f"  launches: { {k: c for k, c in launches.items() if c} }")
+    at_p4 = results.setdefault("p4_launches", {})
+    at_p4["apply_stencil_pair bf16"] = launches["apply_stencil_pair bf16"]
     if {k: c for k, c in launches.items() if c} != {
             "apply_stencil_pair bf16": FDTD_BF16_STEPS}:
         failures.append(f"bf16 FDTD: launches {launches}, expected K1 bf16 "
@@ -1209,6 +1240,8 @@ def phase_bf16(torch, build, results, failures):
     torch.cuda.synchronize()
     launches = record_launches(build, results, "bf16 compensated")
     log(f"  launches: { {k: c for k, c in launches.items() if c} }")
+    for name in ("apply_stencil_pair bf16", "block_mix bf16"):
+        at_p4[name] = at_p4.get(name, 0) + launches[name]
     want = {"block_grams_compensated bf16": M_SLICE + 1,
             "apply_stencil_pair bf16": M_SLICE, "block_mix bf16": M_SLICE}
     if {k: c for k, c in launches.items() if c} != want:
@@ -2718,13 +2751,18 @@ def main() -> int:
     paths = results.get("launches", {})
     # a p=1 row counts its kernel's launches at p=1 in the vector slices
     # (the CLI's, the assembled eigsh's), the main row every other launch
-    # (the bench's and the drivers' included)
+    # (the bench's and the drivers' included); a bf16 p=4 row its launches
+    # at p=4 in the bf16 FDTD and block runs, which its main row (K1 bf16
+    # at p=8) counts too
     at_p1 = results.get("p1_launches", {})
+    at_p4 = results.get("p4_launches", {})
 
     def launches(key):
-        counter = key.removesuffix(" p=1")  # a LAUNCHES name
+        counter = key.removesuffix(" p=1").removesuffix(" p=4")  # a LAUNCHES name
         total = sum(c.get(counter, 0) for c in paths.values())
         at_one = at_p1.get(counter, 0)
+        if key.endswith(" p=4"):
+            return at_p4.get(counter, 0)
         return at_one if key.endswith(" p=1") else total - at_one
 
     kernels = [rows[k] | {"launches": launches(k)} for k in keys]

@@ -22,15 +22,16 @@
 // bounds them all; so it does K8, the windowed-ELL SpMM of assembled
 // matrices (see its section).  At the main path's shape (Maxwell N=160,
 // p=4: Zc=176, P=26624) one block state is 449.8 MB; the bytes each moves
-// per call are noted at each kernel.  K2 is a plain first version: one
-// position per thread in a grid-stride loop, neighbouring threads on
-// neighbouring addresses.  The others were redesigned for the card: the
-// stencils (K1 and K5, K4, K6) march strips of lanes along z, staging rows
-// in shared memory with cp.async and keeping their plane weights in
-// registers; K3 (with K7, which shares its kernel) takes exact-size
-// register tiles, 16-byte loads and a one-launch Gram; K8 16-byte plane
-// loads, four rows a lane, with the next planes' loads in flight before
-// this plane's gathers (see their sections).
+// per call are noted at each kernel.  Each was redesigned for the card
+// after a plain first version: the stencils (K1 and K5, K4, K6) march
+// strips of lanes along z, staging rows in shared memory with cp.async and
+// keeping their plane weights in registers, K1 on a bf16 state two
+// adjacent lanes a thread; K2 takes 16-byte loads with every row in flight
+// before its sums, compiled for the (K, p_out) the paths run; K3 (with K7,
+// which shares its kernel) exact-size register tiles, 16-byte loads and a
+// one-launch Gram; K8 16-byte plane loads, four rows a lane, with the next
+// planes' loads in flight before this plane's gathers (see their
+// sections).
 //
 // Cross-block sums (K3, K4, K7) are deterministic: each block writes its
 // partial sums into scratch, and the grid's last block (an atomic ticket)
@@ -185,11 +186,28 @@ __device__ __forceinline__ void block_sum(T (&acc)[NACC], T* red) {
 // (stencil_kernel.py:109-113, :193-197): the same strips, 512 lanes, and
 // f32 plane weights in registers; a staged row is bf16, 8 lanes a 16-byte
 // cp.async (halos in whole 8-lane words, so row % 8 == 0 and the f32
-// z-weights after the ring stay 16-byte aligned); a tap widens its bf16
-// read from shared memory to f32, the sums run in f32 and the store
-// rounds once, to nearest even.  Half the bytes of f32 at the same
-// arithmetic: 2 * 449.8 MB at N=160 p=8 (0.2686 ms at 3.35 TB/s), 2 *
-// 56.2 MB at p=1.  K5 takes no bf16 (JAX's plan refuses it).
+// z-weights after the ring stay 16-byte aligned); the sums run in f32 and
+// the store rounds once, to nearest even.  Half the bytes of f32 at the
+// same arithmetic: 2 * 449.8 MB at N=160 p=8 (0.2686 ms at 3.35 TB/s), 2 *
+// 56.2 MB at p=1.  The f32 body, run on bf16 (a lane a thread, each tap a
+// 2-byte shared load widened to f32), took 0.788 ms at p=8, 34% of that
+// bound, a column costing what it costs in f32: the time is set inside the
+// SM, not by bytes.  Without its taps it took 0.404 ms, without its
+// staging 0.668 (probes --stencil-parts): the taps cost most, and in the
+// taps the integer work of their general form (a row picked by a runtime
+// dz, a pair form by a branch, a tap count checked), not the loads.  So
+// where the tap table is the Maxwell curl's, as every operator's is, a
+// thread takes two adjacent lanes and stencil_row_curl computes each row
+// with the taps' rows, pair forms and roll-0 loads compiled in: a tap is
+// one 32-bit shared load of both lanes, two and a byte permute for a
+// rolled one, and an output pair one 32-bit store (0.534 ms at p=8).
+// Each row's z-weights, an L2 round trip that every row's barrier waited
+// on (0.427 ms without them), are then loaded a row ahead.  The same bits,
+// 0.493 ms at p=8 (54% of the bound), 0.255 at p=4 and 0.070 at p=1
+// (probes --ab: NVIDIA H100 80GB HBM3, 700.00 W; PERF.md); without
+// its taps or its staging it takes 0.38 and 0.37 ms.  Other tap tables
+// on bf16 take the f32 body, and f32 and f64 compile as they did.  K5
+// takes no bf16 (JAX's plan refuses it).
 
 // staged rows: z-1, z, z+1, two ahead, and the row the slowest warp may
 // still read while the others stage the next one
@@ -296,6 +314,94 @@ __device__ __forceinline__ void stage_sources(const int (&off)[6],
   }
 }
 
+// The Maxwell curl pair's taps, which every PallasMaxwellOperator's tap
+// table has (models/maxwell_pallas.py, at every geometry): each output
+// component sums two paired taps twice; components 0, 1, 3 and 4 a z-pair
+// (rows z and z+1 in the E half, z and z-1 in the H half, roll 0) and then
+// a plane-pair, components 2 and 5 two plane-pairs; a plane-pair's first
+// tap has roll 0, its second rolls by the x- or y-shift.  Tap k of output
+// component c: its z-row offset, and whether it rolls.  curl_taps says
+// whether a tap table has this structure (stencil_kernel.curl_taps).
+__host__ __device__ constexpr int curl_dz(int c, int k) {
+  return k == 1 && c % 3 < 2 ? (c < 3 ? 1 : -1) : 0;
+}
+
+__host__ __device__ constexpr bool curl_rolled(int c, int k) {
+  return k == 3 || (k == 1 && c % 3 == 2);
+}
+
+// Whether a tap table has the curl's structure (host).
+bool curl_taps(const StencilTaps& tp) {
+  bool curl = tp.paired[0] && tp.paired[1];
+  for (int c = 0; c < 6; ++c) {
+    const CompTaps& ct = tp.comp[c];
+    curl = curl && ct.n == kMaxTaps;
+    for (int k = 0; k < kMaxTaps; ++k)
+      curl = curl && ct.dz[k] == curl_dz(c, k) &&
+             (curl_rolled(c, k) || ct.r[k] == 0);
+  }
+  return curl;
+}
+
+// One staged row of K1 on a bf16 state with the curl's taps, lanes 2 tid
+// and 2 tid + 1 of the strip a thread (a lane a thread reads a 2-byte
+// lane a tap and pays for every tap's general form: its row picked by a
+// runtime dz, its pair form by a branch; PERF.md).  Each tap's
+// row, pair form and roll-0-ness are compile-time here; a roll-0 tap
+// starts on an even element (halos are whole 16-byte words), so its lane
+// pair is one 32-bit shared load; a rolled tap's two lanes straddle two
+// words where its offset is odd, so it loads both and joins them with a
+// byte permute (the identity where the offset is even).  The sums are
+// strip_stencil_body's, in its order and factored form, in f32; the store
+// rounds each lane once, to nearest even, two lanes a 32-bit store.  rm,
+// r0, rp: the slots' first elements of rows z-1, z, z+1; ob: row z of the
+// block column at the strip's first lane; w: the lanes to store (even:
+// plane % 8 == 0).
+__device__ __forceinline__ void stencil_row_curl(
+    const bf16* ring, int rm, int r0, int rp, const float* wrow,
+    const float (&wpr)[6][kMaxTaps][2], const StripArgs& a, bf16* ob,
+    int comp, int w) {
+  const unsigned* words = reinterpret_cast<const unsigned*>(ring);
+  const int lane = 2 * threadIdx.x;
+#pragma unroll
+  for (int c = 0; c < 6; ++c) {
+    float wzv[kMaxTaps];
+    lds4(wrow + c * kMaxTaps, wzv);
+    // tap k's two lanes, widened exactly: the staged element u + 2 tid on
+    auto pair = [&](int k) {
+      const int d = curl_dz(c, k);
+      const int u = (d < 0 ? rm : d == 0 ? r0 : rp) + a.soff[c][k];
+      const unsigned* q = words + (u >> 1) + threadIdx.x;
+      const unsigned v =
+          curl_rolled(c, k) ? __byte_perm(q[0], q[1], u & 1 ? 0x5432 : 0x3210)
+                            : q[0];
+      return make_float2(__uint_as_float(v << 16),
+                         __uint_as_float(v & 0xffff0000u));
+    };
+    auto at = [](float2 t, int j) { return j ? t.y : t.x; };
+    float acc[2] = {0.f, 0.f};
+#pragma unroll
+    for (int k = 0; k < kMaxTaps; k += 2) {
+      const float2 t0 = pair(k), t1 = pair(k + 1);
+      if (curl_dz(c, k) != curl_dz(c, k + 1)) {  // z-pair: one plane weight
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          acc[j] += (at(t0, j) * wzv[k] + at(t1, j) * wzv[k + 1]) *
+                    wpr[c][k][j];
+      } else {  // plane-pair: one z-weight
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          acc[j] += (at(t0, j) * wpr[c][k][j] + at(t1, j) * wpr[c][k + 1][j]) *
+                    wzv[k];
+      }
+    }
+    if (lane < w)
+      *reinterpret_cast<unsigned*>(ob + (long long)c * comp + lane) =
+          (unsigned)__bfloat16_as_ushort(narrow<bf16>(acc[0])) |
+          (unsigned)__bfloat16_as_ushort(narrow<bf16>(acc[1])) << 16;
+  }
+}
+
 // out = A u, plus u itself when kAddInput, on this block's strip and
 // z-range for every block column, LPT lanes a thread, 256 apart.  The
 // staged rows' lane mapping is the same for every row, so it is worked out
@@ -309,12 +415,17 @@ __device__ __forceinline__ void stage_sources(const int (&off)[6],
 // The state (u, out, the staged rows) is of type S, the weights and sums of
 // type W: S = W for float32 and float64; a bf16 state (S = bf16, W =
 // float) is staged as it is stored, 8 lanes a 16-byte copy, widened when a
-// tap reads it from shared memory, and rounded once on store.
+// tap reads it from shared memory, and rounded once on store; with the
+// curl's taps (`curl`) at two lanes a thread it takes them adjacent and
+// computes each row with stencil_row_curl.
 template <typename S, typename W, bool kAddInput, int LPT>
 __device__ __forceinline__ void strip_stencil_body(
     const S* __restrict__ u, S* __restrict__ out, const W* __restrict__ wz,
-    const W* __restrict__ wp, const StripArgs& a) {
+    const W* __restrict__ wp, const StripArgs& a, bool curl) {
   constexpr int V = 16 / (int)sizeof(S);
+  constexpr bool kCurl = std::is_same_v<S, bf16> && LPT == 2;
+  static_assert(!(kCurl && kAddInput), "K5 takes no bf16 state");
+  const bool pairs = kCurl && curl;
   extern __shared__ __align__(16) unsigned char stencil_smem[];
   S* ring = reinterpret_cast<S*>(stencil_smem);
   // 16-byte aligned: row % V == 0, so the ring is whole 16-byte words
@@ -348,7 +459,7 @@ __device__ __forceinline__ void strip_stencil_body(
     for (int k = 0; k < kMaxTaps; ++k) {
 #pragma unroll
       for (int j = 0; j < LPT; ++j) {
-        const int i = threadIdx.x + j * kThreads;
+        const int i = pairs ? 2 * threadIdx.x + j : threadIdx.x + j * kThreads;
         wpr[c][k][j] = k < a.n[c] && i < w
                            ? __ldg(wph + (long long)a.t[c][k] * a.plane + i)
                            : W(0);
@@ -359,6 +470,7 @@ __device__ __forceinline__ void strip_stencil_body(
   // item s of the staging sequence is row z0 - 1 + s % nr of column s / nr,
   // in slot s % kStencilSlots
   int issued = 0;
+  W wnext = W(0);  // the row's z-weight (on stencil_row_curl's path, the next row's)
   for (int b = 0; b < a.p; ++b) {
     for (int z = z0; z < z1; ++z) {
       const int sc = b * nr + (z - z0 + 1);  // this row's item
@@ -387,16 +499,31 @@ __device__ __forceinline__ void strip_stencil_body(
         }
         cp_async_commit();  // one group an item, empty past the end
       }
-      if (threadIdx.x < kRowWeights)
-        wrow[threadIdx.x] =
+      if (threadIdx.x < kRowWeights) {
+        const bool ahead = kCurl && pairs;
+        if (!ahead || (b == 0 && z == z0))
+          wnext =
             wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + z) * a.nt + wcol)
                       : W(0);
+        wrow[threadIdx.x] = wnext;
+        if (ahead) {  // the next row's, a row ahead: no barrier waits on it
+          const int zn = z + 1 < z1 ? z + 1 : z0;
+          wnext = wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + zn) * a.nt + wcol)
+                            : W(0);
+        }
+      }
       cp_async_wait<kStencilAhead>();  // items up to sc + 1 have landed
       __syncthreads();  // ... for every thread, with zeros and z-weights
       const int rm = ((sc - 1) % kStencilSlots) * a.row;
       const int r0 = (sc % kStencilSlots) * a.row;
       const int rp = ((sc + 1) % kStencilSlots) * a.row;
       S* ob = out + b * a.state + (long long)z * a.plane + l0;
+      if constexpr (kCurl) {
+        if (pairs) {
+          stencil_row_curl(ring, rm, r0, rp, wrow, wpr, a, ob, comp, w);
+          continue;
+        }
+      }
 #pragma unroll
       for (int c = 0; c < 6; ++c) {
         const int h = c / 3;
@@ -458,12 +585,14 @@ __device__ __forceinline__ void strip_stencil_body(
   cp_async_wait<0>();  // only empty groups can still be open
 }
 
+// curl: the taps have the curl's structure (curl_taps); bf16 at two lanes
+// a thread reads them with stencil_row_curl, every other state ignores it
 template <typename S, typename W, int LPT>
 __global__ void __launch_bounds__(kThreads, StripTraits<S, LPT>::kMinBlocks)
     stencil_pair_kernel(const S* __restrict__ u, S* __restrict__ out,
                         const W* __restrict__ wz, const W* __restrict__ wp,
-                        const __grid_constant__ StripArgs a) {
-  strip_stencil_body<S, W, false, LPT>(u, out, wz, wp, a);
+                        const __grid_constant__ StripArgs a, int curl) {
+  strip_stencil_body<S, W, false, LPT>(u, out, wz, wp, a, curl);
 }
 
 template <typename S, typename W, int LPT>
@@ -471,23 +600,210 @@ __global__ void __launch_bounds__(kThreads, StripTraits<S, LPT>::kMinBlocks)
     fdtd_step_kernel(const S* __restrict__ u, S* __restrict__ out,
                      const W* __restrict__ wz, const W* __restrict__ wp,
                      const __grid_constant__ StripArgs a) {
-  strip_stencil_body<S, W, true, LPT>(u, out, wz, wp, a);
+  strip_stencil_body<S, W, true, LPT>(u, out, wz, wp, a, false);
 }
 
 // ---------------------------------------------------------------------------
 // K2: out[j] = sum_k coeffs[k, j] * cat(x0, x1, x2)[k].
 // Replaces block_mix (lanczos_tpu/ops/pallas/block_dense.py:104).
 // Bound: device memory.  K input rows read once and p_out rows written
-// once: 4 * 449.8 MB for the mono step's (3p -> p) mix at N=160 p=4.  The
-// (K, p_out) coefficients sit in shared memory.  One thread owns one
-// position across all rows and reads all K inputs there before it writes
-// any output, so out may alias x0 (inplace=True) without a race; for that
-// reason no pointer here is __restrict__.  States of type T, coefficients
-// and sums of type W (T = W, but float for a bf16 state: one rounding on
-// store, block_dense.py:142-143; 4 * 56.2 MB for the fused vector route's
-// 3-operand call at N=160 p=1).
-template <typename T, typename W, int MAXPO>
-__global__ void __launch_bounds__(kThreads)
+// once: 4 * 449.8 MB for the mono step's (3p -> p) mix at N=160 p=4, 4 *
+// 112.5 MB for the vector route's 3-operand call at p=1 (half that on a
+// bf16 state); 2 K flops an output element, far below the card's rate.
+// The first version, one position a thread with one scalar load a row in
+// a runtime-K loop, kept few loads in flight and spent a handful of
+// instructions on each element, the same on a 2-byte bf16 as on an f32:
+// 66% of the bound at p=4, 35% on bf16 (PERF.md).  What this
+// design does about it:
+// * 16-byte loads and stores: a thread owns V consecutive positions (4
+//   f32, 8 bf16), one load a row and one store an output row; bf16 stays
+//   packed until its FMAs and widens exactly by a shift or a mask.  Where
+//   a row does not start on a 16-byte boundary the wrapper takes the
+//   scalar instantiation (V = 1) of the same kernel
+//   (block_dense.mix_vector_width); a tail of S % V positions (possible
+//   only when every operand and out hold one row) is summed one element a
+//   thread at the end.  An f64 state takes V = 1, one 8-byte load a row:
+//   two f64 a 16-byte word (1.378 ms at N=160 p=4) lost to the first
+//   version (1.228) in the same call, one a load (1.203) does not (probes
+//   --ab);
+// * every load in flight before the first FMA: block_mix_fixed_kernel is
+//   instantiated for the (K, p_out) the paths run, (12, 4), (8, 4), (4, 4)
+//   at p=4 and (3, 1), (2, 1), (1, 1) at p=1 (block_dense.MIX_SHAPES), with
+//   the row pointers in the parameter space and the coefficients read from
+//   shared memory as uniform broadcasts; a thread loads 8 or more 16-byte
+//   words (all K rows of U = max(1, 8 / K) vectors) before its first sum.
+//   block_mix_kernel, the runtime-K loop, takes every other shape (p_out <=
+//   32; 16-byte loads up to p_out = 8, whose V x p_out sums fit in
+//   registers);
+// * whole waves: kMixBlocksPerSM blocks an SM (128 registers a thread
+//   under __launch_bounds__: (12, 4) holds 12 16-byte words and 16 or 32
+//   sums; at three or four blocks it spilled and ran slower), the grid at
+//   most that times the SMs (build.mix_grid_cap, block_dense.mix_blocks),
+//   not a fixed 1024.
+// out may alias x0 (inplace=True), so no pointer is __restrict__ and the
+// loads take the coherent path: a thread loads all K inputs at its
+// positions before it stores any output there.  The sums keep the first
+// version's order, k = 0 .. K-1, acc += c * x in W (float for a bf16
+// state: one rounding on store, block_dense.py:142-143), so every
+// instantiation gives that version's bits.  Measured against it in one
+// call (probes --ab, N=160, 3 operands; NVIDIA H100 80GB HBM3, 700.00 W;
+// PERF.md): f32 p=4 in place 0.595 ms (0.814; 90% of the bound),
+// f32 p=1 0.152 (0.211), bf16 p=1 0.080 (0.187), bf16 p=4 0.300 (0.702),
+// f64 p=4 1.203 (1.227), bit for bit.
+constexpr int kMixBlocksPerSM = 2;
+constexpr int kMixMaxK = 12;        // rows of the fixed instantiations
+constexpr int kMixVecMaxPOut = 8;   // the generic kernel's 16-byte loads
+
+// V consecutive state elements of type T: one 16-byte word (V > 1: f32 or
+// bf16) or one element (V = 1), plain loads and stores.  Element i as the
+// sum type W: f32 as it is, bf16 widened exactly (the high half of a float).
+template <typename T, int V>
+struct MixVec {
+  static_assert(V == 1 || (V * sizeof(T) == 16 && sizeof(T) < 8),
+                "one element, or 16 bytes of f32 or bf16");
+  std::conditional_t<V == 1, T, uint4> v;
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (V == 1)
+      v = *p;
+    else
+      v = *reinterpret_cast<const uint4*>(p);
+  }
+
+  __device__ __forceinline__ unsigned word(int i) const {
+    return i < 2 ? (i == 0 ? v.x : v.y) : (i == 2 ? v.z : v.w);
+  }
+
+  template <typename W>
+  __device__ __forceinline__ W get(int i) const {
+    if constexpr (V == 1)
+      return widen<W>(v);
+    else if constexpr (std::is_same_v<T, float>)
+      return __uint_as_float(word(i));
+    else
+      return W(__uint_as_float(i & 1 ? word(i >> 1) & 0xffff0000u
+                                     : word(i >> 1) << 16));
+  }
+};
+
+// The V sums acc, rounded to T once, into V consecutive elements at p.
+template <typename T, int V, typename W>
+__device__ __forceinline__ void mix_store(T* p, const W (&acc)[V]) {
+  if constexpr (V == 1) {
+    *p = narrow<T>(acc[0]);
+  } else {
+    unsigned w[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (std::is_same_v<T, float>) {
+        w[i] = __float_as_uint(acc[i]);
+      } else {
+        w[i] = (unsigned)__bfloat16_as_ushort(narrow<T>(acc[2 * i])) |
+               (unsigned)__bfloat16_as_ushort(narrow<T>(acc[2 * i + 1])) << 16;
+      }
+    }
+    *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+  }
+}
+
+// Row k of cat(x0, x1, x2) for k < K, set on the host.
+template <typename T>
+struct MixRows {
+  const T* x[kMixMaxK];
+};
+
+// U vectors of V positions, `stride` vectors apart from vector v: every
+// row's load of all U is issued before the first sum, and every sum is
+// done before the first store.
+template <typename T, typename W, int K, int PO, int V, int U>
+__device__ __forceinline__ void mix_trip(const MixRows<T>& rows, const W* sc,
+                                         T* out, long long S, long long v,
+                                         long long stride) {
+  MixVec<T, V> x[U][K];
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int k = 0; k < K; ++k) x[u][k].load(rows.x[k] + (v + u * stride) * V);
+  W acc[U][PO][V];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+#pragma unroll
+    for (int j = 0; j < PO; ++j)
+#pragma unroll
+      for (int i = 0; i < V; ++i) acc[u][j][i] = W(0);
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+#pragma unroll
+      for (int j = 0; j < PO; ++j) {
+        const W c = sc[k * PO + j];
+#pragma unroll
+        for (int i = 0; i < V; ++i)
+          acc[u][j][i] += c * x[u][k].template get<W>(i);
+      }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u)
+#pragma unroll
+    for (int j = 0; j < PO; ++j)
+      mix_store<T, V>(out + (long long)j * S + (v + u * stride) * V, acc[u][j]);
+}
+
+// K2 for one (K, p_out), V positions a thread.
+template <typename T, typename W, int K, int PO, int V>
+__global__ void __launch_bounds__(kThreads, kMixBlocksPerSM)
+    block_mix_fixed_kernel(const __grid_constant__ MixRows<T> rows,
+                           const W* coeffs, T* out, long long S) {
+  constexpr int U = K >= 8 ? 1 : 8 / K;
+  __shared__ __align__(16) W sc[K * PO];
+  for (int i = threadIdx.x; i < K * PO; i += kThreads) sc[i] = coeffs[i];
+  __syncthreads();
+  const long long nvec = S / V;
+  const long long stride = (long long)gridDim.x * kThreads;
+  const long long t = (long long)blockIdx.x * kThreads + threadIdx.x;
+  long long v = t;
+  for (; v + (U - 1) * stride < nvec; v += U * stride)
+    mix_trip<T, W, K, PO, V, U>(rows, sc, out, S, v, stride);
+  for (; v < nvec; v += stride)
+    mix_trip<T, W, K, PO, V, 1>(rows, sc, out, S, v, stride);
+  if constexpr (V > 1)  // the tail, one position a thread
+    if (t < S - nvec * V)
+      mix_trip<T, W, K, PO, 1, 1>(rows, sc, out, S, nvec * V + t, 0);
+}
+
+// K2 for every other shape: a runtime K, p_out <= MAXPO, V positions a
+// thread (V > 1 for MAXPO <= kMixVecMaxPOut only).
+template <typename T, typename W, int MAXPO, int V>
+__device__ __forceinline__ void mix_at(const T* x0, int p0, const T* x1,
+                                       int p1, const T* x2, const W* sc,
+                                       int K, T* out, int p_out, long long S,
+                                       long long e) {
+  W acc[MAXPO][V];
+#pragma unroll
+  for (int j = 0; j < MAXPO; ++j)
+#pragma unroll
+    for (int i = 0; i < V; ++i) acc[j][i] = W(0);
+#pragma unroll 4
+  for (int k = 0; k < K; ++k) {
+    const T* row = k < p0 ? x0 + (long long)k * S
+                   : k < p0 + p1 ? x1 + (long long)(k - p0) * S
+                                 : x2 + (long long)(k - p0 - p1) * S;
+    MixVec<T, V> xv;
+    xv.load(row + e);
+    const W* ck = sc + k * p_out;
+#pragma unroll
+    for (int j = 0; j < MAXPO; ++j)
+      if (j < p_out) {
+#pragma unroll
+        for (int i = 0; i < V; ++i) acc[j][i] += ck[j] * xv.template get<W>(i);
+      }
+  }
+#pragma unroll
+  for (int j = 0; j < MAXPO; ++j)
+    if (j < p_out) mix_store<T, V>(out + (long long)j * S + e, acc[j]);
+}
+
+template <typename T, typename W, int MAXPO, int V>
+__global__ void __launch_bounds__(kThreads, kMixBlocksPerSM)
     block_mix_kernel(const T* x0, int p0, const T* x1, int p1, const T* x2,
                      int p2, const W* coeffs, T* out, int p_out,
                      long long S) {
@@ -496,26 +812,15 @@ __global__ void __launch_bounds__(kThreads)
   const int K = p0 + p1 + p2;
   for (int i = threadIdx.x; i < K * p_out; i += blockDim.x) sc[i] = coeffs[i];
   __syncthreads();
+  const long long nvec = S / V;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long s = (long long)blockIdx.x * blockDim.x + threadIdx.x; s < S;
-       s += stride) {
-    W acc[MAXPO];
-#pragma unroll
-    for (int j = 0; j < MAXPO; ++j) acc[j] = W(0);
-    for (int k = 0; k < K; ++k) {
-      const T* row = k < p0 ? x0 + (long long)k * S
-                     : k < p0 + p1 ? x1 + (long long)(k - p0) * S
-                                   : x2 + (long long)(k - p0 - p1) * S;
-      const W xv = widen<W>(row[s]);
-      const W* ck = sc + k * p_out;
-#pragma unroll
-      for (int j = 0; j < MAXPO; ++j)
-        if (j < p_out) acc[j] += ck[j] * xv;
-    }
-#pragma unroll
-    for (int j = 0; j < MAXPO; ++j)
-      if (j < p_out) out[(long long)j * S + s] = narrow<T>(acc[j]);
-  }
+  const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  for (long long v = t; v < nvec; v += stride)
+    mix_at<T, W, MAXPO, V>(x0, p0, x1, p1, x2, sc, K, out, p_out, S, v * V);
+  if constexpr (V > 1)  // the tail, one position a thread
+    if (t < S - nvec * V)
+      mix_at<T, W, MAXPO, 1>(x0, p0, x1, p1, x2, sc, K, out, p_out, S,
+                             nvec * V + t);
 }
 
 // ---------------------------------------------------------------------------
@@ -1655,13 +1960,18 @@ struct Strip {
   }
 
   static int launch(const void* u, void* out, const void* wz, const void* wp,
-                    const StripArgs& a, dim3 grid, size_t smem,
+                    const StripArgs& a, bool curl, dim3 grid, size_t smem,
                     cudaStream_t st) {
     const int err = prepare();
     if (err) return err;
-    kernel()<<<grid, kThreads, smem, st>>>(
-        static_cast<const T*>(u), static_cast<T*>(out),
-        static_cast<const W*>(wz), static_cast<const W*>(wp), a);
+    if constexpr (kAddInput)
+      kernel()<<<grid, kThreads, smem, st>>>(
+          static_cast<const T*>(u), static_cast<T*>(out),
+          static_cast<const W*>(wz), static_cast<const W*>(wp), a);
+    else
+      kernel()<<<grid, kThreads, smem, st>>>(
+          static_cast<const T*>(u), static_cast<T*>(out),
+          static_cast<const W*>(wz), static_cast<const W*>(wp), a, (int)curl);
     return finish();
   }
 
@@ -1682,9 +1992,10 @@ int strip_stencil(const void* u, void* out, const void* wz, const void* wp,
                                    kStencilSlots, 2 * kRowWeights, false, a,
                                    grid, smem, lpt);
   if (err) return err;
-  return lpt == 1 ? Strip<T, W, kAddInput, 1>::launch(u, out, wz, wp, a,
+  const bool curl = curl_taps(unpack_taps(taps));
+  return lpt == 1 ? Strip<T, W, kAddInput, 1>::launch(u, out, wz, wp, a, curl,
                                                       grid, smem, st)
-                  : Strip<T, W, kAddInput, 2>::launch(u, out, wz, wp, a,
+                  : Strip<T, W, kAddInput, 2>::launch(u, out, wz, wp, a, curl,
                                                       grid, smem, st);
 }
 
@@ -1810,35 +2121,113 @@ int apply_stencil(const void* u, void* out, const void* wz, const void* wp,
              : GenStrip<T, 2, 0>::launch(u, out, wz, wp, a, grid, smem, st);
 }
 
-template <typename T, typename W, int MAXPO>
-int block_mix_t(const void* x0, int p0, const void* x1, int p1,
+// The rows of a K2 call start on 16-byte boundaries, as a V > 1 launch
+// needs (block_dense.mix_vector_width): every operand's and out's pointer
+// is aligned, and so is a row of S elements unless each holds one row.
+template <typename T>
+bool mix_rows_aligned(const void* x0, int p0, const void* x1, int p1,
+                      const void* x2, int p2, const void* out, int p_out,
+                      long long S) {
+  const void* ptrs[4] = {x0, x1, x2, out};
+  const int rows[4] = {p0, p1, p2, p_out};
+  bool one_row = true;
+  for (int i = 0; i < 4; ++i) {
+    if (rows[i] && reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return false;
+    one_row = one_row && rows[i] <= 1;
+  }
+  return one_row || S * (long long)sizeof(T) % 16 == 0;
+}
+
+template <typename T, typename W, int K, int PO, int V>
+int mix_fixed_launch(const MixRows<T>& rows, const void* coeffs, void* out,
+                     long long S, int nblocks, cudaStream_t st) {
+  block_mix_fixed_kernel<T, W, K, PO, V><<<nblocks, kThreads, 0, st>>>(
+      rows, static_cast<const W*>(coeffs), static_cast<T*>(out), S);
+  return finish();
+}
+
+// The fixed instantiation of (K, p_out) (block_dense.MIX_SHAPES), V
+// positions a thread; another shape is refused.
+template <typename T, typename W, int V>
+int mix_fixed(int K, int p_out, const MixRows<T>& rows, const void* coeffs,
+              void* out, long long S, int nblocks, cudaStream_t st) {
+  if (p_out == 4 && K == 12)
+    return mix_fixed_launch<T, W, 12, 4, V>(rows, coeffs, out, S, nblocks, st);
+  if (p_out == 4 && K == 8)
+    return mix_fixed_launch<T, W, 8, 4, V>(rows, coeffs, out, S, nblocks, st);
+  if (p_out == 4 && K == 4)
+    return mix_fixed_launch<T, W, 4, 4, V>(rows, coeffs, out, S, nblocks, st);
+  if (p_out == 1 && K == 3)
+    return mix_fixed_launch<T, W, 3, 1, V>(rows, coeffs, out, S, nblocks, st);
+  if (p_out == 1 && K == 2)
+    return mix_fixed_launch<T, W, 2, 1, V>(rows, coeffs, out, S, nblocks, st);
+  if (p_out == 1 && K == 1)
+    return mix_fixed_launch<T, W, 1, 1, V>(rows, coeffs, out, S, nblocks, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <typename T, typename W, int MAXPO, int V>
+int mix_generic(const void* x0, int p0, const void* x1, int p1,
                 const void* x2, int p2, const void* coeffs, void* out,
                 int p_out, long long S, int nblocks, cudaStream_t st) {
   const size_t smem = sizeof(W) * (size_t)(p0 + p1 + p2) * p_out;
-  block_mix_kernel<T, W, MAXPO><<<nblocks, kThreads, smem, st>>>(
+  block_mix_kernel<T, W, MAXPO, V><<<nblocks, kThreads, smem, st>>>(
       static_cast<const T*>(x0), p0, static_cast<const T*>(x1), p1,
       static_cast<const T*>(x2), p2, static_cast<const W*>(coeffs),
       static_cast<T*>(out), p_out, S);
   return finish();
 }
 
+// K2 as the wrapper picks it (block_dense.block_mix): the fixed
+// instantiation or the generic kernel (`fixed`), `vec` positions a thread,
+// `nblocks` blocks.
 template <typename T, typename W = T>
 int block_mix(const void* x0, int p0, const void* x1, int p1, const void* x2,
               int p2, const void* coeffs, void* out, int p_out, long long S,
-              int nblocks, cudaStream_t st) {
+              int fixed, int vec, int nblocks, cudaStream_t st) {
+  constexpr int kVec = sizeof(T) == 8 ? 1 : 16 / (int)sizeof(T);
+  const int bad = (int)cudaErrorInvalidValue;
+  const int K = p0 + p1 + p2;
+  if (p0 < 0 || p1 < 0 || p2 < 0 || K < 1 || p_out < 1 || S < 1 ||
+      nblocks < 1 ||
+      (vec != 1 && vec != kVec) ||
+      (vec > 1 && !mix_rows_aligned<T>(x0, p0, x1, p1, x2, p2, out, p_out, S)))
+    return bad;
+  if (fixed) {
+    if (K > kMixMaxK) return bad;
+    MixRows<T> rows{};
+    for (int k = 0; k < K; ++k)
+      rows.x[k] = k < p0 ? static_cast<const T*>(x0) + (long long)k * S
+                  : k < p0 + p1
+                      ? static_cast<const T*>(x1) + (long long)(k - p0) * S
+                      : static_cast<const T*>(x2) + (long long)(k - p0 - p1) * S;
+    return vec == 1 ? mix_fixed<T, W, 1>(K, p_out, rows, coeffs, out, S,
+                                         nblocks, st)
+                    : mix_fixed<T, W, kVec>(K, p_out, rows, coeffs, out, S,
+                                            nblocks, st);
+  }
+  if (vec > 1) {
+    if (p_out <= 4)
+      return mix_generic<T, W, 4, kVec>(x0, p0, x1, p1, x2, p2, coeffs, out,
+                                        p_out, S, nblocks, st);
+    if (p_out <= kMixVecMaxPOut)
+      return mix_generic<T, W, kMixVecMaxPOut, kVec>(
+          x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S, nblocks, st);
+    return bad;
+  }
   if (p_out <= 4)
-    return block_mix_t<T, W, 4>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
-                                S, nblocks, st);
+    return mix_generic<T, W, 4, 1>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                   S, nblocks, st);
   if (p_out <= 8)
-    return block_mix_t<T, W, 8>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
-                                S, nblocks, st);
+    return mix_generic<T, W, 8, 1>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                   S, nblocks, st);
   if (p_out <= 16)
-    return block_mix_t<T, W, 16>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
-                                 S, nblocks, st);
+    return mix_generic<T, W, 16, 1>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                    S, nblocks, st);
   if (p_out <= 32)
-    return block_mix_t<T, W, 32>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
-                                 S, nblocks, st);
-  return (int)cudaErrorInvalidValue;
+    return mix_generic<T, W, 32, 1>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out,
+                                    S, nblocks, st);
+  return bad;
 }
 
 // The (R, C) tiles and vector widths the wrapper may pick
@@ -1946,18 +2335,19 @@ int lt_stencil_pair(int dtype, const void* u, void* out, const void* wz,
 
 int lt_block_mix(int dtype, const void* x0, int p0, const void* x1, int p1,
                  const void* x2, int p2, const void* coeffs, void* out,
-                 int p_out, long long S, int nblocks, void* stream) {
+                 int p_out, long long S, int fixed, int vec, int nblocks,
+                 void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32:
       return block_mix<float>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                              nblocks, st);
+                              fixed, vec, nblocks, st);
     case kF64:
       return block_mix<double>(x0, p0, x1, p1, x2, p2, coeffs, out, p_out, S,
-                               nblocks, st);
+                               fixed, vec, nblocks, st);
     case kBF16:
       return block_mix<bf16, float>(x0, p0, x1, p1, x2, p2, coeffs, out,
-                                    p_out, S, nblocks, st);
+                                    p_out, S, fixed, vec, nblocks, st);
   }
   return kBadType;
 }
@@ -2057,6 +2447,9 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
 // Blocks of the Gram kernel an SM holds, the grid's cap per SM
 // (build.gram_grid_cap).
 int lt_gram_blocks_per_sm() { return kGramBlocksPerSM; }
+
+// Blocks of K2 an SM holds, the grid's cap per SM (build.mix_grid_cap).
+int lt_mix_blocks_per_sm() { return kMixBlocksPerSM; }
 
 // Blocks an SM holds on the current device of K1 (kernel 0) or K5 (1)
 // with `variant` lanes a thread, or of K4 (2) for p <= `variant` (4 or 8),

@@ -23,9 +23,15 @@ K3 returns an f32 Gram; K7 widens bf16 to f32 (exact) and returns f32, as
 JAX's K7 upcasts them.  The accumulation type is `acc_dtype`: f32, or the
 state's own if wider.
 
-On CUDA tensors they launch block_mix_kernel and gram_kernel (K3, and K7
-with f64 sums) of `csrc/lanczos_kernels.cu`; on CPU tensors they run the
-plain versions.  The Gram launch is set by pure functions of the call:
+On CUDA tensors they launch block_mix_fixed_kernel or block_mix_kernel
+(K2) and gram_kernel (K3, and K7 with f64 sums) of
+`csrc/lanczos_kernels.cu`; on CPU tensors they run the plain versions.
+Each launch is set by pure functions of the call.  K2's:
+`mix_fixed` (the instantiation for the (K, p_out) the paths run,
+`MIX_SHAPES`, with every row's load in flight before the first sum; else
+the runtime-K kernel), `mix_vector_width` (16-byte or scalar loads, from
+S, p_out, the state's type and the operands' and out's alignment) and
+`mix_blocks` (the grid, from S and the card's cap, `build.mix_grid_cap`).  The Gram's:
 `gram_tile` (the register tile, from (K, p)), `gram_vector_width` (16-byte
 or scalar loads, from S and the operands' alignment) and `gram_blocks`
 (the grid, from S and the card's cap, `build.gram_grid_cap`).
@@ -39,8 +45,13 @@ from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.kernels import build
 from lanczos_tpu_torch.ops.kernels.build import acc_dtype
 
-MAX_P_OUT = 32  # csrc block_mix instantiations
+MAX_P_OUT = 32  # csrc block_mix_kernel instantiations
 MAX_OPERANDS = 3
+# csrc block_mix_fixed_kernel's (K, p_out): the mono step's and the 3-call
+# step's mixes at p=4 (block_lanczos_fused.py:183/188, :133, :111) and the
+# vector route's at p=1
+MIX_SHAPES = ((12, 4), (8, 4), (4, 4), (3, 1), (2, 1), (1, 1))
+MIX_VECTOR_MAX_P_OUT = 8  # csrc kMixVecMaxPOut: block_mix_kernel's 16-byte loads
 
 
 def block_mix_plain(coeffs: torch.Tensor, xs, inplace: bool = False):
@@ -95,13 +106,49 @@ def block_mix(coeffs: torch.Tensor, xs, inplace: bool = False) -> torch.Tensor:
     ptrs = [x.data_ptr() for x in xs] + [None] * (MAX_OPERANDS - len(xs))
     rows = ps + [0] * (MAX_OPERANDS - len(xs))
     S = xs[0][0].numel()
+    vec = mix_vector_width(S, out.element_size(),
+                           [x.data_ptr() for x in xs] + [out.data_ptr()],
+                           ps + [p_out])
     build.launch(
         "block_mix", out, "lt_block_mix", build.dtype_code(xs[0], True), ptrs[0],
         rows[0], ptrs[1], rows[1], ptrs[2], rows[2], cf.data_ptr(),
-        out.data_ptr(), p_out, S, build.grid_blocks(S),
+        out.data_ptr(), p_out, S, int(mix_fixed(sum(ps), p_out)), vec,
+        mix_blocks(S, vec, build.mix_grid_cap(out.device)),
         build.stream_handle(out),
     )
     return out
+
+
+def mix_fixed(K: int, p_out: int) -> bool:
+    """Whether K2 takes its instantiation for (K, p_out), which issues every
+    row's 16-byte loads before its first sum (the shapes the paths run,
+    `MIX_SHAPES`), or the runtime-K kernel (every other shape)."""
+    return (K, p_out) in MIX_SHAPES
+
+
+def mix_vector_width(S: int, itemsize: int, ptrs, rows) -> int:
+    """Positions a thread of K2 loads at once: 16 bytes' worth (4 f32, 8
+    bf16) when every row of the operands and of out starts on a 16-byte
+    boundary (each pointer is aligned, and a row of S elements is a multiple
+    of 16 bytes unless every one of them holds a single row: the kernel sums
+    a tail of S % V positions one at a time) and p_out = rows[-1] <=
+    MIX_VECTOR_MAX_P_OUT (its V x p_out sums sit in registers), else 1, the
+    scalar instantiation.  An f64 state always takes 1: one 8-byte load a
+    row ran faster on the H100 than two f64 a 16-byte word (PERF.md).
+    ptrs and rows: the operands' and then out's."""
+    aligned = all(ptr % 16 == 0 for ptr in ptrs)
+    whole_rows = (S * itemsize) % 16 == 0 or all(r == 1 for r in rows)
+    if (itemsize < 8 and aligned and whole_rows
+            and rows[-1] <= MIX_VECTOR_MAX_P_OUT):
+        return 16 // itemsize
+    return 1
+
+
+def mix_blocks(S: int, vec: int, max_blocks: int) -> int:
+    """Blocks of K2's grid: one per 256 vectors of `vec` positions (a thread
+    a vector), at most `max_blocks` (whole waves on the card); no sum
+    crosses a position, so the grid never changes a result."""
+    return max(1, min(-(-S // (256 * vec)), max_blocks))
 
 
 def gram_plain(x: torch.Tensor, z: torch.Tensor) -> torch.Tensor:

@@ -61,7 +61,8 @@ _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
-    "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _P),
+    "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _I, _I,
+                     _P),
     "lt_block_grams": (
         _I, _P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _LL, _I, _I, _I, _P, _I,
         _P, _P, _P,
@@ -78,6 +79,7 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _LL, _P,
     ),
     "lt_gram_blocks_per_sm": (),
+    "lt_mix_blocks_per_sm": (),
     "lt_stencil_blocks_per_sm": (_I, _I, _I, _LL),
     "lt_apply_stencil": (
         _I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
@@ -111,12 +113,14 @@ def _nvcc() -> str:
     )
 
 
-def build() -> Path:
-    """Compile the kernel library if this source/flag combination has not
-    been built yet; returns its path.  The nvcc log (with `-Xptxas -v`'s
-    register and spill report) is kept in `build_log`."""
+def build(source: Path | None = None) -> Path:
+    """Compile the kernel library from `source` (default SOURCE) if this
+    source/flag combination has not been built yet; returns its path.  The
+    nvcc log (with `-Xptxas -v`'s register and spill report) is kept in
+    `build_log`.  Builds of different sources may run in threads at once."""
     global build_log
-    src = SOURCE.read_bytes()
+    source = SOURCE if source is None else source
+    src = source.read_bytes()
     tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     out = BUILD_DIR / f"liblanczos_kernels-{tag}.so"
     if out.exists():
@@ -126,7 +130,7 @@ def build() -> Path:
     # load a half-written library
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
@@ -138,16 +142,22 @@ def build() -> Path:
     return out
 
 
+def load(path: Path, signatures: dict | None = None) -> ctypes.CDLL:
+    """The kernel library built at `path`, its entry points typed by
+    `signatures` (default this source's, `_SIGNATURES`)."""
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in (signatures or _SIGNATURES).items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+        _lib = load(build())
     return _lib
 
 
@@ -224,7 +234,8 @@ def gram_grid_cap(device: torch.device) -> int:
     return library().lt_gram_blocks_per_sm() * sm_count(device)
 
 
-def grid_blocks(n: int) -> int:
-    """Blocks of the grid-stride kernel K2 (256 threads each, at most 1024
-    blocks), a function of the size only."""
-    return max(1, min(-(-n // 256), 1024))
+def mix_grid_cap(device: torch.device) -> int:
+    """The most blocks of K2's grid on `device`: its blocks per SM
+    (kMixBlocksPerSM of the .cu) times the card's SMs, so the grid runs in
+    whole waves (264 on an H100)."""
+    return library().lt_mix_blocks_per_sm() * sm_count(device)

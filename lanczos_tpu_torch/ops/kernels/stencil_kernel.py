@@ -30,7 +30,9 @@ launches (the FDTD oracle's 10^6 steps) rebuilds neither.
 
 K1 also takes a bf16 state with f32 weights (the bf16 folded-plane
 operator): it promotes each bf16 input to the f32 weights, sums in f32 and
-rounds once to bf16 on store, as the Pallas kernel does (:193-197).  K6,
+rounds once to bf16 on store, as the Pallas kernel does (:193-197).  Where
+the taps are the Maxwell curl's (`curl_taps`, every operator's), the card
+reads two adjacent lanes a thread, a tap one 32-bit shared load.  K6,
 and an unpaired half of K1 (two K6 launches), refuse bf16: on the TPU the
 generic kernel rolls bf16 lanes with no upcast (:343-344), which Mosaic's
 32-bit rotate does not take.
@@ -355,6 +357,48 @@ def tap_table(spec_a: StencilSpec, spec_b: StencilSpec):
             vals += [tp[3] % spec.plane for tp in taps] + pad
     vals += [int(spec_a.paired), int(spec_b.paired)]
     return (ctypes.c_int * len(vals))(*vals)
+
+
+def _curl_dz(c: int, k: int) -> int:
+    """csrc curl_dz: the z-row offset of tap k of output component c."""
+    return (1 if c < 3 else -1) if k == 1 and c % 3 < 2 else 0
+
+
+def _curl_rolled(c: int, k: int) -> bool:
+    """csrc curl_rolled: whether tap k of output component c rolls."""
+    return k == 3 or (k == 1 and c % 3 == 2)
+
+
+def curl_taps(spec_a: StencilSpec, spec_b: StencilSpec):
+    """How K1 on a bf16 state loads each tap, two adjacent lanes a thread
+    (csrc stencil_row_curl), or None where the pair's taps lack the Maxwell
+    curl's structure (K1 then reads a lane a thread, as in f32).  The
+    structure (csrc curl_dz, curl_rolled; every PallasMaxwellOperator has
+    it): both halves paired, four taps an output component; components 0
+    and 1 of a half a z-pair (rows z and z+1 in the first half, z and z-1
+    in the second; roll 0) then a plane-pair, component 2 two plane-pairs;
+    a plane-pair's first tap has roll 0.  Per output component 0..5, per tap
+    in `tap_table` order: 0 for a roll-0 tap (one 32-bit load), 1 for a
+    rolled tap at an even staged offset and 2 at an odd one (both load two
+    words; a byte permute joins an odd one's).  A component's lanes start
+    at a whole 16-byte word of the ring, so the offset's parity is the
+    roll's: the x-pair's +-1 lane is odd, a y-pair's xc lanes where xc
+    is."""
+    _check_pair(spec_a, spec_b)
+    out = []
+    for h, spec in enumerate((spec_a, spec_b)):
+        for oc in range(3):
+            c, taps = 3 * h + oc, [spec.taps[t] for t in _comp_taps(spec, oc)]
+            if not spec.paired or len(taps) != MAX_TAPS_PER_COMP:
+                return None
+            loads = []
+            for k, (_, _, dz, r) in enumerate(taps):
+                r %= spec.plane
+                if dz != _curl_dz(c, k) or (r and not _curl_rolled(c, k)):
+                    return None
+                loads.append(1 + r % 2 if _curl_rolled(c, k) else 0)
+            out.append(tuple(loads))
+    return tuple(out)
 
 
 def _signed_roll(r: int, plane: int) -> int:

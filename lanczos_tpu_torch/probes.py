@@ -2,7 +2,7 @@
 
     python -m lanczos_tpu_torch.probes
     python -m lanczos_tpu_torch.probes --stencil-tiles
-    python -m lanczos_tpu_torch.probes --stencil-parts
+    python -m lanczos_tpu_torch.probes --stencil-parts [--source OLD.cu]
     python -m lanczos_tpu_torch.probes --assembled
     python -m lanczos_tpu_torch.probes --ab OLD.cu
     python -m lanczos_tpu_torch.probes --gram-tiles
@@ -45,25 +45,26 @@ m=12, k=5, reorth full, TSQR, breakdown_eps 1e-4, replace_dead,
 compute_vectors) and of 50 FDTD steps of the ELL slice's operator
 (`--operator ell`, N=48, p=4).
 
-With --stencil-parts it prints only this: K1 and K5 at p=1 and p=4 and
-K4 at p=4 on N=160 (f32), built five ways from `csrc/lanczos_kernels.cu`:
-as it stands; K1/K5 without their taps (each output is 0 for K1, u for
-K5: staging, barriers and stores only) and without their staging copies
-(the taps read whatever the ring holds); K4 without its Gram sums and
-without its staging copies; each timed as above, to show which part sets
-the time.
+With --stencil-parts it prints only this: K1 and K5 at p=1 and p=4, K4 at
+p=4 (f32) and K1 on bf16 states at p=8 and p=1, on N=160, built from
+`csrc/lanczos_kernels.cu` (or OLD.cu, another commit's) as it stands and
+with one part of the work cut out: the strip body's taps (each output is
+0 for K1, u for K5: staging, barriers and stores only), its staging copies
+(the taps read whatever the ring holds), its z-weight loads (each row's
+z-weights read as 1), K4's Gram sums, K4's staging copies; every part's
+library built at once (nvcc in threads), each timed as above, to show
+which part sets the time.  An edit OLD.cu lacks is left out, and said so.
 
-With --ab OLD.cu it prints only this, a same-call A/B of the stencil
-kernels: OLD.cu is the `csrc/lanczos_kernels.cu` of commit 500f53f
-(`git show 500f53f:lanczos_tpu_torch/csrc/lanczos_kernels.cu`), with
-K1/K5's strip interface and K4's and K6's before their redesign (one
-thread a position, a grid of at most 1024 blocks, K4's sums in a second
-launch),
-built and loaded beside the current library.  K1 and K5 at p=1 and p=4
-(unchanged since: the spread of the A/B), K4 at p=4 and K6's E half-call
-at p=4, on N=160 (f32), each timed old, new, new, old (CUDA events, 20
-calls after 2 warm-up calls), with the largest difference between the
-two results.
+With --ab OLD.cu it prints only this, a same-call A/B of the kernels the
+parent commit redesigned: OLD.cu is its `csrc/lanczos_kernels.cu` (`git
+show 06798f8:lanczos_tpu_torch/csrc/lanczos_kernels.cu`), built and loaded
+beside the current library with its C interface (`_OLD_SIGNATURES`).  K2
+with 3 operands at N=160 (f32 p=4 in place, f32 p=1, bf16 p=1 and p=4,
+f64 p=4, f32 p=8 on the runtime-K kernel; a new buffer but the first), K1
+on bf16 states at p=8, p=4 and p=1, and as controls, unchanged, K1 and K5
+(f32) at p=4 and p=1 and K4 at p=4: each timed old, new, new, old (CUDA
+events, 20 calls after 2 warm-up calls), with the largest difference
+between the two results (K4: g3, and v apart).
 
 With --gram-tiles it prints only this: K3 at the fused recurrence's calls
 (`(), b` and `(q,), v`, include_zz: K = p and 2p) at p=1 and p=4, and K7 at
@@ -207,36 +208,35 @@ def _ms(fn, iters=20, warmup=2) -> float:
     return start.elapsed_time(end) / iters
 
 
-# the C interface of the kernels of commit 500f53f (`git show
-# 500f53f:lanczos_tpu_torch/csrc/lanczos_kernels.cu`): K1/K5 as now, K4
-# and K6 before their redesign
-_STRIP = ("I", "P", "P", "P", "P", "IP", "IP", "I", "I", "I", "I", "P")
-_OLD_SIGNATURES = {
-    "lt_stencil_pair": _STRIP,
-    "lt_fdtd_step": _STRIP,
-    "lt_stencil_pair_gram": ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "I",
-                             "P", "I", "P", "P"),
-    "lt_apply_stencil": ("I", "P", "P", "P", "P", "IP", "I", "I", "I", "LL",
-                         "LL", "LL", "LL", "I", "P"),
-}
+# the parent's C interface (commit 06798f8, `git show 06798f8:lanczos_tpu_
+# torch/csrc/lanczos_kernels.cu`): the current one, but K2's, which took no
+# instantiation or vector width and a grid of at most 1024 blocks
+_OLD_SIGNATURES = dict(
+    build._SIGNATURES,
+    lt_block_mix=build._SIGNATURES["lt_block_mix"][:11] + build._SIGNATURES[
+        "lt_block_mix"][13:],
+)
+del _OLD_SIGNATURES["lt_mix_blocks_per_sm"]
 
 
 def _old_library(path: str):
-    import ctypes
+    """The kernels of the source at `path`, built beside the current ones
+    and loaded with the parent's C interface."""
     from pathlib import Path
 
-    types = {"I": ctypes.c_int, "P": ctypes.c_void_p, "LL": ctypes.c_longlong,
-             "IP": ctypes.POINTER(ctypes.c_int)}
-    source = build.SOURCE
-    try:
-        build.SOURCE = Path(path).resolve()
-        lib = ctypes.CDLL(str(build.build()))
-    finally:
-        build.SOURCE = source
-    for name, sig in _OLD_SIGNATURES.items():
-        getattr(lib, name).argtypes = [types[t] for t in sig]
-        getattr(lib, name).restype = ctypes.c_int
-    return lib
+    return build.load(build.build(Path(path).resolve()), _OLD_SIGNATURES)
+
+
+def _on(lib, fn):
+    """fn() with every wrapper launching from `lib`."""
+    def run():
+        current = build._lib
+        build._lib = lib
+        try:
+            return fn()
+        finally:
+            build._lib = current
+    return run
 
 
 def _ab(label, old_fn, new_fn, names=("old", "new")) -> None:
@@ -253,75 +253,78 @@ def _ab(label, old_fn, new_fn, names=("old", "new")) -> None:
 
 
 def probe_ab(dev, old_path: str) -> None:
-    import dataclasses
-
-    from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
-        generic_tap_table,
-        pair_plan,
-        stencil_into,
-        tap_table,
-    )
+    """K2 and K1 bf16 (redesigned) and K1/K5 f32 and K4 (unchanged: the
+    A/B's spread) from the parent's source against the current ones."""
+    from lanczos_tpu_torch.ops.kernels import block_dense
 
     old = _old_library(old_path)
-    build.library()
+    new = build.library()
     st = torch.cuda.current_stream(dev).cuda_stream
-    op = PallasMaxwellOperator.create(N, N, N, device=dev)
-    a_dt = op.scaled(1.0 / FDTD_STEPS)
-    taps = tap_table(op.spec_e, op.spec_h)
-    zc, plane, nt = op.spec.zc, op.spec.plane, op.wz_t.shape[-1]
     g = torch.Generator(device=dev).manual_seed(0)
-    for p in (1, P):
-        u = torch.randn((p,) + op.state_shape, generator=g, device=dev)
-        outs = [torch.empty_like(u) for _ in range(3)]
-        plan = pair_plan(op.spec_e, op.spec_h, p, 4, build.sm_count(dev))
+    S = 6 * 176 * 26624  # one block column of the N=160 state
 
-        def old_call(entry, a, out):
-            def run():
-                build.check(getattr(old, entry)(
-                    0, u.data_ptr(), out.data_ptr(), a.wz_t.data_ptr(),
-                    a.wplane_s.data_ptr(), taps, plan.ints, p, zc, plane, nt,
-                    st), entry)
-                return out
-            return run
+    def old_mix(coeffs, xs, out):
+        """The parent's K2 as its wrapper launched it."""
+        cf = coeffs.to(block_dense.acc_dtype(out.dtype)).contiguous()
+        ptrs = [x.data_ptr() for x in xs] + [None] * (3 - len(xs))
+        rows = [x.shape[0] for x in xs] + [0] * (3 - len(xs))
 
-        _ab(f"K1 apply_stencil_pair p={p}", old_call("lt_stencil_pair", op, outs[0]),
-            lambda: op.mm(u))
-        _ab(f"K5 fdtd_step p={p}", old_call("lt_fdtd_step", a_dt, outs[1]),
-            lambda: a_dt.fdtd_step(u, outs[2]))
-        del outs
-    # K4 at the block slice's p: each side overwrites its own dst with v
-    dst_old, dst_new = u.clone(), u.clone()
-    q = torch.randn_like(u)
-    nblocks = build.grid_blocks(6 * zc * plane)  # the old K4's grid
-    partial = torch.empty((nblocks, 3 * P, P), device=dev)
-    g3 = torch.empty((3 * P, P), device=dev)
+        def run():
+            build.check(old.lt_block_mix(
+                build.dtype_code(out, True), ptrs[0], rows[0], ptrs[1], rows[1],
+                ptrs[2], rows[2], cf.data_ptr(), out.data_ptr(), out.shape[0], S,
+                max(1, min(-(-S // 256), 1024)), st), "lt_block_mix")
+            return out
+        return run
 
-    def old_k4():
-        build.check(old.lt_stencil_pair_gram(
-            0, q.data_ptr(), dst_old.data_ptr(), op.wz_t.data_ptr(),
-            op.wplane_s.data_ptr(), taps, P, zc, plane, nt, partial.data_ptr(),
-            nblocks, g3.data_ptr(), st), "lt_stencil_pair_gram")
-        return g3
-
-    _ab(f"K4 apply_stencil_pair_gram p={P} (g3)", old_k4,
-        lambda: op.stencil_gram(q, dst_new)[1])
-    # K6: the E half-call of an unpaired pair, as chip_smoke times it
-    spec = dataclasses.replace(op.spec_e, paired=False)
-    wz, wp = op.wz_t[0].T, op.wplane_s[0]
-    out_old, out_new = torch.zeros_like(u), torch.zeros_like(u)
-
-    def old_k6():
-        src, dst = u[:, 3:6], out_old[:, 0:3]
-        build.check(old.lt_apply_stencil(
-            0, src.data_ptr(), dst.data_ptr(), wz.data_ptr(), wp.data_ptr(),
-            generic_tap_table(spec), P, zc, plane, src.stride(0),
-            dst.stride(0), wz.stride(0), wz.stride(1),
-            build.grid_blocks(zc * plane), st), "lt_apply_stencil")
-        return dst
-
-    _ab(f"K6 apply_stencil E half p={P}", old_k6,
-        lambda: stencil_into(u[:, 3:6], out_new[:, 0:3], wz, wp, spec))
-    torch.cuda.empty_cache()
+    # K2: 3 operands (K = 3p) into p columns, as the mono step (in place) and
+    # the 3-call step and the vector route (a new buffer) call it; p=8 takes
+    # the runtime-K kernel
+    for dtype, p, inplace in ((torch.float32, 4, True), (torch.float32, 1, False),
+                              (torch.bfloat16, 1, False), (torch.bfloat16, 4, False),
+                              (torch.float64, 4, False), (torch.float32, 8, False)):
+        xs = [torch.randn((p, S), generator=g, device=dev).to(dtype)
+              for _ in range(3)]
+        coeffs = 0.1 * torch.randn((3 * p, p), generator=g, device=dev,
+                                   dtype=block_dense.acc_dtype(dtype))
+        name = f"K2 block_mix {str(dtype)[6:]} p={p}"
+        if inplace:
+            xo, xn = [x.clone() for x in xs], [x.clone() for x in xs]
+            _ab(name + " in place", old_mix(coeffs, xo, xo[0]),
+                lambda: block_dense.block_mix(coeffs, xn, inplace=True))
+            del xo, xn
+        else:
+            out = torch.empty_like(xs[0])
+            _ab(name, old_mix(coeffs, xs, out),
+                lambda: block_dense.block_mix(coeffs, xs))
+            del out
+        del xs
+        torch.cuda.empty_cache()
+    # K1 on bf16 states (redesigned), then the f32 controls: K1, K5, K4
+    for dtype, ps in ((torch.bfloat16, (8, P, 1)), (torch.float32, (P, 1))):
+        op = PallasMaxwellOperator.create(N, N, N, dtype=dtype, device=dev)
+        for p in ps:
+            u = torch.randn((p,) + op.state_shape, generator=g, device=dev).to(dtype)
+            _ab(f"K1 apply_stencil_pair {str(dtype)[6:]} p={p}",
+                _on(old, lambda: op.mm(u)), _on(new, lambda: op.mm(u)))
+            if dtype == torch.float32:
+                a_dt = op.scaled(1.0 / FDTD_STEPS)
+                outs = [torch.empty_like(u) for _ in range(2)]
+                _ab(f"K5 fdtd_step p={p}", _on(old, lambda: a_dt.fdtd_step(u, outs[0])),
+                    _on(new, lambda: a_dt.fdtd_step(u, outs[1])))
+                del outs
+            if dtype == torch.float32 and p == P:
+                dst_old, dst_new = torch.empty_like(u), torch.empty_like(u)
+                _ab(f"K4 apply_stencil_pair_gram p={P} (g3)",
+                    _on(old, lambda: op.stencil_gram(u, dst_old)[1]),
+                    _on(new, lambda: op.stencil_gram(u, dst_new)[1]))
+                torch.cuda.synchronize()
+                print(f"ab K4 apply_stencil_pair_gram p={P}: max |old v - new v| "
+                      f"{(dst_old - dst_new).abs().max().item():.3e}", flush=True)
+                del dst_old, dst_new
+            del u
+        del op
+        torch.cuda.empty_cache()
 
 
 def _neighbour_plans(picked, plan):
@@ -343,7 +346,8 @@ def _neighbour_plans(picked, plan):
 
 
 # string edits of the stencil kernels that drop one part of their work: the
-# K1/K5 strip body's taps or staging copies, K4's Gram sums or staging
+# K1/K5 strip body's taps (and K1's on bf16 states, stencil_row_curl), its
+# staging copies or its z-weight loads, K4's Gram sums or staging
 _STENCIL_PARTS = {
     "as built": (),
     "K1/K5 no taps": ((
@@ -352,9 +356,18 @@ _STENCIL_PARTS = {
         "            if (k + 1 >= a.n[c]) break;\n            // the pair's",
         "        if (true) {} else if (a.paired[h]) {\n#pragma unroll\n"
         "          for (int k = 0; k + 1 < kMaxTaps; k += 2) {\n"
-        "            if (k + 1 >= a.n[c]) break;\n            // the pair's"),),
+        "            if (k + 1 >= a.n[c]) break;\n            // the pair's"), (
+        "    for (int k = 0; k < kMaxTaps; k += 2) {\n      const float2 t0 = pair(k)",
+        "    for (int k = 0; k < 0; k += 2) {\n      const float2 t0 = pair(k)")),
     "K1/K5 no staging": (("                cp_async16(slot",
                           "                if (false) cp_async16(slot"),),
+    "K1/K5 no z-weight loads": ((
+        "            wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + z) * a.nt + wcol)\n"
+        "                      : W(0);",
+        "            W(wcol >= 0);"), (
+        "          wnext = wcol >= 0 ? __ldg(wz + ((long long)wh * a.zc + zn) * a.nt + wcol)\n"
+        "                            : W(0);",
+        "          wnext = W(wcol >= 0);")),
     "K4 no Gram": (("            if (!TILED || in_tile(j)) {",
                     "            if (false) {"),
                    ("            if (!TILED || in_tile(k))\n",
@@ -364,40 +377,74 @@ _STENCIL_PARTS = {
                       ("          cp_async16(db + bb * dcol",
                        "          if (false) cp_async16(db + bb * dcol")),
 }
+P_BF16 = (8, 1)  # K1 on bf16 states: chip_smoke.py's row and the vector route
 
 
-def probe_stencil_parts(dev) -> None:
+def _edit_parts(text: str, strict: bool) -> dict:
+    """Each part's source: `text` with the part's edits made.  An edit must
+    match once; with strict=False (another commit's source) an edit that
+    matches nowhere is left out, and said so."""
+    parts = {}
+    for name, edits in _STENCIL_PARTS.items():
+        part = text
+        for old, new in edits:
+            n = part.count(old)
+            if n == 0 and not strict:
+                print(f"stencil part {name}: the source has no {old[:40]!r}..., "
+                      "left out", flush=True)
+                continue
+            if n != 1:
+                raise RuntimeError(f"the kernel source has {n} of {old!r}")
+            part = part.replace(old, new)
+        parts[name] = part
+    return parts
+
+
+def probe_stencil_parts(dev, source=None) -> None:
+    """Times each part of `_STENCIL_PARTS` made of `source` (default the
+    repo's kernel source; another is the parent's, with its C interface),
+    every part's library built at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
     op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    op16 = PallasMaxwellOperator.create(N, N, N, dtype=torch.bfloat16, device=dev)
     a_dt = op.scaled(1.0 / FDTD_STEPS)
     g = torch.Generator(device=dev).manual_seed(0)
     us = {p: torch.randn((p,) + op.state_shape, generator=g, device=dev)
           for p in (1, P)}
+    us16 = {p: torch.randn((p,) + op.state_shape, generator=g, device=dev).to(
+        torch.bfloat16) for p in P_BF16}
     outs = {p: torch.empty_like(u) for p, u in us.items()}
     q, dst = us[P], torch.empty_like(us[P])
-    source = build.SOURCE
-    text = source.read_text()
+    path = build.SOURCE if source is None else Path(source)
+    parts = _edit_parts(path.read_text(), strict=source is None)
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = []
+    for name, part in parts.items():
+        tag = name.replace(" ", "_").replace("/", "")
+        paths.append(build.BUILD_DIR / f"stencil_part_{tag}.cu")
+        # a line of its own makes each part a build of its own
+        paths[-1].write_text(f"// stencil part: {name} of {path.name}\n" + part)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(paths)) as pool:
+        libs = list(pool.map(build.build, paths))
+    print(f"stencil parts of {path}: {len(libs)} builds at once, "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     try:
-        for name, edits in _STENCIL_PARTS.items():
-            part = text
-            for old, new in edits:
-                if part.count(old) != 1:
-                    raise RuntimeError(f"the kernel source no longer has {old!r}")
-                part = part.replace(old, new)
-            tag = name.replace(" ", "_").replace("/", "")
-            path = build.BUILD_DIR / f"stencil_part_{tag}.cu"
-            # a line of its own makes each part a build of its own
-            path.write_text(f"// stencil part: {name}\n" + part)
-            build.SOURCE, build._lib = path, None
+        for name, lib in zip(parts, libs):
+            build._lib = build.load(lib, None if source is None else _OLD_SIGNATURES)
             times = []
             for p in (1, P):
                 u, out = us[p], outs[p]
                 times.append(f"K1 p={p} {_ms(lambda: op.mm(u)):.4f} ms, K5 p={p} "
                              f"{_ms(lambda: a_dt.fdtd_step(u, out)):.4f} ms")
             times.append(f"K4 p={P} {_ms(lambda: op.stencil_gram(q, dst)):.4f} ms")
+            times += [f"K1 bf16 p={p} {_ms(lambda: op16.mm(us16[p])):.4f} ms"
+                      for p in P_BF16]
             print(f"stencil part {name}: " + ", ".join(times), flush=True)
     finally:
-        build.SOURCE, build._lib = source, None
+        build._lib = None
 
 
 def probe_stencil_tiles(dev) -> None:
@@ -686,7 +733,9 @@ def main() -> None:
     print(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}",
           flush=True)
     if "--stencil-parts" in sys.argv[1:]:
-        probe_stencil_parts(dev)
+        source = (sys.argv[sys.argv.index("--source") + 1]
+                  if "--source" in sys.argv[1:] else None)
+        probe_stencil_parts(dev, source)
         return
     if "--stencil-tiles" in sys.argv[1:]:
         probe_stencil_tiles(dev)

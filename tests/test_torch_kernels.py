@@ -265,13 +265,18 @@ def test_every_launch_goes_through_the_device_guard():
             funcs = {f.name: f for f in tree.body if isinstance(f, ast.FunctionDef)}
             users = {name for name, f in funcs.items() for n in ast.walk(f)
                      if isinstance(n, ast.Call) and getattr(n.func, "id", "") == "library"}
-            assert users == {"launch", "gram_grid_cap"}
+            assert users == {"launch", "gram_grid_cap", "mix_grid_cap"}
 
 
 def test_grid_is_a_function_of_size_only():
-    assert build.grid_blocks(1) == 1
-    assert build.grid_blocks(256 * 7) == 7
-    assert build.grid_blocks(10**9) == 1024
+    # K2: a block a 256 vectors, at most the card's cap (kMixBlocksPerSM = 2
+    # on each of 132 SMs)
+    mix_h100 = 2 * 132
+    assert block_dense.mix_blocks(1, 4, mix_h100) == 1
+    assert block_dense.mix_blocks(256 * 4 * 7, 4, mix_h100) == 7
+    assert block_dense.mix_blocks(256 * 4 * 7 + 1, 4, mix_h100) == 8
+    assert block_dense.mix_blocks(256 * 7, 1, mix_h100) == 7
+    assert block_dense.mix_blocks(10**9, 8, mix_h100) == mix_h100
     h100 = 4 * 132  # kGramBlocksPerSM blocks on each of 132 SMs
     assert block_dense.gram_blocks(1, h100) == 1
     assert block_dense.gram_blocks(1024 * 7, h100) == 7
@@ -722,6 +727,62 @@ def test_k2_block_mix_vs_plain(cuda, rows, p_out, inplace, dtype):
     _close(got, want, dtype)
 
 
+# K2's launch choices (block_dense.mix_fixed, mix_vector_width) against the
+# runtime-K kernel at one position a thread, the first version's loop: the
+# fixed (K, p_out) instantiations and 16-byte loads keep its bits.  (rows,
+# p_out, in place, the element offset of the last operand's buffer)
+K2_BITS_CASES = [
+    ((4, 4, 4), 4, True, 0), ((4, 4, 4), 4, False, 0), ((4, 4), 4, False, 0),
+    ((4,), 4, False, 0), ((4, 4, 4), 4, False, 1), ((1, 1, 1), 1, False, 0),
+    ((1, 1), 1, False, 0), ((1,), 1, False, 0), ((1, 1, 1), 1, False, 1),
+    ((8, 8, 8), 8, True, 0), ((8, 8), 8, False, 1), ((5,), 17, False, 0),
+    ((8, 8, 8), 32, False, 0),
+]
+_BITS = {torch.float32: torch.int32, torch.float64: torch.int64,
+         torch.bfloat16: torch.int16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("S", [6 * 16 * 128, 1001])  # 1001: a tail in every V
+@pytest.mark.parametrize("rows,p_out,inplace,offset", K2_BITS_CASES)
+def test_k2_vector_and_fixed_match_scalar_bit_for_bit(cuda, rows, p_out, inplace,
+                                                      offset, S, dtype,
+                                                      monkeypatch):
+    g = torch.Generator(device="cpu").manual_seed(S + p_out)
+    xs = [torch.randn((r, S), generator=g).to(dtype) for r in rows]
+    last = torch.zeros(offset + rows[-1] * S, dtype=dtype)
+    last[offset:] = xs[-1].flatten()
+    xs = [x.to(cuda) for x in xs[:-1]] + [last.to(cuda)[offset:].view(rows[-1], S)]
+    coeffs = torch.randn((sum(rows), p_out), generator=g).to(cuda)
+
+    def mix(fixed=None, vec=None):
+        with monkeypatch.context() as m:
+            if fixed is not None:
+                m.setattr(block_dense, "mix_fixed", lambda K, p: fixed)
+            if vec is not None:
+                m.setattr(block_dense, "mix_vector_width", lambda *a: vec)
+            work = [x.clone() for x in xs] if inplace else xs
+            got = block_dense.block_mix(coeffs, work, inplace=inplace)
+            torch.cuda.synchronize()
+            if inplace:
+                assert got.data_ptr() == work[0].data_ptr()
+            return got.view(_BITS[dtype]).cpu()
+
+    want = mix(fixed=False, vec=1)
+    choices = [dict(), dict(vec=1)]
+    if block_dense.mix_fixed(sum(rows), p_out):
+        choices += [dict(fixed=False)]
+    for choice in choices:
+        assert torch.equal(mix(**choice), want), choice
+    plain = block_dense.block_mix_plain(coeffs, [x.clone() for x in xs])
+    got = block_dense.block_mix(coeffs, [x.clone() for x in xs])
+    if dtype == torch.bfloat16:
+        _within_bf16_ulp(got, plain)
+    else:
+        _close(got, plain, dtype)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("rows,p,include_zz", [
@@ -1103,6 +1164,58 @@ def test_k1_bf16_matches_plain_within_one_ulp(n, p, cuda):
     assert got.dtype == torch.bfloat16
     _within_bf16_ulp(got, apply_stencil_pair_plain(u, op.wz_t, op.wplane_s,
                                                    op.spec_e, op.spec_h))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p", [(3, 2), (4, 3), (6, 1), (12, 2), (160, 1)])
+def test_k1_bf16_lane_pairs_match_one_lane_a_thread(n, p, cuda, monkeypatch):
+    """K1 on a bf16 state at its plan (the curl's taps, two adjacent lanes
+    a thread, a pair a 32-bit load) gives the bits of the same kernel at
+    256-lane strips (one lane a thread, the per-lane body the f32 kernel
+    runs), with odd (n = 4, 6, 12, 160: xc = n + 3) and even (n = 3) xc, and
+    is within one bf16 ulp of the plain version."""
+    from lanczos_tpu_torch.ops.kernels import stencil_kernel as sk
+
+    op = PallasMaxwellOperator.create(n, n, n, dtype=torch.bfloat16, device=cuda)
+    assert sk.curl_taps(op.spec_e, op.spec_h) is not None
+    g = torch.Generator(device="cpu").manual_seed(n + p)
+    u = op.pack(torch.randn((p, op.n), generator=g).to(cuda))
+    picked = sk.pair_plan(op.spec_e, op.spec_h, p, 2, build.sm_count(cuda))
+    assert picked.lanes_per_thread == 2
+    got = op.mm(u)
+    left, right = sk.stencil_halos(op.spec_e, op.spec_h)
+    one_lane = sk.stencil_plan(op.spec.zc, op.spec.plane, left, right, p, 2,
+                               build.sm_count(cuda), width=256)
+    assert one_lane.lanes_per_thread == 1
+    monkeypatch.setattr(sk, "pair_plan", lambda *args: one_lane)
+    want = op.mm(u)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    _within_bf16_ulp(got, apply_stencil_pair_plain(u, op.wz_t, op.wplane_s,
+                                                   op.spec_e, op.spec_h))
+
+
+@pytest.mark.cuda
+def test_k1_bf16_other_taps_read_a_lane_a_thread(cuda):
+    """A tap table without the curl's structure (here the H half's z-pairs
+    in the other order) runs K1's per-lane body at the same plan, within
+    one bf16 ulp of the plain version."""
+    import dataclasses
+
+    from lanczos_tpu_torch.ops.kernels import stencil_kernel as sk
+
+    op = PallasMaxwellOperator.create(6, 6, 6, dtype=torch.bfloat16, device=cuda)
+    taps = list(op.spec_h.taps)
+    for i in (0, 4):
+        taps[i], taps[i + 1] = taps[i + 1], taps[i]
+    spec_h = dataclasses.replace(op.spec_h, taps=tuple(taps))
+    assert sk.curl_taps(op.spec_e, spec_h) is None
+    g = torch.Generator(device="cpu").manual_seed(3)
+    u = op.pack(torch.randn((3, op.n), generator=g).to(cuda))
+    got = sk.apply_stencil_pair(u, op.wz_t, op.wplane_s, op.spec_e, spec_h)
+    torch.cuda.synchronize()
+    _within_bf16_ulp(got, apply_stencil_pair_plain(u, op.wz_t, op.wplane_s,
+                                                   op.spec_e, spec_h))
 
 
 @pytest.mark.cuda
