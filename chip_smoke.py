@@ -8,7 +8,7 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit;
-2. build: the eight hand-written CUDA kernels (K1-K8) from
+2. build: the hand-written CUDA kernels (K1-K8 and S1) from
    lanczos_tpu_torch/csrc, with nvcc's register/spill report, and beside
    them (g++, in a second thread) the C++ host engine
    (lanczos_tpu_torch/native), each with its seconds;
@@ -30,6 +30,11 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    (6 -> 3 fields with 27 taps per output, a 7-point 1 -> 1 set, an odd
    Zc; p=1 and p=3; f32 and f64), then at the Maxwell N=160 p=4
    half-call, timed;
+3b. sqrtm: S1, the p x p Jacobi sqrtm / pinv-sqrtm in one launch, against
+   its plain version (the op-by-op torch Jacobi) on SPD Grams of
+   condition 1e3 at p = 4, 1, 8, 18 in f32 and f64 and at p=4 in bf16
+   (S1_RTOL), each timed beside the plain version and torch.linalg.eigh
+   with the same epilogue;
 4. native: the 10,485,760-row synthetic matrix planned twice, by the C++
    engine and by its NumPy version (`packer="numpy"`): the plans'
    arrays must be bit-equal; both host times printed.  The native plan
@@ -43,10 +48,17 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    reported only); at p=8 also against scipy's f64 product on the host;
 5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
-   through K1-K5 (the stencil_gram count equals m - 2: the fused mono step
-   ran; K1 only in Lanczos, K5 for every FDTD step), that the solution is
-   finite and that its relative error against the FDTD oracle is under
-   1e-3;
+   through K1-K5 and S1 (the stencil_gram count equals m - 2: the fused
+   mono step ran; K1 only in Lanczos, K5 for every FDTD step, S1 m + 1
+   times), that the solution is finite and that its relative error
+   against the FDTD oracle is under 1e-3; then ms an iteration of its
+   Lanczos + expm with S1 and with the plain Jacobi in turns, S1 against
+   its plain version on the m + 1 Grams the slice hands it, and the
+   largest difference of the two solutions;
+5b. fdtd graph: `euler_steps` replayed from CUDA graphs against the eager
+   loop (`graph=False`), bit for bit, K5 once a step, seconds each way:
+   the slice's 2000 steps at N=160 p=4 and the convergence oracle's N=3
+   f64 p=1 state for 10^5 steps;
 6. the vector slice (--vector, m=8): the fused route at block width 1, K1,
    K2, K3 every step, no K4, K5 for every FDTD step;
 7. the compensated slice (--compensated, m=6, p=4): the 3-call fused step
@@ -133,7 +145,11 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     run bit for bit (K5 2000 times); the seconds and MB of every save;
 12. the profile: the block slice's Lanczos through `run` with --profile
     and --no-validate; the Chrome trace names stencil_gram_kernel and
-    the launch counts are the block slice's without its FDTD;
+    the launch counts are the block slice's without its FDTD; then
+    torch.profiler's device time, the untraced wall and the device's idle
+    share of the block slice's Lanczos + expm (with S1 and with the plain
+    Jacobi), the vector and compensated slices' and 600 FDTD steps at
+    p=4 and p=1;
 13. bench: `lanczos_tpu_torch.bench`'s measurement (Maxwell N=160, p=4,
     K1 chained, best of four slopes), its JSON line printed; its per-call
     time must agree with phase 3's K1 time (mean of 20 calls) within
@@ -169,7 +185,8 @@ before it drives its path and reads them just after.
 The FDTD oracle's forward-Euler error falls as 1/steps; the CLI's default
 is 10^6 steps, the smoke takes 2000 to fit its time budget.
 
-Output: one JSON line of per-kernel results (launches summed over the
+Output: one JSON line of per-kernel results (S1's at p=4, in f32 and in
+bf16, beside K1-K8's; launches summed over the
 paths driven: slices, bench and drivers; bound_ms the larger of the bytes
 over the card's memory rate and the operations over its peak rate; K1,
 K2, K3, K5 and K8 also at p=1, in rows of their own that count the
@@ -248,6 +265,8 @@ REPLACES = {
     "block_grams_compensated": "lanczos_tpu/ops/pallas/block_dense.py:361",
     "windowed_spmm": "lanczos_tpu/ops/pallas/window_ell.py:691",
     "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
+    # no Pallas kernel: the jitted jacobi_eigh + sqrtm_invsqrtm (:201)
+    "jacobi_sqrtm": "lanczos_tpu/ops/smalleig.py:44",
 }
 # the kernels with a row of their own at p=1: K1, K2 and K3 run at p=1 in
 # every step of the vector slice and K5 in every step of its FDTD, K8 in
@@ -261,7 +280,7 @@ P1_ROWS = ("block_grams", "windowed_spmm", "apply_stencil_pair", "fdtd_step",
 BF16_ROWS = ("apply_stencil_pair bf16", "apply_stencil_pair bf16 p=4",
              "apply_stencil_pair bf16 p=1", "block_mix bf16 p=4",
              "block_mix bf16 p=1", "block_grams bf16 p=1",
-             "block_grams_compensated bf16")
+             "block_grams_compensated bf16", "jacobi_sqrtm bf16")
 # phase 3's geometries: (nx, ny, nz), p, dtype name; the first is timed
 KERNEL_CASES = (
     ((N_SLICE,) * 3, P_SLICE, "float32"),
@@ -271,6 +290,21 @@ KERNEL_CASES = (
     ((37, 24, 11), 3, "float64"),       # xc != yc, P=1152
     ((11, 11, 11), 5, "float32"),       # p=5
 )
+# S1 (the p x p Jacobi sqrtm) against its plain version, relative in the
+# Frobenius norm: the same rotations with the p x p products summed in
+# another order, so f64 to 1e-12 and f32 to 1e-5 on Grams of condition
+# <= 1e3; bf16 to the 2e-2 tests/test_torch_bf16.py holds the port's bf16
+# block Lanczos to against JAX.  Its widths: the slice's p=4, the
+# reference's N_COL range (2..18) and p=1
+S1_RTOL = {"float32": 1e-5, "float64": 1e-12, "bfloat16": 2e-2}
+S1_CASES = ((4, "float32"), (1, "float32"), (8, "float32"), (18, "float32"),
+            (4, "float64"), (1, "float64"), (8, "float64"), (18, "float64"),
+            (4, "bfloat16"))
+S1_SWEEPS = 10  # sqrtm_invsqrtm's default
+S1_COND = 1e3  # the condition S1_RTOL's f32 bound is stated for
+# FDTD replayed from CUDA graphs against the eager loop: the oracle of
+# benchmarks/convergence.py (N=3, f64, p=1) cut to 10^5 steps
+FDTD_ORACLE_N, FDTD_ORACLE_STEPS = 3, 100_000
 # the unpaired pair (two K6 launches) against K1's factored A U, relative
 # to the result's scale: the factoring changes the rounding only
 UNPAIRED_RTOL = 1e-5
@@ -810,6 +844,73 @@ def k7_wide_range(torch, rand, failures):
                         "(K3) from K7's")
 
 
+def s1_ops(p, sweeps):
+    """S1's operations on one p x p matrix: a round's rotations (12 ops a
+    pair) and its three products and symmetrization (11 an element of the
+    padded pp x pp matrix: two terms of J a column each), then sqrt and
+    1 / s and the two V diag V^T (3 a term)."""
+    pp = p + p % 2
+    return sweeps * (pp - 1) * (12 * pp // 2 + 11 * pp * pp) + 3 * p + 6 * p**3
+
+
+def s1_rel(torch, got, want):
+    got, want = got.double(), want.double()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_sqrtm(torch, build, results, failures):
+    """S1 against its plain version on SPD Grams of condition 1e3 (numpy,
+    seeded) at each S1_CASES width and type, timed (replayed from a CUDA
+    graph, and eager) beside the plain version and torch.linalg.eigh with
+    the same epilogue (no bf16 eigh); the p=4 f32 and bf16 calls are the
+    kernels line's rows."""
+    import numpy as np
+
+    from lanczos_tpu_torch.ops.kernels.smalleig import (
+        jacobi_sqrtm,
+        jacobi_sqrtm_plain,
+        sqrt_from_eigh,
+    )
+    from lanczos_tpu_torch.utils import graphs
+
+    rows = results.setdefault("rows", {})
+    for p, dname in S1_CASES:
+        dtype = getattr(torch, dname)
+        rng = np.random.default_rng(p)
+        q, _ = np.linalg.qr(rng.standard_normal((p, p)))
+        a = torch.from_numpy((q * np.geomspace(1.0, 1e3, p)) @ q.T).to("cuda", dtype)
+        got, want = jacobi_sqrtm(a, S1_SWEEPS), jacobi_sqrtm_plain(a, S1_SWEEPS)
+        err = max((g.double() - w.double()).abs().max().item()
+                  for g, w in zip(got, want))
+        rel = max(s1_rel(torch, g, w) for g, w in zip(got, want))
+        ok = rel <= S1_RTOL[dname] and all(bool(g.isfinite().all()) for g in got)
+        eager_ms = cuda_ms(torch, lambda: jacobi_sqrtm(a, S1_SWEEPS))
+        # the kernel's own time: the eager call is bound by the host's
+        # wrapper, so TIMED_LAUNCHES calls replayed from one CUDA graph
+        # (recording counts no launch, and its bare replays none either)
+        replay = graphs.capture(lambda: [jacobi_sqrtm(a, S1_SWEEPS)
+                                         for _ in range(TIMED_LAUNCHES)],
+                                torch.device("cuda"))
+        ms = cuda_ms(torch, replay.graph.replay, iters=5) / TIMED_LAUNCHES
+        plain_ms = cuda_ms(torch, lambda: jacobi_sqrtm_plain(a, S1_SWEEPS), iters=5)
+        library_fn = None if dtype == torch.bfloat16 else (
+            lambda: sqrt_from_eigh(*torch.linalg.eigh(a), 0.0))
+        library_ms = None if library_fn is None else cuda_ms(torch, library_fn)
+        log(f"  S1 jacobi_sqrtm p={p} {dname}: max_abs_err {err:.3e} rel "
+            f"{rel:.3e} (tol {S1_RTOL[dname]:.0e}) {'ok' if ok else 'FAIL'}; "
+            f"kernel {ms:.4f} ms (replayed; {eager_ms:.4f} ms a call eager), "
+            f"plain {plain_ms:.4f} ms, eigh + epilogue "
+            + ("none" if library_ms is None else f"{library_ms:.4f} ms"))
+        if not ok:
+            failures.append(f"S1 p={p} {dname} disagrees with its plain version")
+        if p == P_SLICE and dname in ("float32", "bfloat16"):
+            key = "jacobi_sqrtm" if dname == "float32" else "jacobi_sqrtm bf16"
+            rows[key] = kernel_row(
+                "jacobi_sqrtm", err, ms, plain_ms,
+                3 * p * p * a.element_size(), s1_ops(p, S1_SWEEPS), "float32",
+                library_ms, key)
+
+
 def record_launches(build, results, label):
     """The launch counts of the path just driven (read from 0), kept
     under the path's label."""
@@ -852,10 +953,55 @@ def check_slice(out, launches, want, n_solution, failures, label):
                         f">= {REL_ERROR_BOUND}")
 
 
-def fdtd_ms(torch, fdtd, op, u0, steps=50):
+FDTD_TIMED = 50  # steps of fdtd_ms: no whole graph chunk, the eager loop
+
+
+def fdtd_ms(torch, fdtd, op, u0, steps=FDTD_TIMED):
     """Device ms per FDTD step through the oracle's own loop."""
     return cuda_ms(torch, lambda: fdtd(op, u0, steps, 1.0), iters=1,
                    warmup=1) / steps
+
+
+def phase_fdtd_graph(torch, build, results, failures):
+    """FDTD's K5 loop replayed from CUDA graphs against the eager loop
+    (graph=False), bit for bit, each timed (host clock around a run that
+    ends in a synchronise): the block slice's 2000 steps at N=160 p=4, and
+    the convergence oracle's N=3 f64 p=1 state for FDTD_ORACLE_STEPS
+    steps; each graph run's K5 launches counted once a step."""
+    from lanczos_tpu_torch.methods.fdtd import GRAPH_CHUNK, euler_steps
+    from lanczos_tpu_torch.models.maxwell_pallas import PallasMaxwellOperator
+    from lanczos_tpu_torch.models.rhs import gaussian_vector_b
+
+    op, b, _ = block_fixture(torch)
+    o3 = PallasMaxwellOperator.create(*(FDTD_ORACLE_N,) * 3, dtype=torch.float64,
+                                      device="cuda")
+    b3 = o3.pack(torch.from_numpy(gaussian_vector_b(FDTD_ORACLE_N, o3.n)).to("cuda"))
+    for label, a, u0, steps, block in (
+            (f"N={N_SLICE} p={P_SLICE} f32", op, b, FDTD_STEPS, True),
+            (f"N={FDTD_ORACLE_N} p=1 f64", o3, b3, FDTD_ORACLE_STEPS, False)):
+        dt = torch.tensor(1.0 / steps, dtype=u0.dtype, device="cuda")
+        secs, outs = {}, {}
+        for graph in (True, False, False, True):
+            torch.cuda.synchronize()
+            build.reset_launches()
+            t0 = time.perf_counter()
+            u = euler_steps(a, u0, steps, dt, block=block, graph=graph)
+            torch.cuda.synchronize()
+            secs.setdefault(graph, []).append(time.perf_counter() - t0)
+            outs[graph] = u.clone()
+            if build.LAUNCHES["fdtd_step"] != steps:
+                failures.append(f"fdtd graph {label}: K5 launched "
+                                f"{build.LAUNCHES['fdtd_step']} times in {steps} steps")
+        same = torch.equal(outs[True], outs[False])
+        log(f"  fdtd {label}, {steps} steps (graphs of {GRAPH_CHUNK}): replayed "
+            f"{[f'{t:.3f}' for t in secs[True]]} s, eager "
+            f"{[f'{t:.3f}' for t in secs[False]]} s; ms a step replayed "
+            f"{min(secs[True]) / steps * 1e3:.4f}, eager "
+            f"{min(secs[False]) / steps * 1e3:.4f}; bit-equal {same}")
+        if not (same and bool(outs[True].isfinite().all())):
+            failures.append(f"fdtd graph {label}: the replayed loop differs from "
+                            "the eager one")
+        results.setdefault("fdtd graph", {})[label] = secs
 
 
 def block_fixture(torch):
@@ -870,14 +1016,27 @@ def block_fixture(torch):
     return op, b, op.trace_fn(LC)
 
 
-def block_lanczos_ms(torch, op, b, tf, **kw):
-    """Logs the device time of one block Lanczos + expm run (CUDA events)."""
+def block_lanczos_ms(torch, op, b, tf, label="", **kw):
+    """Logs the device time of one block Lanczos + expm run (CUDA events);
+    returns ms an iteration."""
     from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
 
     ms = cuda_ms(torch, lambda: block_lanczos_expm_action(
         op, b, M_SLICE, 1.0, 0, trace_fn=tf, **kw), iters=3, warmup=1)
-    log(f"  lanczos (m={M_SLICE}) + expm: {ms:.3f} ms, "
+    log(f"  lanczos (m={M_SLICE}) + expm{label}: {ms:.3f} ms, "
         f"{ms / M_SLICE:.3f} ms/iteration")
+    return ms / M_SLICE
+
+
+@contextlib.contextmanager
+def plain_jacobi():
+    """sqrtm_invsqrtm(backend="jacobi") through S1's plain version, the
+    op-by-op torch Jacobi the port ran before S1."""
+    from lanczos_tpu_torch.ops import smalleig
+    from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm_plain
+
+    with patched(smalleig, "jacobi_sqrtm", jacobi_sqrtm_plain):
+        yield
 
 
 def phase_block_slice(torch, build, results, failures):
@@ -891,22 +1050,87 @@ def phase_block_slice(torch, build, results, failures):
         f"--block --n-col {P_SLICE} --operator pallas --fdtd-steps "
         f"{FDTD_STEPS} --lc {LC}")
     out, launches = drive(torch, build, results, "block", cfg)
-    # K1 in Lanczos only (v0, v1); every FDTD step is one K5
+    # K1 in Lanczos only (v0, v1); every FDTD step is one K5; S1 for the
+    # prologue, the peeled step, m - 2 steps and beta_final
     check_slice(out, launches, {
         "apply_stencil_pair": 2, "apply_stencil_pair_gram": M_SLICE - 2,
         "fdtd_step": FDTD_STEPS, "block_grams_compensated": 0,
+        "jacobi_sqrtm": M_SLICE + 1,
     }, P_SLICE, failures, "block slice")
     if launches["block_mix"] <= 0 or launches["block_grams"] <= 0:
         failures.append(f"block slice: a kernel of the path never launched: {launches}")
 
-    # steady-state device times of the two halves, with CUDA events
+    # steady-state device times of the two halves, with CUDA events; the
+    # Lanczos half with S1 and with the plain Jacobi in turns
     op, b, tf = block_fixture(torch)
-    block_lanczos_ms(torch, op, b, tf)
+    per_iteration = {}
+    for label in ("S1", "plain Jacobi", "plain Jacobi", "S1"):
+        with plain_jacobi() if label != "S1" else contextlib.nullcontext():
+            per_iteration.setdefault(label, []).append(
+                block_lanczos_ms(torch, op, b, tf, label=f" ({label})"))
+    results["block ms/iteration"] = per_iteration
+    s1_slice_grams(torch, op, b, tf, failures)
     a_dt = op.scaled(torch.tensor(1.0 / FDTD_STEPS))
     u = b.clone()
     two_pass_ms = cuda_ms(torch, lambda: u.add_(a_dt.mm(u)), iters=100, warmup=5)
     log(f"  fdtd: {fdtd_ms(torch, fdtd_block, op, b):.4f} ms/step through "
-        f"fdtd_block (K5), {two_pass_ms:.4f} ms/step two-pass (K1 + add)")
+        f"fdtd_block (K5, eager: {FDTD_TIMED} steps), {two_pass_ms:.4f} "
+        "ms/step two-pass (K1 + add)")
+
+
+def s1_slice_grams(torch, op, b, tf, failures):
+    """The block slice's solution with S1 and with the plain Jacobi (the
+    largest difference logged), and S1 against its plain version on the
+    Grams the slice hands it (S1_RTOL)."""
+    from lanczos_tpu_torch.methods.expm_action import block_lanczos_expm_action
+    from lanczos_tpu_torch.ops import smalleig
+    from lanczos_tpu_torch.ops.kernels.smalleig import (
+        jacobi_sqrtm,
+        jacobi_sqrtm_plain,
+        sqrt_from_eigh,
+    )
+
+    grams = []
+
+    def spy(a, sweeps, breakdown_eps):
+        grams.append((a.clone(), sweeps, breakdown_eps))
+        return jacobi_sqrtm(a, sweeps, breakdown_eps)
+
+    with patched(smalleig, "jacobi_sqrtm", spy):
+        sol = block_lanczos_expm_action(op, b, M_SLICE, 1.0, 0, trace_fn=tf)
+    with plain_jacobi():
+        sol_plain = block_lanczos_expm_action(op, b, M_SLICE, 1.0, 0, trace_fn=tf)
+    diff = (sol.double() - sol_plain.double()).abs().max().item()
+    scale = sol_plain.double().abs().max().item()
+    log(f"  solution with S1 {sol.tolist()}, with the plain Jacobi "
+        f"{sol_plain.tolist()}: largest difference {diff:.3e} ({diff / scale:.2e} "
+        "of scale)")
+    # S1 against its plain version on each Gram; past condition S1_COND
+    # (the start block's Gram: ~3e7, f32's own limit) two f32 solvers that
+    # sum in other orders part by more than S1_RTOL, and there S1 is held
+    # to the f64 result (of the symmetrized Gram: the fused step's Grams
+    # are symmetric to rounding only) no farther than the plain version (x2)
+    for i, (a, sweeps, eps) in enumerate(grams):
+        got, want = jacobi_sqrtm(a, sweeps, eps), jacobi_sqrtm_plain(a, sweeps, eps)
+        a64 = a.double()
+        exact = sqrt_from_eigh(*torch.linalg.eigh(0.5 * (a64 + a64.T)), eps)
+        rel = max(s1_rel(torch, g, w) for g, w in zip(got, want))
+        rel_s1 = max(s1_rel(torch, g, x) for g, x in zip(got, exact))
+        rel_plain = max(s1_rel(torch, w, x) for w, x in zip(want, exact))
+        cond = torch.linalg.cond(a64).item()
+        ok = rel <= S1_RTOL["float32"] or (
+            cond > S1_COND and rel_s1 <= max(2 * rel_plain, S1_RTOL["float32"]))
+        log(f"  S1 on the slice's Gram {i} (condition {cond:.2e}): vs plain rel "
+            f"{rel:.2e} (tol {S1_RTOL['float32']:.0e}); vs f64 eigh: S1 "
+            f"{rel_s1:.2e}, plain {rel_plain:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failures.append(f"block slice: S1 on its Gram {i}: rel {rel:.2e}, "
+                            f"vs f64 {rel_s1:.2e} (plain {rel_plain:.2e})")
+    if len(grams) != M_SLICE + 1:
+        failures.append(f"block slice: S1 saw {len(grams)} Grams")
+    if not diff <= REL_ERROR_BOUND * scale:
+        failures.append(f"block slice: S1's solution {diff / scale:.2e} of scale "
+                        "from the plain Jacobi's")
 
 
 def phase_vector_slice(torch, build, results, failures):
@@ -929,6 +1153,7 @@ def phase_vector_slice(torch, build, results, failures):
         "apply_stencil_pair": M_VECTOR, "block_mix": M_VECTOR,
         "block_grams": M_VECTOR + 1, "apply_stencil_pair_gram": 0,
         "fdtd_step": FDTD_STEPS, "block_grams_compensated": 0,
+        "jacobi_sqrtm": 0,  # a 1 x 1 Gram's sqrtm is a sqrt
     }, 1, failures, "vector slice")
 
     dev = torch.device("cuda")
@@ -958,7 +1183,7 @@ def phase_compensated_slice(torch, build, results, failures):
     check_slice(out, launches, {
         "block_grams_compensated": M_SLICE + 1, "block_grams": 0,
         "apply_stencil_pair_gram": 0, "apply_stencil_pair": M_SLICE,
-        "fdtd_step": FDTD_STEPS,
+        "fdtd_step": FDTD_STEPS, "jacobi_sqrtm": M_SLICE + 1,
     }, P_SLICE, failures, "compensated slice")
     op, b, tf = block_fixture(torch)
     block_lanczos_ms(torch, op, b, tf, compensated=True)
@@ -1243,7 +1468,8 @@ def phase_bf16(torch, build, results, failures):
     for name in ("apply_stencil_pair bf16", "block_mix bf16"):
         at_p4[name] = at_p4.get(name, 0) + launches[name]
     want = {"block_grams_compensated bf16": M_SLICE + 1,
-            "apply_stencil_pair bf16": M_SLICE, "block_mix bf16": M_SLICE}
+            "apply_stencil_pair bf16": M_SLICE, "block_mix bf16": M_SLICE,
+            "jacobi_sqrtm bf16": M_SLICE + 1}
     if {k: c for k, c in launches.items() if c} != want:
         failures.append(f"bf16 compensated run: launches {launches}, expected {want}")
     if not all(bool(torch.isfinite(t.float()).all())
@@ -1605,9 +1831,9 @@ def phase_ell_slice(torch, build, results, failures):
     out, launches = drive(torch, build, results, "ell", cfg)
     # gathered ELL is plain torch, as it is XLA in the JAX package; the
     # fused recurrence's block_mix and Grams are K2/K3: one K2 a step, one
-    # K3 a step plus the start block's
+    # K3 a step plus the start block's; its sqrtm S1, m + 1 times
     want = {k: 0 for k in launches}
-    want.update(block_mix=M_ELL, block_grams=M_ELL + 1)
+    want.update(block_mix=M_ELL, block_grams=M_ELL + 1, jacobi_sqrtm=M_ELL + 1)
     check_slice(out, launches, want, P_SLICE, failures, "ELL slice")
 
 
@@ -1846,6 +2072,68 @@ def phase_profile(torch, build, results, failures):
     if launches != want:
         failures.append(f"profile: launches {launches}, the block slice's "
                         f"without FDTD are {want}")
+    idle_shares(torch, results)
+
+
+def profiled_idle(torch, run_once):
+    """(device ms, wall ms, idle share) of one run: the device time of a
+    torch.profiler trace's kernels, the wall of an untraced run (the
+    profiler slows the host), idle = 1 - device / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def wall():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_once()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    wall()
+    wall_ms = min(wall(), wall())
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        wall()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type != DeviceType.CPU) / 1e3
+    return device_ms, wall_ms, 1 - device_ms / wall_ms
+
+
+def idle_shares(torch, results):
+    """The Lanczos + expm half of the block (S1, then the plain Jacobi),
+    vector and compensated slices, and 600 FDTD steps at p=4 and p=1
+    (a first step, graph replays, a tail): device time, wall and idle
+    share."""
+    from lanczos_tpu_torch.methods.expm_action import (
+        block_lanczos_expm_action,
+        lanczos_expm_action,
+    )
+    from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
+    from lanczos_tpu_torch.models.rhs import gaussian_vector_b
+
+    op, b, tf = block_fixture(torch)
+    v = op.pack(torch.from_numpy(
+        gaussian_vector_b(N_SLICE, op.n).astype("float32")).to("cuda"))
+    runs = (
+        ("block (S1)", contextlib.nullcontext, lambda: block_lanczos_expm_action(
+            op, b, M_SLICE, 1.0, 0, trace_fn=tf)),
+        ("block (plain Jacobi)", plain_jacobi, lambda: block_lanczos_expm_action(
+            op, b, M_SLICE, 1.0, 0, trace_fn=tf)),
+        ("vector", contextlib.nullcontext, lambda: lanczos_expm_action(
+            op, v, M_VECTOR, 1.0, 0, trace_fn=tf)),
+        ("compensated", contextlib.nullcontext, lambda: block_lanczos_expm_action(
+            op, b, M_SLICE, 1.0, 0, trace_fn=tf, compensated=True)),
+        ("fdtd 600 steps p=4 (replayed)", contextlib.nullcontext,
+         lambda: fdtd_block(op, b, 600, 1.0)),
+        ("fdtd 600 steps p=1 (replayed)", contextlib.nullcontext,
+         lambda: fdtd_vector(op, v, 600, 1.0)),
+    )
+    shares = results.setdefault("idle", {})
+    for label, ctx, fn in runs:
+        with ctx():
+            device_ms, wall_ms, idle = profiled_idle(torch, fn)
+        shares[label] = (device_ms, wall_ms, idle)
+        log(f"  profile {label}: device {device_ms:.3f} ms, wall {wall_ms:.3f} ms, "
+            f"idle {idle:.1%}")
 
 
 def phase_bench(torch, build, results, failures):
@@ -2111,6 +2399,7 @@ def phase_multidevice(torch, build, results, failures):
     log(f"  K1 launches in the rank's run: {launches['apply_stencil_pair']}")
     want_launches = {name: 0 for name in launches}
     want_launches["apply_stencil_pair"] = M_SLICE + FDTD_STEPS
+    want_launches["jacobi_sqrtm"] = M_SLICE + 1  # the materialized recurrence
     if launches != want_launches:
         failures.append(f"multidevice: launches {launches}, expected {want_launches}")
     if not (sol.isfinite().all() and len(sol) == P_SLICE and vs_single < REL_ERROR_BOUND
@@ -2696,11 +2985,14 @@ def main() -> int:
         ("environment", lambda: phase_environment(torch, build)),
         ("build", lambda: phase_build(build)),
         ("kernels", lambda: phase_kernels(torch, results, failures)),
+        ("sqrtm", lambda: phase_sqrtm(torch, build, results, failures)),
         ("native", lambda: phase_native(torch, failures, assembled)),
         ("windowed kernel",
          lambda: phase_windowed_kernel(torch, results, failures, assembled)),
         ("block slice",
          lambda: phase_block_slice(torch, build, results, failures)),
+        ("fdtd graph",
+         lambda: phase_fdtd_graph(torch, build, results, failures)),
         ("vector slice",
          lambda: phase_vector_slice(torch, build, results, failures)),
         ("compensated slice",

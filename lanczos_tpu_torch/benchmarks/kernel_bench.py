@@ -7,7 +7,8 @@ Campaigns (`BENCHES`), each on the port's counterpart of the JAX one:
   mm_tt, mm_tt2, mm_ts   Gram / tall x small products: `torch.mm` (the JAX
                          package computes these in XLA, not in Pallas)
   sqrtm                  sqrtm + inverse sqrtm of a p x p SPD matrix, per
-                         small-eig backend (jacobi, newton, lax)
+                         small-eig backend (jacobi: S1, beside its plain
+                         version; newton; lax: torch.linalg.eigh)
   spmm_ell               gathered ELL SpMM on the Maxwell matrix, plain torch
                          as XLA is, assembled by the native engine (so
                          --grid-ell 160, the reference's 24.6M rows, builds)
@@ -137,8 +138,19 @@ def bench_mm_ts(args, dev):
 def bench_sqrtm(args, dev):
     """sqrtm + inverse sqrtm of one N_COL x N_COL SPD matrix (reference
     my_sqrtm_cusolver.hpp), per backend; chained through a normalized
-    sqrtm + inverse, which stays SPD."""
+    sqrtm + inverse, which stays SPD.  The jacobi rows are S1 (one launch
+    on the card) with, beside it, `seconds_plain`: its plain version, the
+    op-by-op torch Jacobi (on the CPU the two are the same code); lax is
+    torch.linalg.eigh with the same epilogue."""
+    from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm_plain
     from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
+
+    def chained(sqrtm):
+        def step(a):
+            sq, inv = sqrtm(a)
+            g = sq + inv
+            return g / torch.trace(g)
+        return step
 
     out = []
     for backend in ("jacobi", "newton", "lax"):
@@ -146,14 +158,13 @@ def bench_sqrtm(args, dev):
             g = _randn((256, p), dev)
             a = g.T @ g + p * torch.eye(p, device=dev)
             a = a / torch.trace(a)
-
-            def step(a, backend=backend):
-                sq, inv = sqrtm_invsqrtm(a, backend=backend)
-                g = sq + inv
-                return g / torch.trace(g)
-
-            out.append({"backend": backend, "n_col": p,
-                        "seconds": slope_time_chain(step, a, damp=None)})
+            row = {"backend": backend, "n_col": p, "seconds": slope_time_chain(
+                chained(lambda x, b=backend: sqrtm_invsqrtm(x, backend=b)), a,
+                damp=None)}
+            if backend == "jacobi":
+                row["seconds_plain"] = slope_time_chain(
+                    chained(jacobi_sqrtm_plain), a, damp=None)
+            out.append(row)
     return out
 
 

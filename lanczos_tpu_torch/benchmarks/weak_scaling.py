@@ -7,7 +7,8 @@
 Holds each rank's slab FIXED (`--z-per-device` planes of an `--n-xy`
 square) while the mesh grows, and reports the seconds of one SpMM (the
 slope of chained products, `utils.bench_loop`, on rank 0; every rank runs
-the same chain), the efficiency t(1)/t(d) and the nnz rate.  A product
+the same chain, its lengths agreed over the mesh's group), the efficiency
+t(1)/t(d) and the nnz rate.  A product
 moves one z-plane to each neighbour, independent of the slab's volume, so
 ideal weak scaling is flat.
 
@@ -41,7 +42,9 @@ def spmm_seconds(mesh, n_xy: int, z_per_device: int, p: int, seed: int):
     damped = op.scaled(1e-2)  # a chain stays finite
     g = torch.Generator(device="cpu").manual_seed(seed)
     u = damped.pack(torch.randn((p, op.n), generator=g))
-    return op.n, slope_time_chain(lambda y, a: a.mm(y), u, damped, damp=None)
+    # every rank the same chain lengths: the chain exchanges halos
+    return op.n, slope_time_chain(lambda y, a: a.mm(y), u, damped, damp=None,
+                                  group=mesh.group)
 
 
 def main(argv=None):

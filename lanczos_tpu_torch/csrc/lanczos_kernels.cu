@@ -16,6 +16,9 @@
 // stores, float32 weights, coefficients and sums, one round-to-nearest-
 // even store (JAX's astype), as the Pallas kernels promote a bf16 state to
 // their f32 weights (lanczos_tpu/ops/pallas/stencil_kernel.py:193-197).
+// S1, the p x p Jacobi sqrtm of the block recurrence (no Pallas kernel in
+// the JAX package: its jitted `jacobi_eigh`), takes all three; on bf16 it
+// rounds every op to bf16, as torch's bf16 ops do (see its section).
 //
 // K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
 // (Zc, P) fields), and do a handful of flops per element, so device memory
@@ -1746,6 +1749,214 @@ __global__ void __launch_bounds__(kThreads, StripTraits<T, LPT>::kMinBlocks)
 }
 
 // ---------------------------------------------------------------------------
+// S1: (sqrtm(A), pinv(sqrtm(A))) of a batch of p x p symmetric Grams by
+// parallel cyclic Jacobi with a fixed sweep count.
+//
+// Replaces the JAX package's jitted `jacobi_eigh` + `sqrtm_invsqrtm`
+// (lanczos_tpu/ops/smalleig.py:44, :201): no Pallas kernel, a chain of
+// p x p matmuls that XLA fuses inside the Lanczos `lax.scan`.  Eager torch
+// launched ~40 ops a rotation round from the host (about 1,200 launches a
+// call at p=4); here the whole solve is one launch.
+//
+// What bounds it: neither bytes (3 p^2 elements) nor operations (about
+// 11 pp^2 a round): it is a chain of sweeps * (pp - 1) dependent rounds,
+// 30 at p=4, so its time is latency.  One block per matrix; A, the next A
+// and V live in shared memory, one thread a pair computes the rotation's
+// (c, s), one thread an element the products, four barriers a round.
+//
+// Arithmetic: the plain version's (`ops/kernels/smalleig.py`), op for op.
+// Each scalar op of (tau, t, c, s) and of the epilogue is one IEEE op
+// rounded to the matrix type T, as each torch op rounds: the *_rn
+// intrinsics, which nvcc never contracts into an FMA, and for a bf16 T an
+// f32 op rounded to bf16.  J^T A, (J^T A) J and V J are the dense products
+// of the plain version in its association, each an in-order FMA sum in the
+// accumulation type (f32 for f32 and bf16, f64 for f64) rounded once to T;
+// J has two nonzeros a column, and fma(0, x, acc) = acc, so the sum skips
+// J's zeros and keeps the two nonzero terms in index order.  The result
+// differs from torch's by the order cuBLAS (or the host BLAS) sums in: a
+// few ulps.  Odd p is padded with a decoupled unit row, as the plain one.
+
+constexpr int kSqrtmMaxP = 64;          // ops/kernels/smalleig.py MAX_P
+constexpr int kSqrtmMaxThreads = 1024;  // one thread an element up to 32 x 32
+constexpr int kSqrtmElems =
+    kSqrtmMaxP * kSqrtmMaxP / kSqrtmMaxThreads;  // elements a thread, at most
+
+template <typename T>
+using SqrtmAcc = std::conditional_t<std::is_same_v<T, double>, double, float>;
+
+// One IEEE op, rounded to nearest, never contracted into an FMA.
+#define LT_RN(name, f32, f64)                                   \
+  __device__ __forceinline__ float name(float a, float b) {    \
+    return f32(a, b);                                           \
+  }                                                             \
+  __device__ __forceinline__ double name(double a, double b) { \
+    return f64(a, b);                                           \
+  }
+LT_RN(add_rn, __fadd_rn, __dadd_rn)
+LT_RN(sub_rn, __fsub_rn, __dsub_rn)
+LT_RN(mul_rn, __fmul_rn, __dmul_rn)
+LT_RN(div_rn, __fdiv_rn, __ddiv_rn)
+#undef LT_RN
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// x rounded to T and back: the identity for f32 and f64
+template <typename T, typename A>
+__device__ __forceinline__ A round_to(A x) {
+  return widen<A>(narrow<T>(x));
+}
+
+// The circle method's lineup of round r (ops/smalleig.py
+// `_round_robin_pairs`): 0 fixed, 1..pp-1 rotated right r times; pair k
+// of the round is (lineup(k), lineup(pp - 1 - k)).
+__device__ __forceinline__ int sqrtm_lineup(int i, int r, int pp) {
+  const int m = pp - 1;
+  return i == 0 ? 0 : 1 + ((i - 1 - r) % m + m) % m;
+}
+
+// sum_k x[k] y[k] over the two nonzero terms k0 < k1, an in-order FMA sum
+template <typename A>
+__device__ __forceinline__ A two_terms(A x0, A y0, A x1, A y1) {
+  return fma_rn(x1, y1, mul_rn(x0, y0));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSqrtmMaxThreads)
+    jacobi_sqrtm_kernel(const T* __restrict__ a_in, T* __restrict__ sq_out,
+                        T* __restrict__ inv_out, int p, int sweeps,
+                        double breakdown_eps) {
+  using A = SqrtmAcc<T>;
+  extern __shared__ __align__(16) unsigned char sqrtm_smem[];
+  const int pp = p + (p & 1);
+  const int n2 = pp * pp;
+  T* a = reinterpret_cast<T*>(sqrtm_smem);
+  T* next = a + n2;
+  T* v = next + n2;
+  T* jd = v + n2;  // J[x][x]; in the epilogue sqrt(|w|)
+  T* jo = jd + pp;  // J[x][partner(x)]; in the epilogue the inverse's
+  int* partner = reinterpret_cast<int*>(jo + pp);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const T* src = a_in + (long long)blockIdx.x * p * p;
+
+  // the padded matrix (a unit pad diagonal) and V = I
+  for (int e = tid; e < n2; e += nt) {
+    const int x = e / pp, y = e - x * pp;
+    a[e] = x < p && y < p ? src[x * p + y] : narrow<T>(A(x == y));
+    v[e] = narrow<T>(A(x == y));
+  }
+  __syncthreads();
+
+  for (int sweep = 0; sweep < sweeps; ++sweep) {
+    for (int r = 0; r < pp - 1; ++r) {
+      if (tid < pp / 2) {  // the rotation of pair tid (sym.schur2)
+        const int i = sqrtm_lineup(tid, r, pp);
+        const int j = sqrtm_lineup(pp - 1 - tid, r, pp);
+        const A app = widen<A>(a[i * pp + i]), aqq = widen<A>(a[j * pp + j]);
+        const A apq = widen<A>(a[i * pp + j]);
+        const bool nz = apq != A(0);
+        const A den = nz ? round_to<T>(mul_rn(A(2), apq)) : A(1);
+        const A tau = round_to<T>(div_rn(round_to<T>(sub_rn(aqq, app)), den));
+        const A sgn = tau >= A(0) ? A(1) : A(-1);
+        const A tau2 = round_to<T>(add_rn(A(1), round_to<T>(mul_rn(tau, tau))));
+        const A root = round_to<T>(sqrt_rn(tau2));
+        A t = round_to<T>(div_rn(sgn, round_to<T>(add_rn(fabs(tau), root))));
+        if (!nz) t = A(0);
+        const A t2 = round_to<T>(add_rn(A(1), round_to<T>(mul_rn(t, t))));
+        const A c = round_to<T>(div_rn(A(1), round_to<T>(sqrt_rn(t2))));
+        const A s = round_to<T>(mul_rn(t, c));
+        jd[i] = jd[j] = narrow<T>(c);
+        jo[i] = narrow<T>(s);
+        jo[j] = narrow<T>(-s);
+        partner[i] = j;
+        partner[j] = i;
+      }
+      __syncthreads();
+      // next = J^T A: row x mixes rows x and partner(x)
+      for (int e = tid; e < n2; e += nt) {
+        const int x = e / pp, y = e - x * pp, q = partner[x];
+        const A dx = widen<A>(jd[x]), oq = widen<A>(jo[q]);
+        const A ax = widen<A>(a[e]), aq = widen<A>(a[q * pp + y]);
+        next[e] = narrow<T>(x < q ? two_terms(dx, ax, oq, aq)
+                                  : two_terms(oq, aq, dx, ax));
+      }
+      __syncthreads();
+      // a = (J^T A) J and V J: column y mixes columns y and partner(y)
+      A vj[kSqrtmElems];
+#pragma unroll
+      for (int n = 0; n < kSqrtmElems; ++n) {
+        const int e = tid + n * nt;
+        if (e < n2) {
+          const int x = e / pp, y = e - x * pp, q = partner[y];
+          const A dy = widen<A>(jd[y]), oq = widen<A>(jo[q]);
+          const A by = widen<A>(next[e]), bq = widen<A>(next[x * pp + q]);
+          a[e] = narrow<T>(y < q ? two_terms(by, dy, bq, oq)
+                                 : two_terms(bq, oq, by, dy));
+          const A vy = widen<A>(v[e]), vq = widen<A>(v[x * pp + q]);
+          vj[n] = y < q ? two_terms(vy, dy, vq, oq) : two_terms(vq, oq, vy, dy);
+        }
+      }
+      __syncthreads();
+      // V <- V J; the symmetrized a into `next`, which becomes a
+#pragma unroll
+      for (int n = 0; n < kSqrtmElems; ++n) {
+        const int e = tid + n * nt;
+        if (e < n2) {
+          const int x = e / pp, y = e - x * pp;
+          v[e] = narrow<T>(vj[n]);
+          const A sum = round_to<T>(
+              add_rn(widen<A>(a[e]), widen<A>(a[y * pp + x])));
+          next[e] = narrow<T>(mul_rn(A(0.5), sum));
+        }
+      }
+      __syncthreads();
+      T* t = a;
+      a = next;
+      next = t;
+    }
+  }
+
+  // epilogue: s = sqrt(|w|), the (pseudo-)inverse's 1/s, then V diag V^T
+  if (tid < p) {
+    const A wab = fabs(widen<A>(a[tid * pp + tid]));
+    const A s = round_to<T>(sqrt_rn(wab));
+    A s_inv;
+    if (breakdown_eps > 0.0) {
+      A wmax = fabs(widen<A>(a[0]));
+      for (int k = 1; k < p; ++k) {
+        const A w = fabs(widen<A>(a[k * pp + k]));
+        if (w > wmax || w != w) wmax = w;  // amax: a NaN wins
+      }
+      const A thresh = round_to<T>(mul_rn(A(breakdown_eps), wmax));
+      s_inv = wab > thresh ? round_to<T>(div_rn(A(1), s)) : A(0);
+    } else {
+      s_inv = round_to<T>(div_rn(A(1), s));
+    }
+    jd[tid] = narrow<T>(s);
+    jo[tid] = narrow<T>(s_inv);
+  }
+  __syncthreads();
+  T* sq = sq_out + (long long)blockIdx.x * p * p;
+  T* inv = inv_out + (long long)blockIdx.x * p * p;
+  for (int e = tid; e < p * p; e += nt) {
+    const int x = e / p, y = e - x * p;
+    A acc_s = A(0), acc_i = A(0);
+    for (int k = 0; k < p; ++k) {
+      const A vx = widen<A>(v[x * pp + k]), vy = widen<A>(v[y * pp + k]);
+      acc_s = fma_rn(round_to<T>(mul_rn(vx, widen<A>(jd[k]))), vy, acc_s);
+      acc_i = fma_rn(round_to<T>(mul_rn(vx, widen<A>(jo[k]))), vy, acc_i);
+    }
+    sq[e] = narrow<T>(acc_s);
+    inv[e] = narrow<T>(acc_i);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
@@ -2306,6 +2517,38 @@ int windowed_spmm(const void* data, const void* lidx, const void* off,
   return 0;
 }
 
+// S1's launch plan (ops/kernels/smalleig.py `sqrtm_plan`): one thread an
+// element of the padded pp x pp matrix up to kSqrtmMaxThreads, in whole
+// warps; shared memory for a, next, V (pp^2 each), J's diagonal and
+// off-diagonal and the pair partners (pp each).
+inline int sqrtm_threads(int pp) {
+  const int warps = (pp * pp + 31) / 32 * 32;
+  return warps < kSqrtmMaxThreads ? warps : kSqrtmMaxThreads;
+}
+
+template <typename T>
+long long sqrtm_smem_bytes(int pp) {
+  return (3LL * pp * pp + 2LL * pp) * (long long)sizeof(T) +
+         (long long)pp * (long long)sizeof(int);
+}
+
+template <typename T>
+int sqrtm_invsqrtm(const void* a, void* sq, void* inv, int batch, int p,
+                   int sweeps, double breakdown_eps, int threads, int smem,
+                   cudaStream_t st) {
+  const int pp = p + (p & 1);
+  if (p < 1 || p > kSqrtmMaxP || batch < 1 || sweeps < 0 ||
+      threads != sqrtm_threads(pp) || smem != sqrtm_smem_bytes<T>(pp))
+    return (int)cudaErrorInvalidValue;
+  static unsigned long long configured = 0;  // devices, one bit each
+  const int err = allow_shared_memory(jacobi_sqrtm_kernel<T>, configured);
+  if (err) return err;
+  jacobi_sqrtm_kernel<T><<<batch, threads, smem, st>>>(
+      static_cast<const T*>(a), static_cast<T*>(sq), static_cast<T*>(inv), p,
+      sweeps, breakdown_eps);
+  return finish();
+}
+
 }  // namespace
 
 extern "C" {
@@ -2440,6 +2683,29 @@ int lt_windowed_spmm(int dtype, const void* data, const void* lidx,
     case kF64:
       return windowed_spmm<double>(data, lidx, off, wb, x, y, p, ppc, cpg,
                                    n128, st);
+  }
+  return kBadType;
+}
+
+// S1: (sqrtm, pinv-sqrtm) of `batch` contiguous p x p symmetric matrices
+// of type dtype (0, 1 or 2: bf16 matrices, f32 arithmetic rounded to bf16
+// at every op), `sweeps` Jacobi sweeps; breakdown_eps > 0 zeroes the
+// inverse's eigenvalues under breakdown_eps * max |w|.  threads and smem
+// are the wrapper's plan, rechecked here.
+int lt_sqrtm_invsqrtm(int dtype, const void* a, void* sq, void* inv,
+                      int batch, int p, int sweeps, double breakdown_eps,
+                      int threads, int smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return sqrtm_invsqrtm<float>(a, sq, inv, batch, p, sweeps,
+                                   breakdown_eps, threads, smem, st);
+    case kF64:
+      return sqrtm_invsqrtm<double>(a, sq, inv, batch, p, sweeps,
+                                    breakdown_eps, threads, smem, st);
+    case kBF16:
+      return sqrtm_invsqrtm<bf16>(a, sq, inv, batch, p, sweeps,
+                                  breakdown_eps, threads, smem, st);
   }
   return kBadType;
 }

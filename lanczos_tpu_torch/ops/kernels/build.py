@@ -46,15 +46,17 @@ LAUNCHES = {
     "block_grams_compensated": 0,
     "windowed_spmm": 0,
     "apply_stencil": 0,
-    # the four kernels that take bf16 states, counted apart on them
+    "jacobi_sqrtm": 0,
+    # the kernels that take bf16 states, counted apart on them
     "apply_stencil_pair bf16": 0,
     "block_mix bf16": 0,
     "block_grams bf16": 0,
     "block_grams_compensated bf16": 0,
+    "jacobi_sqrtm bf16": 0,
 }
 
 # the .cu's dtype codes; 2 is a bf16 state with f32 weights, coefficients
-# and sums, which K1, K2, K3 and K7 take
+# and sums, which K1, K2, K3 and K7 take, and S1 a bf16 matrix
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
@@ -85,6 +87,8 @@ _SIGNATURES = {
         _I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _I, _LL, _LL, _LL, _LL,
         _P,
     ),
+    "lt_sqrtm_invsqrtm": (_I, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _I,
+                          _P),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -192,7 +196,7 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
 
 def dtype_code(t: torch.Tensor, bf16: bool = False) -> int:
     """t's dtype code for the .cu; bf16 states only where the kernel has
-    them (`bf16=True`: K1, K2, K3, K7)."""
+    them (`bf16=True`: K1, K2, K3, K7, S1)."""
     if t.dtype == torch.bfloat16 and not bf16:
         raise TypeError("this CUDA kernel takes float32 or float64 states, "
                         "not bfloat16")
@@ -200,7 +204,7 @@ def dtype_code(t: torch.Tensor, bf16: bool = False) -> int:
         return DTYPE_CODES[t.dtype]
     except KeyError:
         raise TypeError(
-            f"CUDA kernels take float32, float64 or (K1, K2, K3, K7) bfloat16 "
+            f"CUDA kernels take float32, float64 or (K1, K2, K3, K7, S1) bfloat16 "
             f"states, got {t.dtype}"
         ) from None
 

@@ -6,7 +6,10 @@ and inv-sqrtm of a p x p SPD Gram every iteration (reference
 
 * "jacobi": parallel-ordered cyclic Jacobi with a fixed sweep count, all
   p x p matmuls and no data-dependent control flow, so it never waits on
-  the device;
+  the device.  `sqrtm_invsqrtm` takes it through S1
+  (`ops/kernels/smalleig.py`): one CUDA launch a call on the card, where
+  JAX's jitted solve runs inside its scan; the op-by-op torch version on
+  the CPU.  `jacobi_eigh` (expm_sym, `eigh`) stays plain torch;
 * "newton": coupled Newton-Schulz for sqrtm and inv-sqrtm together;
 * "lax": `torch.linalg.eigh` (the JAX package's `jnp.linalg.eigh`),
   which takes no bf16 matrix in either package: JAX raises
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
+from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm, sqrt_from_eigh
 
 
 def _round_robin_pairs(p: int) -> np.ndarray:
@@ -162,7 +166,8 @@ def sqrtm_invsqrtm(
     """(sqrtm(A), pinv(sqrtm(A))) of an SPD (Gram) matrix.
 
     Eigendecompose and take sqrt(|lambda|) (the abs guards tiny negative
-    rounding eigenvalues, reference my_sqrtm_cusolver.hpp:345-360).
+    rounding eigenvalues, reference my_sqrtm_cusolver.hpp:345-360);
+    backend="jacobi" is S1, one launch on a CUDA tensor.
     breakdown_eps > 0 makes the inverse a rank-revealing pseudo-inverse:
     eigenvalues below breakdown_eps * max(lambda) contribute zero.
     backend="newton" uses Newton-Schulz (`sweeps` = its iteration count)
@@ -177,18 +182,10 @@ def sqrtm_invsqrtm(
                 "backend='jacobi' or 'lax' with breakdown_eps > 0"
             )
         return newton_sqrtm_invsqrtm(a, iters=18 if sweeps is None else sweeps)
-    w, v = eigh(a, backend=backend, sweeps=10 if sweeps is None else sweeps)
-    wab = w.abs()
-    s = torch.sqrt(wab)
-    if breakdown_eps > 0.0:
-        wmax = wab.amax(dim=-1, keepdim=True)
-        good = wab > breakdown_eps * wmax
-        s_inv = torch.where(good, 1.0 / torch.where(good, s, torch.ones_like(s)),
-                            torch.zeros_like(s))
-    else:
-        s_inv = 1.0 / s
-    vt = v.transpose(-1, -2)
-    return (v * s[..., None, :]) @ vt, (v * s_inv[..., None, :]) @ vt
+    if backend == "jacobi":
+        # S1: the kernel on a CUDA tensor (or it raises), plain on the CPU
+        return jacobi_sqrtm(a, 10 if sweeps is None else sweeps, breakdown_eps)
+    return sqrt_from_eigh(*eigh(a, backend=backend), breakdown_eps)
 
 
 def expm_sym(t: torch.Tensor, backend: str = "lax", sweeps: int = 16):

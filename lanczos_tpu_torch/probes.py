@@ -8,14 +8,16 @@
     python -m lanczos_tpu_torch.probes --gram-tiles
     python -m lanczos_tpu_torch.probes --dist-ell
     python -m lanczos_tpu_torch.probes --dist-windowed
+    python -m lanczos_tpu_torch.probes --fdtd-graph
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
 
-1. sqrtm + inverse sqrtm of a p x p SPD matrix per eig backend (jacobi,
-   newton, lax) at p = 4, 8, 16: host ms per call after a synchronise,
-   mean of 10 calls after 3 warm-up calls.  This algebra is launch-bound,
-   so the host clock is its cost.
+1. sqrtm + inverse sqrtm of a p x p SPD matrix per eig backend (jacobi:
+   S1, newton, lax) and S1's plain version at p = 4, 8, 16: host ms per
+   call after a synchronise, mean of 10 calls after 3 warm-up calls.
+   This algebra is launch- or latency-bound, so the host clock is its
+   cost.
 2. `block_lanczos_expm_action` on the Maxwell fixture per eig backend, fused and materialized (--no-fused): ms per iteration (CUDA
    events around one run; after a warm-up run of each, three rounds that
    visit every configuration in turn, so drift of the host's speed falls
@@ -88,6 +90,14 @@ shard, its plan (ppc, wsz, n128), a product at p=8 (exchange, work copy
 and K8), and apart from it K8 alone on the rank's state and a device copy
 of that state (the work copy's cost), timed as above; then the assembled
 eigsh on it (wall seconds, Ritz values, measured residuals).
+
+With --fdtd-graph it prints only this: FDTD's K5 loop (`euler_steps`) on
+the convergence oracle's N=3 f64 p=1 state for 10^5 steps and on N=160
+f32 p=4 for 2000 steps, eager and replayed from CUDA graphs of each chunk
+in FDTD_CHUNKS steps (`fdtd.GRAPH_CHUNK` set for the run), each timed by
+the host clock around a run that ends in a synchronise, in turns (eager,
+chunks ascending, chunks descending, eager), with the largest difference
+from the eager result (every one must read 0).
 """
 
 from __future__ import annotations
@@ -116,20 +126,24 @@ ASSEMBLED_ROWS, ASSEMBLED_P = 10_485_760, 8  # chip_smoke.py's assembled slice
 
 
 def probe_sqrtm(dev) -> None:
+    from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm_plain
+
     for p in (4, 8, 16):
         g = torch.Generator(device=dev).manual_seed(p)
         a = torch.randn((p, p), generator=g, device=dev)
         a = a @ a.T + p * torch.eye(p, device=dev)
-        for be in BACKENDS:
+        calls = {be: (lambda be=be: sqrtm_invsqrtm(a, backend=be)) for be in BACKENDS}
+        calls["jacobi plain"] = lambda: jacobi_sqrtm_plain(a)
+        for name, call in calls.items():
             for _ in range(3):
-                sqrtm_invsqrtm(a, backend=be)
+                call()
             torch.cuda.synchronize(dev)
             t0 = time.perf_counter()
             for _ in range(10):
-                sqrtm_invsqrtm(a, backend=be)
+                call()
             torch.cuda.synchronize(dev)
             ms = (time.perf_counter() - t0) / 10 * 1e3
-            print(f"sqrtm p={p} {be}: {ms:.3f} ms/call (host clock)", flush=True)
+            print(f"sqrtm p={p} {name}: {ms:.3f} ms/call (host clock)", flush=True)
 
 
 def probe_slice(op, b, m, tf) -> None:
@@ -722,6 +736,49 @@ def probe_dist_windowed() -> None:
               f"{r0['resid'].tolist()}", flush=True)
 
 
+FDTD_CHUNKS = (32, 64, 128, 256, 512, 1024)
+
+
+def probe_fdtd_graph(dev) -> None:
+    from lanczos_tpu_torch.methods import fdtd
+
+    cases = []
+    o3 = PallasMaxwellOperator.create(3, 3, 3, dtype=torch.float64, device=dev)
+    cases.append(("N=3 f64 p=1", o3, o3.pack(torch.from_numpy(
+        gaussian_vector_b(3, o3.n)).to(dev)), 100_000, False))
+    op = PallasMaxwellOperator.create(N, N, N, device=dev)
+    cases.append((f"N={N} f32 p={P}", op, op.pack(torch.from_numpy(
+        gaussian_matrix_B(N, op.n, P).astype("float32")).to(dev)), 2000, True))
+    default = fdtd.GRAPH_CHUNK
+    order = [None, *FDTD_CHUNKS, *reversed(FDTD_CHUNKS), None]
+    try:
+        for label, a, u0, steps, block in cases:
+            dt = torch.tensor(1.0 / steps, dtype=u0.dtype, device=dev)
+            secs, ref, worst = {}, None, 0.0
+            for chunk in order:
+                if chunk is not None:
+                    fdtd.GRAPH_CHUNK = chunk
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                u = fdtd.euler_steps(a, u0, steps, dt, block=block,
+                                     graph=chunk is not None)
+                torch.cuda.synchronize(dev)
+                secs.setdefault(chunk, []).append(time.perf_counter() - t0)
+                if ref is None:
+                    ref = u.clone()
+                worst = max(worst, (u - ref).abs().max().item())
+            for chunk in [None, *FDTD_CHUNKS]:
+                t = secs[chunk]
+                print(f"fdtd {label}, {steps} steps, "
+                      f"{'eager' if chunk is None else f'graphs of {chunk}'}: "
+                      f"{', '.join(f'{x:.3f}' for x in t)} s, "
+                      f"{min(t) / steps * 1e6:.2f} us a step", flush=True)
+            print(f"fdtd {label}: largest difference from the eager run {worst}",
+                  flush=True)
+    finally:
+        fdtd.GRAPH_CHUNK = default
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the probes time the CUDA card: none is available")
@@ -754,6 +811,9 @@ def main() -> None:
         return
     if "--dist-windowed" in sys.argv[1:]:
         probe_dist_windowed()
+        return
+    if "--fdtd-graph" in sys.argv[1:]:
+        probe_fdtd_graph(dev)
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

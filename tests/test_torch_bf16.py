@@ -373,7 +373,7 @@ def test_dtype_codes_and_the_bf16_launch_counts():
         build.dtype_code(torch.zeros(4, dtype=torch.float16), True)
     assert {k for k in build.LAUNCHES if k.endswith(" bf16")} == {
         "apply_stencil_pair bf16", "block_mix bf16", "block_grams bf16",
-        "block_grams_compensated bf16"}
+        "block_grams_compensated bf16", "jacobi_sqrtm bf16"}
     assert build.acc_dtype(BF16) == torch.float32
 
 

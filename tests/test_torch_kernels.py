@@ -19,6 +19,7 @@ from lanczos_tpu_torch.ops.kernels import (
     stencil_fdtd,
     stencil_gram,
 )
+from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm, jacobi_sqrtm_plain
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     BLOCK_SHARED_BYTES,
     GEN_ROW_WEIGHTS,
@@ -124,12 +125,14 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
         torch.ones((2, 300)))
     spec, wz, wp, x = _k6_case("laplacian", 1, torch.float32, "cpu")
     apply_stencil(x, wz, wp, spec)
+    jacobi_sqrtm(torch.eye(4) + 0.1)
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
-        "windowed_spmm", "apply_stencil", "apply_stencil_pair bf16",
-        "block_mix bf16", "block_grams bf16", "block_grams_compensated bf16",
+        "windowed_spmm", "apply_stencil", "jacobi_sqrtm",
+        "apply_stencil_pair bf16", "block_mix bf16", "block_grams bf16",
+        "block_grams_compensated bf16", "jacobi_sqrtm bf16",
     }
 
 
@@ -1260,3 +1263,141 @@ def test_k4_k5_k6_refuse_bf16_on_the_card(cuda):
         op.stencil_gram(u, u.clone())
     with pytest.raises(ValueError, match="bfloat16"):
         apply_stencil(u[:, :3].contiguous(), op.wz_t[0].T, op.wplane_s[0], op.spec_e)
+
+
+# -- S1 (the p x p Jacobi sqrtm) and FDTD's replayed K5 loop, on the card ----
+
+# S1 against its plain version on the card, relative in the Frobenius
+# norm: the same rotations, the p x p products summed in another order
+# (cuBLAS against the kernel's in-order FMA sums), so f64 to 1e-12 and
+# f32 to 1e-5 on Grams of condition <= 1e3, 1e-5 * p / 16 past p = 16
+# (more rotations a sweep carry the rounding); bf16 to the bound
+# tests/test_torch_bf16.py holds the port's bf16 block Lanczos to against
+# JAX (2e-2): every op rounds to bf16, as torch's bf16 ops do.
+S1_RTOL = {torch.float32: 1e-5, torch.float64: 1e-12, torch.bfloat16: 2e-2}
+S1_PS = list(range(1, 19)) + [32, 64]
+
+
+def _s1_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def _s1_grams(p, batch, dtype, device, seed=0, rank=None):
+    rng = np.random.default_rng(seed + p)
+    if rank is None:
+        q, _ = np.linalg.qr(rng.standard_normal((batch, p, p)))
+        a = (q * np.geomspace(1.0, 1e3, p)[..., None, :]) @ np.swapaxes(q, -1, -2)
+    else:
+        x = rng.standard_normal((batch, p, rank))
+        a = x @ np.swapaxes(x, -1, -2)
+    return torch.from_numpy(a).to(device, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("p", S1_PS)
+def test_s1_jacobi_sqrtm_vs_plain(cuda, p, dtype):
+    a = _s1_grams(p, 3 if p <= 18 else 2, dtype, cuda)
+    key = "jacobi_sqrtm bf16" if dtype == torch.bfloat16 else "jacobi_sqrtm"
+    before = build.LAUNCHES[key]
+    sq, inv = jacobi_sqrtm(a)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[key] == before + 1
+    assert sq.dtype == inv.dtype == dtype and sq.shape == a.shape
+    want_sq, want_inv = jacobi_sqrtm_plain(a)
+    tol = S1_RTOL[dtype] * (max(1.0, p / 16) if dtype == torch.float32 else 1.0)
+    assert _s1_rel(sq, want_sq) <= tol and _s1_rel(inv, want_inv) <= tol
+    again = jacobi_sqrtm(a)  # no atomics: the same bits
+    assert torch.equal(again[0], sq) and torch.equal(again[1], inv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,p,rank,eps,sq_rtol", [
+    (torch.float64, 4, 2, 1e-8, 1e-7), (torch.float32, 5, 3, 1e-4, 1e-3),
+    (torch.float64, 18, 9, 1e-8, 1e-7),
+])
+def test_s1_breakdown_pseudo_inverse_vs_plain(cuda, dtype, p, rank, eps, sq_rtol):
+    """A rank-deficient Gram: the pseudo-inverse zeroes the collapsed
+    directions as the plain version does; sqrtm's collapsed eigenvalues
+    are square roots of rounding noise (sqrt(eps) of scale)."""
+    a = _s1_grams(p, 2, dtype, cuda, rank=rank)
+    sq, inv = jacobi_sqrtm(a, breakdown_eps=eps)
+    want_sq, want_inv = jacobi_sqrtm_plain(a, breakdown_eps=eps)
+    assert torch.isfinite(inv).all()
+    assert _s1_rel(inv, want_inv) <= S1_RTOL[dtype]
+    assert _s1_rel(sq, want_sq) <= sq_rtol
+
+
+@pytest.mark.cuda
+def test_s1_sweeps_route_and_refusals(cuda, monkeypatch):
+    """`sweeps` reaches the kernel (16, checkpoint.py's count; 0 returns
+    the input's diagonal); sqrtm_invsqrtm(backend="jacobi") on the card
+    launches S1 and never the plain version; p past MAX_P raises."""
+    from lanczos_tpu_torch.ops import smalleig
+    from lanczos_tpu_torch.ops.kernels import smalleig as s1
+
+    a = _s1_grams(6, 2, torch.float64, cuda)
+    for sweeps in (0, 16):
+        got = jacobi_sqrtm(a, sweeps=sweeps)
+        want = jacobi_sqrtm_plain(a, sweeps=sweeps)
+        assert all(_s1_rel(g, w) <= 1e-12 for g, w in zip(got, want))
+    monkeypatch.setattr(s1, "jacobi_sqrtm_plain", None)  # a call would raise
+    build.reset_launches()
+    smalleig.sqrtm_invsqrtm(a, backend="jacobi", breakdown_eps=1e-9)
+    assert {k: c for k, c in build.LAUNCHES.items() if c} == {"jacobi_sqrtm": 1}
+    with pytest.raises(ValueError, match="1 <= p <= 64"):
+        jacobi_sqrtm(torch.eye(65, device=cuda))
+    with pytest.raises(TypeError, match="float16"):
+        jacobi_sqrtm(torch.eye(4, device=cuda, dtype=torch.float16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("p", [1, 4])
+def test_fdtd_graph_replay_equals_the_eager_loop(cuda, p, dtype):
+    """euler_steps replayed from a CUDA graph (a first step, whole chunks,
+    a tail) against the eager loop, bit for bit; every step counted once."""
+    from lanczos_tpu_torch.methods.fdtd import GRAPH_CHUNK, euler_steps
+
+    op, u = _op_state(6, p, dtype, cuda)
+    keep = u.clone()
+    nsteps = 2 * GRAPH_CHUNK + 3
+    dt = torch.tensor(1.0 / nsteps, dtype=dtype, device=cuda)
+    eager = euler_steps(op, u, nsteps, dt, block=True, graph=False).clone()
+    build.reset_launches()
+    got = euler_steps(op, u, nsteps, dt, block=True)
+    torch.cuda.synchronize()
+    assert {k: c for k, c in build.LAUNCHES.items() if c} == {"fdtd_step": nsteps}
+    assert torch.equal(got, eager) and torch.equal(u, keep)
+
+
+@pytest.mark.cuda
+def test_fdtd_checkpointed_resume_replays_bit_for_bit(cuda, monkeypatch, tmp_path):
+    """A checkpointed FDTD run (each chunk replayed from its own graph)
+    stopped after its first chunk and resumed equals the eager loop."""
+    from lanczos_tpu_torch.methods import checkpoint as ck
+    from lanczos_tpu_torch.methods.fdtd import GRAPH_CHUNK, euler_steps
+
+    op, u = _op_state(6, 4, torch.float32, cuda)
+    nsteps, chunk = 4 * GRAPH_CHUNK + 5, 2 * GRAPH_CHUNK + 1
+    dt = torch.tensor(0.5 / nsteps, dtype=torch.float32, device=cuda)
+    eager = euler_steps(op, u, nsteps, dt, block=True, graph=False).clone()
+    real, calls = ck.euler_steps, []
+
+    def once(*args, **kw):
+        if calls:
+            raise KeyboardInterrupt
+        calls.append(1)
+        return real(*args, **kw)
+
+    path = str(tmp_path / "fdtd.npz")
+    monkeypatch.setattr(ck, "euler_steps", once)
+    with pytest.raises(KeyboardInterrupt):
+        ck.fdtd_checkpointed(op, u, nsteps, 0.5, chunk=chunk, path=path, block=True)
+    monkeypatch.undo()
+    build.reset_launches()
+    got = ck.fdtd_checkpointed(op, u, nsteps, 0.5, chunk=chunk, path=path, block=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["fdtd_step"] == nsteps - chunk
+    assert torch.equal(got, eager)

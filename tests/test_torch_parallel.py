@@ -478,6 +478,15 @@ def test_weak_scaling_runs_each_mesh_size(tmp_path, monkeypatch):
     assert weak_scaling.main(["--devices", "2"]) == []
 
 
+def test_slope_time_on_a_mesh_takes_one_chain_length():
+    """Two gloo ranks time a chain that all-reduces; only rank 1's clock
+    asks for a longer chain.  With the mesh's group every rank escalates
+    together (both try k2 = 12, then 96), so neither waits in the chain
+    for a rank that stopped: the run ends well inside its timeout."""
+    tried = launch.run(cases.disagreeing_escalation, 2, device="cpu", timeout=60)
+    assert tried == [[12, 96], [12, 96]]
+
+
 @pytest.mark.parametrize("k", RANKS)
 def test_storage_trace_reads_jax_global_flat_index(k, ranks):
     """The Lanczos methods' receiver when given lc and no trace_fn: flat

@@ -493,3 +493,33 @@ def describe(mesh):
             "any": mesh.any(mesh.rank == mesh.size - 1), "none": mesh.any(False),
             "from_left": from_left, "from_right": from_right,
             "windows": {h: mesh.halo_window(block, h) for h in WINDOW_HALOS}}
+
+
+def disagreeing_escalation(mesh):
+    """`bench_loop.slope_time_chain` of a chain that all-reduces, where
+    only rank 1 would escalate k2 (its timer reads 0 s against a 1 s delta
+    to clear; rank 0 clears any delta).  Returns the k2s this rank tried: with the
+    group's agreement both ranks try the same ones, without it rank 1
+    would wait in the chain's all-reduce for a rank that had stopped."""
+    from lanczos_tpu_torch.utils import bench_loop
+
+    tried = []
+    real_slope = bench_loop._slope
+
+    def spy(chain, timer, k1, k2, trials):
+        tried.append(k2)
+        return real_slope(chain, timer, k1, k2, trials)
+
+    class Frozen(bench_loop.Timer):
+        def stop(self):
+            super().stop()
+            return 0.0
+
+    bench_loop._slope = spy
+    if mesh.rank == 1:
+        bench_loop.Timer = Frozen
+    bench_loop.slope_time_chain(mesh.all_reduce_, torch.ones(1), k1=2, k2=12,
+                                trials=1, damp=None, k2_max=96,
+                                min_delta_s=-np.inf if mesh.rank == 0 else 1.0,
+                                group=mesh.group)
+    return tried
