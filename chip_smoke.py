@@ -144,12 +144,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
     after its first chunk and resumed, each equal to its uninterrupted
     run bit for bit (K5 2000 times); the seconds and MB of every save;
 12. the profile: the block slice's Lanczos through `run` with --profile
-    and --no-validate; the Chrome trace names stencil_gram_kernel and
-    the launch counts are the block slice's without its FDTD; then
-    torch.profiler's device time, the untraced wall and the device's idle
-    share of the block slice's Lanczos + expm (with S1 and with the plain
-    Jacobi), the vector and compensated slices' and 600 FDTD steps at
-    p=4 and p=1;
+    and --no-validate; the Chrome trace names stencil_gram_kernel and the
+    port's Lanczos step span, and the launch counts are the block slice's
+    without its FDTD;
 13. bench: `lanczos_tpu_torch.bench`'s measurement (Maxwell N=160, p=4,
     K1 chained, best of four slopes), its JSON line printed; its per-call
     time must agree with phase 3's K1 time (mean of 20 calls) within
@@ -2067,73 +2064,14 @@ def phase_profile(torch, build, results, failures):
         failures.append("profile: the result does not name its directory")
     if "stencil_gram_kernel" not in ours:
         failures.append("profile: the trace names no stencil_gram_kernel")
+    spans = {e["name"] for e in trace["traceEvents"] if e.get("cat") == "user_annotation"}
+    if "lt.lanczos.step" not in spans:
+        failures.append("profile: the trace names no lt.lanczos.step span")
     block = results.get("launches", {}).get("block")
     want = block and {k: v for k, v in block.items() if k != "fdtd_step"} | {"fdtd_step": 0}
     if launches != want:
         failures.append(f"profile: launches {launches}, the block slice's "
                         f"without FDTD are {want}")
-    idle_shares(torch, results)
-
-
-def profiled_idle(torch, run_once):
-    """(device ms, wall ms, idle share) of one run: the device time of a
-    torch.profiler trace's kernels, the wall of an untraced run (the
-    profiler slows the host), idle = 1 - device / wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    def wall():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        run_once()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
-    wall()
-    wall_ms = min(wall(), wall())
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        wall()
-    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type != DeviceType.CPU) / 1e3
-    return device_ms, wall_ms, 1 - device_ms / wall_ms
-
-
-def idle_shares(torch, results):
-    """The Lanczos + expm half of the block (S1, then the plain Jacobi),
-    vector and compensated slices, and 600 FDTD steps at p=4 and p=1
-    (a first step, graph replays, a tail): device time, wall and idle
-    share."""
-    from lanczos_tpu_torch.methods.expm_action import (
-        block_lanczos_expm_action,
-        lanczos_expm_action,
-    )
-    from lanczos_tpu_torch.methods.fdtd import fdtd_block, fdtd_vector
-    from lanczos_tpu_torch.models.rhs import gaussian_vector_b
-
-    op, b, tf = block_fixture(torch)
-    v = op.pack(torch.from_numpy(
-        gaussian_vector_b(N_SLICE, op.n).astype("float32")).to("cuda"))
-    runs = (
-        ("block (S1)", contextlib.nullcontext, lambda: block_lanczos_expm_action(
-            op, b, M_SLICE, 1.0, 0, trace_fn=tf)),
-        ("block (plain Jacobi)", plain_jacobi, lambda: block_lanczos_expm_action(
-            op, b, M_SLICE, 1.0, 0, trace_fn=tf)),
-        ("vector", contextlib.nullcontext, lambda: lanczos_expm_action(
-            op, v, M_VECTOR, 1.0, 0, trace_fn=tf)),
-        ("compensated", contextlib.nullcontext, lambda: block_lanczos_expm_action(
-            op, b, M_SLICE, 1.0, 0, trace_fn=tf, compensated=True)),
-        ("fdtd 600 steps p=4 (replayed)", contextlib.nullcontext,
-         lambda: fdtd_block(op, b, 600, 1.0)),
-        ("fdtd 600 steps p=1 (replayed)", contextlib.nullcontext,
-         lambda: fdtd_vector(op, v, 600, 1.0)),
-    )
-    shares = results.setdefault("idle", {})
-    for label, ctx, fn in runs:
-        with ctx():
-            device_ms, wall_ms, idle = profiled_idle(torch, fn)
-        shares[label] = (device_ms, wall_ms, idle)
-        log(f"  profile {label}: device {device_ms:.3f} ms, wall {wall_ms:.3f} ms, "
-            f"idle {idle:.1%}")
 
 
 def phase_bench(torch, build, results, failures):

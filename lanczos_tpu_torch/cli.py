@@ -15,7 +15,8 @@ ell` the assembled A as gathered ELL in plain torch (in `--dtype`: the
 JAX package builds it in f32 whatever `--dtype` says).  `--profile DIR`
 wraps the Lanczos run, and only it, in `torch.profiler` (CPU activity,
 and CUDA activity on the card) and writes a Chrome trace,
-DIR/lanczos_trace.json, even when the run raises.  `--devices N` (N > 1)
+DIR/lanczos_trace.json, even when the run raises; the port's `lt.*` spans
+(`utils/tracing.py`) mark its layers there.  `--devices N` (N > 1)
 runs `--operator pallas` as the z-slab `DistributedPallasMaxwell` on N
 ranks, one process a device (`parallel/launch.py`: N cards, or N gloo
 ranks with `--device cpu`), and prints rank 0's result; with another

@@ -48,6 +48,7 @@ from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.operator import state_trace
 from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
 from lanczos_tpu_torch.ops.tsqr import tsqr, tsqr_sharded
+from lanczos_tpu_torch.utils import tracing
 
 FUSED_GATE_BYTES = 16 * 1024 * 1024  # JAX block_lanczos.py:170
 
@@ -94,6 +95,7 @@ def _local(t):
     return t
 
 
+@tracing.spanned("lt.lanczos.reorth")
 def _cgs2(wv, basis, total=_local):
     """W -= Q (Q^T W) over the given basis blocks (k, p, *state), twice;
     `total` sums the coefficients over the ranks of a distributed state."""
@@ -258,10 +260,11 @@ def block_lanczos(
 
     # -- first half-iteration (a degenerate START block is the caller's
     # bug, not a breakdown: its rcond is not checked)
-    q0, beta0, _ = normalize_block(b)
-    w = a.mm(q0)
-    alpha0 = _sym(gram(w, q0))
-    w = w - _mix(alpha0, q0)
+    with tracing.span("lt.lanczos.prologue"):
+        q0, beta0, _ = normalize_block(b)
+        w = a.mm(q0)
+        alpha0 = _sym(gram(w, q0))
+        w = w - _mix(alpha0, q0)
 
     basis = None
     if need_basis:
@@ -287,97 +290,99 @@ def block_lanczos(
     dead = torch.zeros((), dtype=torch.bool, device=dev)
     q_prev = q0
     for j in range(1, m):
-        trigger = False
-        if reorth == "selective":
-            # block omega recurrence (Simon '84 with block Frobenius
-            # norms): estimate max_k ||Q_j^T Q_k|| and clean up only when
-            # it crosses sqrt(eps)
-            nb_tent = torch.clamp(state_fro(w), min=tiny)
-            nbh = nb_hist.clone()
-            nbh[0] = 0.0
-            nb_kp1 = torch.roll(nbh, -1)
-            tilde = ((na_hist + na_hist[j - 1]) * om
-                     + nb_kp1 * torch.roll(om, -1)
-                     + nbh * torch.roll(om, 1)
-                     + nbh[j - 1] * om_prev)
-            om_new = tilde / nb_tent + eps * (nb_kp1 + nb_tent) / nb_tent
-            seed = eps * n_state * nbh[1] / nb_tent
-            om_new = torch.where(karr == j - 1, seed, om_new)
-            om_new = torch.where(karr == j, 1.0, om_new)
-            om_new = torch.where(karr > j, 0.0, om_new)
-            older = karr <= j - 2
-            # the host decides (one sync per step): JAX's lax.cond
-            trigger = force or decide(
-                torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps)
-            if trigger:
-                om_new = torch.where(karr <= j - 1, eps, om_new)
-            force = trigger and not force
-            om_prev, om = om, om_new
+        with tracing.span("lt.lanczos.step"):
+            tracing.count("lanczos.steps")
+            trigger = False
+            if reorth == "selective":
+                # block omega recurrence (Simon '84 with block Frobenius
+                # norms): estimate max_k ||Q_j^T Q_k|| and clean up only when
+                # it crosses sqrt(eps)
+                nb_tent = torch.clamp(state_fro(w), min=tiny)
+                nbh = nb_hist.clone()
+                nbh[0] = 0.0
+                nb_kp1 = torch.roll(nbh, -1)
+                tilde = ((na_hist + na_hist[j - 1]) * om
+                         + nb_kp1 * torch.roll(om, -1)
+                         + nbh * torch.roll(om, 1)
+                         + nbh[j - 1] * om_prev)
+                om_new = tilde / nb_tent + eps * (nb_kp1 + nb_tent) / nb_tent
+                seed = eps * n_state * nbh[1] / nb_tent
+                om_new = torch.where(karr == j - 1, seed, om_new)
+                om_new = torch.where(karr == j, 1.0, om_new)
+                om_new = torch.where(karr > j, 0.0, om_new)
+                older = karr <= j - 2
+                # the host decides (one sync per step): JAX's lax.cond
+                trigger = force or decide(
+                    torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps)
+                if trigger:
+                    om_new = torch.where(karr <= j - 1, eps, om_new)
+                force = trigger and not force
+                om_prev, om = om, om_new
 
-        q, beta, rcond = normalize_block(w)
+            q, beta, rcond = normalize_block(w)
 
-        # q-side cleanup after normalization: normalization amplifies the
-        # residual's eps-level basis components by 1/sigma_i in each
-        # nearly dead direction, so q itself is cleaned (CGS2 against the
-        # basis, a within-block re-QR whose R folds into beta)
-        if reorth == "full":
-            # with no near-dead handling asked for, clean only when the
-            # normalization was ill-conditioned (one host read)
-            do_clean = (breakdown_eps > 0.0 or replace_dead
-                        or decide(rcond <= sqrt_eps))
-        elif reorth == "periodic":
-            do_clean = j % 2 == 0
-        else:
-            do_clean = trigger
-        if reorth != "none":
-            if breakdown_eps > 0.0:
-                d0 = torch.abs(torch.diagonal(beta))
-                keep = (d0 > breakdown_eps * d0.max()).to(dtype)
+            # q-side cleanup after normalization: normalization amplifies the
+            # residual's eps-level basis components by 1/sigma_i in each
+            # nearly dead direction, so q itself is cleaned (CGS2 against the
+            # basis, a within-block re-QR whose R folds into beta)
+            if reorth == "full":
+                # with no near-dead handling asked for, clean only when the
+                # normalization was ill-conditioned (one host read)
+                do_clean = (breakdown_eps > 0.0 or replace_dead
+                            or decide(rcond <= sqrt_eps))
+            elif reorth == "periodic":
+                do_clean = j % 2 == 0
             else:
-                keep = torch.ones(p, dtype=dtype, device=dev)
-            if replace_dead:
-                do_clean = do_clean or decide((keep < 1.0).any())
-            if do_clean:
-                kshape = (p,) + (1,) * (q.ndim - 1)
+                do_clean = trigger
+            if reorth != "none":
+                if breakdown_eps > 0.0:
+                    d0 = torch.abs(torch.diagonal(beta))
+                    keep = (d0 > breakdown_eps * d0.max()).to(dtype)
+                else:
+                    keep = torch.ones(p, dtype=dtype, device=dev)
                 if replace_dead:
-                    # adaptive restart: refill collapsed directions with
-                    # noise; CGS2 + re-QR make them fresh basis-orthogonal
-                    # unit directions, the zeroed beta rows decouple them
-                    q = q + torch.randn(q.shape, generator=noise, dtype=dtype,
-                                        device=dev) * (1.0 - keep).view(kshape)
-                q = cgs2(q, basis[:j])
-                qt, r2 = qr_rows(q)
-                q = qt.reshape(q.shape).contiguous()
-                beta = r2 @ beta
-                if not replace_dead:
-                    # deflation: the re-QR refills exactly-zero directions
-                    # with arbitrary completions; re-zero them
-                    q = q * keep.view(kshape)
-                beta = beta * keep[:, None]
-        if breakdown_tol > 0.0:
-            # freeze on (approximate) invariant subspace; an EXACTLY
-            # invariant one gives beta = pinv = 0, caught by its norm
-            dead = dead | (rcond <= breakdown_tol) | (_fro(beta) <= tiny)
-            q = torch.where(dead, torch.zeros_like(q), q)
-            beta = torch.where(dead, torch.zeros_like(beta), beta)
-        # A V_j = V_{j-1} B_j^T + V_j A_j + V_{j+1} B_{j+1}: subtract the
-        # TRANSPOSED subdiagonal block (beta for sqrtm; needed for qr)
-        wn = a.mm(q) - _mix(beta.T, q_prev)
-        alpha = _sym(gram(wn, q))
-        w = wn - _mix(alpha, q)
-        if need_basis:
-            basis[j] = q
-        # residual-side pass: every step for full; for periodic and
-        # selective whenever the cleanup fired, which removes the A V =
-        # V T + E inconsistency the q-side cleanup alone leaves
-        if reorth == "full" or (reorth != "none" and do_clean):
-            w = cgs2(w, basis[: j + 1])
+                    do_clean = do_clean or decide((keep < 1.0).any())
+                if do_clean:
+                    kshape = (p,) + (1,) * (q.ndim - 1)
+                    if replace_dead:
+                        # adaptive restart: refill collapsed directions with
+                        # noise; CGS2 + re-QR make them fresh basis-orthogonal
+                        # unit directions, the zeroed beta rows decouple them
+                        q = q + torch.randn(q.shape, generator=noise, dtype=dtype,
+                                            device=dev) * (1.0 - keep).view(kshape)
+                    q = cgs2(q, basis[:j])
+                    qt, r2 = qr_rows(q)
+                    q = qt.reshape(q.shape).contiguous()
+                    beta = r2 @ beta
+                    if not replace_dead:
+                        # deflation: the re-QR refills exactly-zero directions
+                        # with arbitrary completions; re-zero them
+                        q = q * keep.view(kshape)
+                    beta = beta * keep[:, None]
+            if breakdown_tol > 0.0:
+                # freeze on (approximate) invariant subspace; an EXACTLY
+                # invariant one gives beta = pinv = 0, caught by its norm
+                dead = dead | (rcond <= breakdown_tol) | (_fro(beta) <= tiny)
+                q = torch.where(dead, torch.zeros_like(q), q)
+                beta = torch.where(dead, torch.zeros_like(beta), beta)
+            # A V_j = V_{j-1} B_j^T + V_j A_j + V_{j+1} B_{j+1}: subtract the
+            # TRANSPOSED subdiagonal block (beta for sqrtm; needed for qr)
+            wn = a.mm(q) - _mix(beta.T, q_prev)
+            alpha = _sym(gram(wn, q))
+            w = wn - _mix(alpha, q)
+            if need_basis:
+                basis[j] = q
+            # residual-side pass: every step for full; for periodic and
+            # selective whenever the cleanup fired, which removes the A V =
+            # V T + E inconsistency the q-side cleanup alone leaves
+            if reorth == "full" or (reorth != "none" and do_clean):
+                w = cgs2(w, basis[: j + 1])
 
-        na_hist[j], nb_hist[j] = _fro(alpha), _fro(beta)
-        alphas.append(alpha)
-        betas.append(beta)
-        traces.append(trace_at(q))
-        q_prev = q
+            na_hist[j], nb_hist[j] = _fro(alpha), _fro(beta)
+            alphas.append(alpha)
+            betas.append(beta)
+            traces.append(trace_at(q))
+            q_prev = q
 
     # true beta_m of the completed factorization (only its norm enters the
     # Ritz bounds): the qr path takes TSQR's R, never forming the Gram; a

@@ -53,6 +53,7 @@ from lanczos_tpu_torch.ops.kernels.block_dense import (
 )
 from lanczos_tpu_torch.ops.operator import state_trace
 from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
+from lanczos_tpu_torch.utils import tracing
 
 
 def block_lanczos_fused(
@@ -106,19 +107,21 @@ def block_lanczos_fused(
         return g_vv - g_qv.T @ s2 - s2.T @ g_qv + s2.T @ (g_qq @ s2)
 
     # ---- prologue: q0, v0 = A q0, alpha0 -------------------------------
-    gbb = grams((), b, include_zz=True)  # (p, p): one read of b
-    beta0, inv0 = sqrtm_inv(gbb)
-    q0 = block_mix(inv0.to(cdt), (b,))
-    v0 = a.mm(q0)
-    g2 = grams((q0,), v0, include_zz=True)  # [gram(q0,v0); gram(v0,v0)]
-    g_qv, g_vv = g2[:p], g2[p:]
-    g_qq = inv0.T.to(cdt) @ gbb @ inv0.to(cdt)
-    alpha0 = _sym(g_qv.T).to(dtype)
-    trace0 = trace_at(q0)
-    dead = torch.zeros((), dtype=torch.bool, device=b.device)
+    with tracing.span("lt.lanczos.prologue"):
+        gbb = grams((), b, include_zz=True)  # (p, p): one read of b
+        beta0, inv0 = sqrtm_inv(gbb)
+        q0 = block_mix(inv0.to(cdt), (b,))
+        v0 = a.mm(q0)
+        g2 = grams((q0,), v0, include_zz=True)  # [gram(q0,v0); gram(v0,v0)]
+        g_qv, g_vv = g2[:p], g2[p:]
+        g_qq = inv0.T.to(cdt) @ gbb @ inv0.to(cdt)
+        alpha0 = _sym(g_qv.T).to(dtype)
+        trace0 = trace_at(q0)
+        dead = torch.zeros((), dtype=torch.bool, device=b.device)
 
     if m == 1:
-        beta_final, _ = sqrtm_inv(gwn2(g_qv, g_vv, g_qq, alpha0.to(cdt)))
+        with tracing.span("lt.lanczos.coeffs"):
+            beta_final, _ = sqrtm_inv(gwn2(g_qv, g_vv, g_qq, alpha0.to(cdt)))
         return BlockLanczosResult(
             alphas=alpha0[None], betas=beta0[None], trace=trace0[None],
             beta_final=beta_final, breakdown=dead,
@@ -126,23 +129,27 @@ def block_lanczos_fused(
         )
 
     # ---- peeled step j=1 (doublet U = (q0, v0)) ------------------------
-    s2 = alpha0.to(cdt)
-    beta1, inv1, dead = norm_coeffs(gwn2(g_qv, g_vv, g_qq, s2), dead)
-    inv1f = inv1.to(cdt)
-    e1 = torch.cat([-(s2 @ inv1f), inv1f])  # (2p, p)
-    q1 = block_mix(e1, (q0, v0))
-    v1 = a.mm(q1)
-    g2 = grams((q1,), v1, include_zz=True)
-    m23, m33 = g2[:p], g2[p:]
-    # 2p x 2p gram of (q0, v0) for the derived blocks
-    gU = torch.cat([torch.cat([g_qq, g_qv], 1), torch.cat([g_qv.T, g_vv], 1)])
-    m12 = torch.cat([g_qq, g_qv], 1) @ e1  # gram(q0, q1)
-    m22 = e1.T @ (gU @ e1)  # gram(q1, q1)
-    m13 = torch.cat([g_qv.T, g_vv], 1) @ e1  # gram(q0, v1) = gram(v0, q1)
-    m11 = g_qq
-    alpha1 = _sym(m23.T - beta1.to(cdt) @ m12).to(dtype)
-    trace1 = trace_at(q1)
-    del v0  # not in the carry: frees one block state
+    with tracing.span("lt.lanczos.step"):
+        tracing.count("lanczos.steps")
+        with tracing.span("lt.lanczos.coeffs"):
+            s2 = alpha0.to(cdt)
+            beta1, inv1, dead = norm_coeffs(gwn2(g_qv, g_vv, g_qq, s2), dead)
+            inv1f = inv1.to(cdt)
+            e1 = torch.cat([-(s2 @ inv1f), inv1f])  # (2p, p)
+        q1 = block_mix(e1, (q0, v0))
+        v1 = a.mm(q1)
+        g2 = grams((q1,), v1, include_zz=True)
+        m23, m33 = g2[:p], g2[p:]
+        with tracing.span("lt.lanczos.coeffs"):
+            # 2p x 2p gram of (q0, v0) for the derived blocks
+            gU = torch.cat([torch.cat([g_qq, g_qv], 1), torch.cat([g_qv.T, g_vv], 1)])
+            m12 = torch.cat([g_qq, g_qv], 1) @ e1  # gram(q0, q1)
+            m22 = e1.T @ (gU @ e1)  # gram(q1, q1)
+            m13 = torch.cat([g_qv.T, g_vv], 1) @ e1  # gram(q0, v1) = gram(v0, q1)
+            m11 = g_qq
+            alpha1 = _sym(m23.T - beta1.to(cdt) @ m12).to(dtype)
+        trace1 = trace_at(q1)
+        del v0  # not in the carry: frees one block state
 
     def gwn_from(M, s1, s2):
         m11, m12, m13, m22, m23, m33 = M
@@ -170,46 +177,51 @@ def block_lanczos_fused(
     M = (m11, m12, m13, m22, m23, m33)
     alpha_prev, beta_prev = alpha1, beta1
     for _ in range(m - 2):
-        m11, m12, m13, m22, m23, m33 = M
-        s1 = beta_prev.T.to(cdt)
-        s2 = alpha_prev.to(cdt)
-        beta_j, inv_j, dead = norm_coeffs(gwn_from(M, s1, s2), dead)
-        invf = inv_j.to(cdt)
-        e = torch.cat([-(s1 @ invf), -(s2 @ invf), invf])  # (3p, p)
-        e = torch.where(dead, torch.zeros_like(e), e)
-        gu2U = torch.cat([m12.T, m22, m23], 1)  # (p, 3p)
-        if mono:
-            # q_j over u1's buffer, then v_j over u3's (K2 in place, K4)
-            q_j = block_mix(e, (u1, u2, u3), inplace=True)
-            v_j, g3 = a.stencil_gram(q_j, u3)
-            m23n, m33n = g3[:p], g3[p : 2 * p]
-            m13n = g3[2 * p :]  # gram(u3, q_j): measured, not derived
-        else:
-            q_j = block_mix(e, (u1, u2, u3))
-            v_j = a.mm(q_j)
-            g2 = grams((q_j,), v_j, include_zz=True)
-            m23n, m33n = g2[:p], g2[p:]
-            gu3U = torch.cat([m13.T, m23.T, m33], 1)
-            m13n = gu3U @ e  # gram(u2, v_j) = gram(u3, q_j)  [A sym.]
-        m12n = gu2U @ e  # gram(u2, q_j)
-        Mfull = torch.cat([
-            torch.cat([m11, m12, m13], 1),
-            torch.cat([m12.T, m22, m23], 1),
-            torch.cat([m13.T, m23.T, m33], 1),
-        ])
-        m22n = e.T @ (Mfull @ e)  # gram(q_j, q_j)
-        alpha_j = _sym(m23n.T - beta_j.to(cdt) @ m12n).to(dtype)
-        alphas.append(alpha_j)
-        betas.append(beta_j.to(dtype))
-        traces.append(trace_at(q_j))
-        if store_basis:
-            qs.append(q_j)
-        u1, u2, u3 = u2, q_j, v_j
-        M = (m22, m12n, m13n, m22n, m23n, m33n)
-        alpha_prev, beta_prev = alpha_j, beta_j
+        with tracing.span("lt.lanczos.step"):
+            tracing.count("lanczos.steps")
+            with tracing.span("lt.lanczos.coeffs"):
+                m11, m12, m13, m22, m23, m33 = M
+                s1 = beta_prev.T.to(cdt)
+                s2 = alpha_prev.to(cdt)
+                beta_j, inv_j, dead = norm_coeffs(gwn_from(M, s1, s2), dead)
+                invf = inv_j.to(cdt)
+                e = torch.cat([-(s1 @ invf), -(s2 @ invf), invf])  # (3p, p)
+                e = torch.where(dead, torch.zeros_like(e), e)
+                gu2U = torch.cat([m12.T, m22, m23], 1)  # (p, 3p)
+            if mono:
+                # q_j over u1's buffer, then v_j over u3's (K2 in place, K4)
+                q_j = block_mix(e, (u1, u2, u3), inplace=True)
+                v_j, g3 = a.stencil_gram(q_j, u3)
+                m23n, m33n = g3[:p], g3[p : 2 * p]
+                m13n = g3[2 * p :]  # gram(u3, q_j): measured, not derived
+            else:
+                q_j = block_mix(e, (u1, u2, u3))
+                v_j = a.mm(q_j)
+                g2 = grams((q_j,), v_j, include_zz=True)
+                m23n, m33n = g2[:p], g2[p:]
+                gu3U = torch.cat([m13.T, m23.T, m33], 1)
+                m13n = gu3U @ e  # gram(u2, v_j) = gram(u3, q_j)  [A sym.]
+            with tracing.span("lt.lanczos.coeffs"):
+                m12n = gu2U @ e  # gram(u2, q_j)
+                Mfull = torch.cat([
+                    torch.cat([m11, m12, m13], 1),
+                    torch.cat([m12.T, m22, m23], 1),
+                    torch.cat([m13.T, m23.T, m33], 1),
+                ])
+                m22n = e.T @ (Mfull @ e)  # gram(q_j, q_j)
+                alpha_j = _sym(m23n.T - beta_j.to(cdt) @ m12n).to(dtype)
+            alphas.append(alpha_j)
+            betas.append(beta_j.to(dtype))
+            traces.append(trace_at(q_j))
+            if store_basis:
+                qs.append(q_j)
+            u1, u2, u3 = u2, q_j, v_j
+            M = (m22, m12n, m13n, m22n, m23n, m33n)
+            alpha_prev, beta_prev = alpha_j, beta_j
 
-    gwn_f = gwn_from(M, beta_prev.T.to(cdt), alpha_prev.to(cdt))
-    beta_final, _ = sqrtm_inv(gwn_f)
+    with tracing.span("lt.lanczos.coeffs"):
+        gwn_f = gwn_from(M, beta_prev.T.to(cdt), alpha_prev.to(cdt))
+        beta_final, _ = sqrtm_inv(gwn_f)
     beta_final = torch.where(dead, torch.zeros_like(beta_final), beta_final)
     return BlockLanczosResult(
         alphas=torch.stack(alphas),

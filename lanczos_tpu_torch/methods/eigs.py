@@ -20,8 +20,10 @@ from lanczos_tpu_torch.ops.tridiag import (
     assemble_block_tridiagonal,
     assemble_tridiagonal,
 )
+from lanczos_tpu_torch.utils import tracing
 
 
+@tracing.spanned("lt.eigsh.residuals")
 def ritz_residuals(a, vals: torch.Tensor, vecs: torch.Tensor) -> torch.Tensor:
     """MEASURED relative Ritz residuals ||A y_i - theta_i y_i|| /
     (|theta_i| ||y_i||), with one block product of the k pairs.  The
@@ -62,6 +64,7 @@ def _select(w: torch.Tensor, k: int, which: str) -> torch.Tensor:
     raise ValueError(f"unknown which={which!r}")
 
 
+@tracing.spanned("lt.eigsh.vector")
 def lanczos_eigsh(
     a,
     b: torch.Tensor,
@@ -82,18 +85,20 @@ def lanczos_eigsh(
     res = vector_lanczos(a, b, m, reorth=reorth, store_basis=compute_vectors,
                          breakdown_tol=breakdown_tol, trace_fn=trace_fn,
                          fused=fused)
-    t = assemble_tridiagonal(res.alphas, res.betas[1:])
-    w, s = torch.linalg.eigh(t)
-    idx = _select(w, k, which)
-    vals = w[idx]
-    # |beta_m s_{m,i}| with the TRUE beta_m = ||w_m|| (res.beta_final)
-    resid = torch.abs(res.beta_final * s[-1, idx])
-    vecs = None
-    if compute_vectors:
-        vecs = res.basis.reshape(m, -1).T @ s[:, idx]
+    with tracing.span("lt.eigsh.ritz"):
+        t = assemble_tridiagonal(res.alphas, res.betas[1:])
+        w, s = torch.linalg.eigh(t)
+        idx = _select(w, k, which)
+        vals = w[idx]
+        # |beta_m s_{m,i}| with the TRUE beta_m = ||w_m|| (res.beta_final)
+        resid = torch.abs(res.beta_final * s[-1, idx])
+        vecs = None
+        if compute_vectors:
+            vecs = res.basis.reshape(m, -1).T @ s[:, idx]
     return vals, vecs, resid
 
 
+@tracing.spanned("lt.eigsh.block")
 def block_lanczos_eigsh(
     a,
     b: torch.Tensor,
@@ -122,14 +127,15 @@ def block_lanczos_eigsh(
         replace_dead=replace_dead, fused=fused, compensated=compensated,
     )
     p = b.shape[0]
-    t = assemble_block_tridiagonal(res.alphas, res.betas[1:])
-    w, s = torch.linalg.eigh(t)
-    idx = _select(w, k, which)
-    vals = w[idx]
-    # ||beta_m S_{m-block, i}|| with the TRUE beta_m (res.beta_final)
-    resid = torch.linalg.norm(res.beta_final @ s[-p:, idx], dim=0)
-    vecs = None
-    if compute_vectors:
-        # basis (m, p, n) block-major; T's ordering is j*p + c
-        vecs = res.basis.reshape(m * p, -1).T @ s[:, idx]
+    with tracing.span("lt.eigsh.ritz"):
+        t = assemble_block_tridiagonal(res.alphas, res.betas[1:])
+        w, s = torch.linalg.eigh(t)
+        idx = _select(w, k, which)
+        vals = w[idx]
+        # ||beta_m S_{m-block, i}|| with the TRUE beta_m (res.beta_final)
+        resid = torch.linalg.norm(res.beta_final @ s[-p:, idx], dim=0)
+        vecs = None
+        if compute_vectors:
+            # basis (m, p, n) block-major; T's ordering is j*p + c
+            vecs = res.basis.reshape(m * p, -1).T @ s[:, idx]
     return vals, vecs, resid

@@ -26,8 +26,10 @@ from lanczos_tpu_torch.ops.tridiag import (
     assemble_block_tridiagonal,
     assemble_tridiagonal,
 )
+from lanczos_tpu_torch.utils import tracing
 
 
+@tracing.spanned("lt.expm.vector")
 def lanczos_expm_action(
     a,
     b: torch.Tensor,
@@ -47,11 +49,13 @@ def lanczos_expm_action(
     res = vector_lanczos(a, b, m, lc, reorth=reorth,
                          breakdown_tol=breakdown_tol, trace_fn=trace_fn,
                          fused=fused)
-    t = assemble_tridiagonal(res.alphas, res.betas[1:])
-    e = expm_sym(t_end * t, backend="lax")
-    return res.betas[0] * torch.sum(e[:, 0] * res.trace)
+    with tracing.span("lt.expm.project"):
+        t = assemble_tridiagonal(res.alphas, res.betas[1:])
+        e = expm_sym(t_end * t, backend="lax")
+        return res.betas[0] * torch.sum(e[:, 0] * res.trace)
 
 
+@tracing.spanned("lt.expm.block")
 def block_lanczos_expm_action(
     a,
     b: torch.Tensor,
@@ -79,7 +83,8 @@ def block_lanczos_expm_action(
                         replace_dead=replace_dead, fused=fused,
                         compensated=compensated)
     p = b.shape[0]
-    t = assemble_block_tridiagonal(res.alphas, res.betas[1:])
-    e = expm_sym(t_end * t, backend="lax")
-    f1 = e[:, :p] @ res.betas[0]  # expm(T) E_1 sqrtm(B^T B)
-    return res.trace.reshape(-1) @ f1
+    with tracing.span("lt.expm.project"):
+        t = assemble_block_tridiagonal(res.alphas, res.betas[1:])
+        e = expm_sym(t_end * t, backend="lax")
+        f1 = e[:, :p] @ res.betas[0]  # expm(T) E_1 sqrtm(B^T B)
+        return res.trace.reshape(-1) @ f1

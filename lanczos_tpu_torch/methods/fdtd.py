@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from lanczos_tpu_torch.utils import graphs
+from lanczos_tpu_torch.utils import graphs, tracing
 
 # K5 steps a replayed graph holds (even: the ping-pong ends on the buffer
 # it started from).  `probes --fdtd-graph` on an H100: at N=3 f64 p=1 every
@@ -36,6 +36,7 @@ from lanczos_tpu_torch.utils import graphs
 GRAPH_CHUNK = 64
 
 
+@tracing.spanned("lt.fdtd")
 def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
                 block: bool, bufs=None, graph: bool = True) -> torch.Tensor:
     """nsteps forward-Euler steps u <- u + dt A u from u, which it never
@@ -49,6 +50,7 @@ def euler_steps(a, u: torch.Tensor, nsteps: int, dt: torch.Tensor, *,
     graph=False.  An operator with `scaled` and no such step steps
     u + (dt A) u, and other operators u + dt * (A u), into new tensors.
     Returns u itself when nsteps is 0."""
+    tracing.count("fdtd.steps", nsteps)
     p = u.shape[0] if block else 1
     if hasattr(a, "fdtd_step") and a.supports_fdtd_inplace(p, u.dtype):
         # dt folded into the weights (JAX `_maybe_fold_dt`), one pass a step

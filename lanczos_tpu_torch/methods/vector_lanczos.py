@@ -33,6 +33,7 @@ import torch
 from lanczos_tpu_torch.methods.block_lanczos import FUSED_GATE_BYTES, _local
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.operator import state_trace
+from lanczos_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -56,6 +57,7 @@ def _norm(x):
     return torch.sqrt(torch.sum(x * x))
 
 
+@tracing.spanned("lt.lanczos.reorth")
 def _cgs2(wv, basis, valid, total=_local):
     """w -= Q (Q^T w) twice, over the basis rows where valid is 1; `total`
     sums the coefficients over the ranks of a distributed state."""
@@ -135,11 +137,12 @@ def vector_lanczos(
         def norm(x):
             return torch.sqrt(total(torch.sum(x * x)))
 
-    beta0 = norm(b)
-    q0 = b / beta0
-    w = a.mv(q0)
-    alpha0 = total(torch.sum(w * q0))
-    w = w - alpha0 * q0
+    with tracing.span("lt.lanczos.prologue"):
+        beta0 = norm(b)
+        q0 = b / beta0
+        w = a.mv(q0)
+        alpha0 = total(torch.sum(w * q0))
+        w = w - alpha0 * q0
 
     karr = torch.arange(m, device=dev)
     basis = None
@@ -160,54 +163,56 @@ def vector_lanczos(
     alphas, betas, traces = [alpha0], [beta0], [trace_at(q0)]
     q_prev, wv = q0, w
     for j in range(1, m):
-        if reorth == "selective":
-            # omega_{j,k} ~ q_j . q_k by the three-term recurrence (Simon
-            # '84), with beta_0 := 0 (no q_{-1}) and a rounding-noise floor
-            # so that the estimate can seed and grow
-            beta_tent = torch.clamp(norm(wv), min=tiny)
-            bh = beta_hist.clone()
-            bh[0] = 0.0
-            b_kp1 = torch.roll(bh, -1)
-            tilde = ((alph_hist - alph_hist[j - 1]) * om
-                     + b_kp1 * torch.roll(om, -1)
-                     + bh * torch.roll(om, 1)
-                     - bh[j - 1] * om_prev)
-            om_new = tilde / beta_tent + eps * (b_kp1 + beta_tent) / beta_tent
-            seed = eps * n * bh[1] / beta_tent
-            om_new = torch.where(karr == j - 1, seed, om_new)
-            om_new = torch.where(karr == j, 1.0, om_new)
-            om_new = torch.where(karr > j, 0.0, om_new)
-            older = karr <= j - 2
-            # the host decides (one sync per step): JAX's lax.cond
-            trigger = force or decide(
-                torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps
-            )
-            if trigger:
-                wv = _cgs2(wv, basis, (karr <= j - 1).to(dtype), total)
-                om_new = torch.where(karr <= j - 1, eps, om_new)
-            # reorthogonalize the following step too (standard pairing)
-            force = trigger and not force
-            om_prev, om = om, om_new
+        with tracing.span("lt.lanczos.step"):
+            tracing.count("lanczos.steps")
+            if reorth == "selective":
+                # omega_{j,k} ~ q_j . q_k by the three-term recurrence (Simon
+                # '84), with beta_0 := 0 (no q_{-1}) and a rounding-noise floor
+                # so that the estimate can seed and grow
+                beta_tent = torch.clamp(norm(wv), min=tiny)
+                bh = beta_hist.clone()
+                bh[0] = 0.0
+                b_kp1 = torch.roll(bh, -1)
+                tilde = ((alph_hist - alph_hist[j - 1]) * om
+                         + b_kp1 * torch.roll(om, -1)
+                         + bh * torch.roll(om, 1)
+                         - bh[j - 1] * om_prev)
+                om_new = tilde / beta_tent + eps * (b_kp1 + beta_tent) / beta_tent
+                seed = eps * n * bh[1] / beta_tent
+                om_new = torch.where(karr == j - 1, seed, om_new)
+                om_new = torch.where(karr == j, 1.0, om_new)
+                om_new = torch.where(karr > j, 0.0, om_new)
+                older = karr <= j - 2
+                # the host decides (one sync per step): JAX's lax.cond
+                trigger = force or decide(
+                    torch.abs(torch.where(older, om_new, 0.0)).max() > sqrt_eps
+                )
+                if trigger:
+                    wv = _cgs2(wv, basis, (karr <= j - 1).to(dtype), total)
+                    om_new = torch.where(karr <= j - 1, eps, om_new)
+                # reorthogonalize the following step too (standard pairing)
+                force = trigger and not force
+                om_prev, om = om, om_new
 
-        beta = norm(wv)
-        dead = dead | (beta <= breakdown_tol * beta0)
-        beta_safe = torch.where(dead, 1.0, beta)
-        q = torch.where(dead, torch.zeros_like(wv), wv / beta_safe)
-        beta_out = torch.where(dead, 0.0, beta)
+            beta = norm(wv)
+            dead = dead | (beta <= breakdown_tol * beta0)
+            beta_safe = torch.where(dead, 1.0, beta)
+            q = torch.where(dead, torch.zeros_like(wv), wv / beta_safe)
+            beta_out = torch.where(dead, 0.0, beta)
 
-        wn = a.mv(q) - beta_out * q_prev
-        alpha = total(torch.sum(wn * q))
-        wn = wn - alpha * q
-        if need_basis:
-            basis[j] = q
-        if reorth == "full":
-            wn = _cgs2(wn, basis, (karr <= j).to(dtype), total)
+            wn = a.mv(q) - beta_out * q_prev
+            alpha = total(torch.sum(wn * q))
+            wn = wn - alpha * q
+            if need_basis:
+                basis[j] = q
+            if reorth == "full":
+                wn = _cgs2(wn, basis, (karr <= j).to(dtype), total)
 
-        alph_hist[j], beta_hist[j] = alpha, beta_out
-        alphas.append(alpha)
-        betas.append(beta_out)
-        traces.append(trace_at(q))
-        q_prev, wv = q, wn
+            alph_hist[j], beta_hist[j] = alpha, beta_out
+            alphas.append(alpha)
+            betas.append(beta_out)
+            traces.append(trace_at(q))
+            q_prev, wv = q, wn
 
     return VectorLanczosResult(
         alphas=torch.stack(alphas),

@@ -35,6 +35,7 @@ from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     apply_stencil_pair,
 )
 from lanczos_tpu_torch.ops.operator import LinearOperator, target_device
+from lanczos_tpu_torch.utils import tracing
 
 Z_OFF = 8  # z-storage row of the first interior plane
 TZ = 16  # Zc is a multiple of TZ, the JAX default, so the layouts match
@@ -184,6 +185,7 @@ class PallasMaxwellOperator(LinearOperator):
     def mv(self, u: torch.Tensor) -> torch.Tensor:
         return self.mm(u[None])[0]
 
+    @tracing.spanned("lt.op.apply")
     def mm(self, U: torch.Tensor) -> torch.Tensor:
         """Block-major (p, 6, Zc, P) -> A U (K1)."""
         return apply_stencil_pair(U, self.wz_t, self.wplane_s, self.spec_e,
@@ -210,6 +212,7 @@ class PallasMaxwellOperator(LinearOperator):
                                      self.spec_e, self.spec_h)
         return out[0] if single else out
 
+    @tracing.spanned("lt.op.apply")
     def stencil_gram(self, q: torch.Tensor, dst: torch.Tensor):
         """(v, g3) = (A q, [gram(q,v); gram(v,v); gram(dst,q)]) in one pass
         (K4), with v written into dst's buffer.  dst's old contents are

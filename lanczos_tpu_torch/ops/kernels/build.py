@@ -10,7 +10,8 @@ CPU-only installs import every module and never build.
 
 Every launch goes through `launch`: it enters the tensor's device, calls
 the C entry point, adds to `LAUNCHES` (kernel launches by wrapper name,
-and apart from them, under "<name> bf16", those on bf16 states) and
+and apart from them, under "<name> bf16", those on bf16 states) and to
+the host-launch counter (`utils/tracing.py`'s "launches.host"), and
 raises on the entry point's error.  So a launch runs on the card that
 holds its tensors, as JAX places work by the array's device, and a run
 can show that its main path went through the kernels.
@@ -27,6 +28,8 @@ import tempfile
 from pathlib import Path
 
 import torch
+
+from lanczos_tpu_torch.utils import tracing
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 SOURCE = PACKAGE_DIR / "csrc" / "lanczos_kernels.cu"
@@ -174,11 +177,12 @@ def launch(name: str, t: torch.Tensor, entry: str, *args, count: int = 1) -> Non
     """Calls the C entry point `entry` with `args` on t's device (its
     launches go to that card's stream, which the caller passes in args),
     adds `count` kernel launches to LAUNCHES[name], or to LAUNCHES[name +
-    " bf16"] when t is a bf16 state, and raises on the entry point's
-    error."""
+    " bf16"] when t is a bf16 state, and to "launches.host", and raises on
+    the entry point's error."""
     with torch.cuda.device(t.device):
         err = getattr(library(), entry)(*args)
     LAUNCHES[name + " bf16" if t.dtype == torch.bfloat16 else name] += count
+    tracing.count("launches.host", count)
     check(err, name)
 
 

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm, sqrt_from_eigh
+from lanczos_tpu_torch.utils import tracing
 
 
 def _round_robin_pairs(p: int) -> np.ndarray:
@@ -157,6 +158,7 @@ def newton_sqrtm_invsqrtm(a: torch.Tensor, iters: int = 18):
     return (y * rc).reshape(out_shape), (z / rc).reshape(out_shape)
 
 
+@tracing.spanned("lt.smalleig.sqrtm")
 def sqrtm_invsqrtm(
     a: torch.Tensor,
     backend: str = "jacobi",

@@ -17,6 +17,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from lanczos_tpu_torch.utils import tracing
+
 
 def _fix_signs(q, r):
     d = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
@@ -29,6 +31,12 @@ def tsqr(a: torch.Tensor, n_chunks: int = 8):
 
     Returns (q, r): q (n, p) with orthonormal columns, r (p, p) upper
     triangular with non-negative diagonal, a = q @ r."""
+    tracing.count("tsqr.calls")
+    with tracing.span("lt.tsqr"):
+        return _tree(a, n_chunks)
+
+
+def _tree(a, n_chunks=8):
     n, p = a.shape
     c = max(1, min(n_chunks, n // max(p, 1)))
     rows = -(-n // c) * c
@@ -49,10 +57,12 @@ def tsqr_sharded(x: torch.Tensor, mesh):
     rows, r (p, p) the same upper triangle on every rank with a
     non-negative diagonal, x.T = q.T @ r over the global state.  Zero
     columns of x (the slabs' pads) stay zero in q up to rounding."""
-    p = x.shape[0]
-    ql, rl = tsqr(x.T)
-    q2, r = torch.linalg.qr(mesh.all_gather(rl).reshape(mesh.size * p, p),
-                            mode="reduced")
-    q = ql @ q2.reshape(mesh.size, p, p)[mesh.rank]
-    q, r = _fix_signs(q, r)
-    return q.T, r
+    tracing.count("tsqr.calls")
+    with tracing.span("lt.tsqr"):
+        p = x.shape[0]
+        ql, rl = _tree(x.T)
+        q2, r = torch.linalg.qr(mesh.all_gather(rl).reshape(mesh.size * p, p),
+                                mode="reduced")
+        q = ql @ q2.reshape(mesh.size, p, p)[mesh.rank]
+        q, r = _fix_signs(q, r)
+        return q.T, r

@@ -40,6 +40,7 @@ import torch
 from lanczos_tpu_torch.ops.formats import np_dtype, to_buffer
 from lanczos_tpu_torch.ops.kernels.window_ell import plane_columns, windowed_spmm
 from lanczos_tpu_torch.ops.operator import LinearOperator, target_device
+from lanczos_tpu_torch.utils import tracing
 
 LANES = 128
 WINDOW = 2 * LANES  # a plane's x window: two aligned 128-blocks
@@ -603,5 +604,6 @@ class PaddedWindowedOperator(LinearOperator):
     def mv(self, x: torch.Tensor) -> torch.Tensor:
         return self.base.padded_mm(x[None, :])[0]
 
+    @tracing.spanned("lt.op.apply")
     def mm(self, X: torch.Tensor) -> torch.Tensor:
         return self.base.padded_mm(X)

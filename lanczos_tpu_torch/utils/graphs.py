@@ -16,7 +16,10 @@ and never reads a device value on the host (the kernels' wrappers take
 PyTorch's current stream, which is the capture stream while recording).
 A `Replay` holds the tensors the graph reads and writes (`keep`) for its
 life.  `build.LAUNCHES` counts what ran: recording adds nothing, and each
-replay adds the recorded counts.  Any error in recording or replay raises.
+replay adds the recorded counts.  The port's counters (`utils/tracing.py`)
+count what the host did: recording adds one capture and nothing else, and
+each replay adds one replay and one host launch.  Any error in recording
+or replay raises.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from lanczos_tpu_torch.ops.kernels import build
+from lanczos_tpu_torch.utils import tracing
 
 
 def split_steps(nsteps: int, chunk: int) -> tuple[int, int, int]:
@@ -43,10 +47,12 @@ def split_steps(nsteps: int, chunk: int) -> tuple[int, int, int]:
 
 def counted(record) -> dict[str, int]:
     """Runs `record()` and returns the launches it added to
-    `build.LAUNCHES`, which it leaves as it found them."""
+    `build.LAUNCHES`, which it leaves as it found them, as it leaves the
+    port's counters."""
     before = dict(build.LAUNCHES)
     try:
-        record()
+        with tracing.uncounted():
+            record()
         return {k: c - before[k] for k, c in build.LAUNCHES.items() if c != before[k]}
     finally:
         build.LAUNCHES.update(before)
@@ -60,25 +66,30 @@ class Replay:
         self.graph, self.counts, self.keep = graph, counts, keep
 
     def replay(self, times: int = 1) -> None:
-        for _ in range(times):
-            self.graph.replay()
-            for name, c in self.counts.items():
-                build.LAUNCHES[name] += c
+        with tracing.span("lt.graph.replay"):
+            for _ in range(times):
+                self.graph.replay()
+                for name, c in self.counts.items():
+                    build.LAUNCHES[name] += c
+                tracing.count("graphs.replays")
+                tracing.count("launches.host")
 
 
 def capture(record, device: torch.device, keep=()) -> Replay:
     """The launches of one `record()` on `device` as a CUDA graph.  The
     capture runs on a side stream that first waits for the current one,
     and records nothing else from other threads (thread-local mode)."""
-    graph = torch.cuda.CUDAGraph()
-    current = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(current)
-    with torch.cuda.device(device), torch.cuda.stream(side):
-        graph.capture_begin(capture_error_mode="thread_local")
-        try:
-            counts = counted(record)
-        finally:
-            graph.capture_end()
-    current.wait_stream(side)
+    with tracing.span("lt.graph.capture"):
+        graph = torch.cuda.CUDAGraph()
+        current = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(current)
+        with torch.cuda.device(device), torch.cuda.stream(side):
+            graph.capture_begin(capture_error_mode="thread_local")
+            try:
+                counts = counted(record)
+            finally:
+                graph.capture_end()
+        current.wait_stream(side)
+    tracing.count("graphs.captures")
     return Replay(graph, counts, keep)
