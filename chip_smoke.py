@@ -8,7 +8,7 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 
 1. environment: torch / CUDA / nvcc / triton versions, the card's name and
    power limit;
-2. build: the hand-written CUDA kernels (K1-K8 and S1) from
+2. build: the hand-written CUDA kernels (K1-K8, S1 and T1) from
    lanczos_tpu_torch/csrc, with nvcc's register/spill report, and beside
    them (g++, in a second thread) the C++ host engine
    (lanczos_tpu_torch/native), each with its seconds;
@@ -46,6 +46,12 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    ~115M nnz), p=8 and p=1, timed against its plain version, a device
    copy of the same state and cuSPARSE (`torch.sparse.mm` on a CSR tensor,
    reported only); at p=8 also against scipy's f64 product on the host;
+4b. tsqr: T1, the Householder TSQR, on a float32 (8, n128) block-major
+   state (the assembled slice's) against its plain version on the same
+   tree (TSQR_RTOL), its R alone the same R, its launches the plan's;
+   timed beside the plain version and the batched torch.linalg.qr tree
+   it replaced.  Then the plain version where it runs on the card (p=32
+   float32, p=8 bfloat16, 1,048,576 rows), timed, with no T1 launch;
 5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
    through K1-K5 and S1 (the stencil_gram count equals m - 2: the fused
@@ -80,8 +86,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
 8. the assembled slice: `block_lanczos_eigsh` (p=8, m=12, k=5, reorth
    full, TSQR, breakdown_eps 1e-4, replace_dead) on the padded windowed
    operator of the 10.5M-row matrix, then `ritz_residuals`: K8 exactly 12
-   times in the recurrence and once more for the residuals, all five
-   measured residuals under 1e-3; then `lanczos_eigsh` on the same
+   times in the recurrence and once more for the residuals, T1 as
+   `t1_launches` counts (5 launches a TSQR, 3 for beta_m's R) and no
+   other kernel, all five measured residuals under 1e-3; then `lanczos_eigsh` on the same
    operator (p=1, m=96, k=5, reorth full): K8 at p=1 in every one of its
    96 products and once more for the residuals' k=5 block, all five
    measured residuals under 1e-3; the block eigsh at
@@ -101,9 +108,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    shards of 256 rows (halo 288, 2 hops) against scipy; then world size
    1 through `launch.run` on NCCL: the assembled slice's
    `block_lanczos_eigsh` on `HaloShardedWindowed` with its start block,
-   K8 exactly 12 times in the recurrence and 13 in all and no other
-   kernel (counts read from 0 in the rank, and added to the kernels
-   line), Ritz values within EIGSH_RTOL of phase 8's, measured residuals
+   K8 exactly 12 times in the recurrence and 13 in all, T1 (the TSQR)
+   as `t1_launches` counts and no other kernel (counts read from 0 in
+   the rank, and added to the kernels line), Ritz values within EIGSH_RTOL of phase 8's, measured residuals
    under 1e-3; a `block_lanczos_checkpointed` run stopped after its first
    chunk and resumed, against `block_lanczos(fused=False)`;
    `operator_from_file(mesh=, format="windowed"/"auto")` and
@@ -120,9 +127,9 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    zero; then world size 1 through `launch.run` on NCCL: the assembled
    slice's `block_lanczos_eigsh` on `HaloShardedEll` with its start
    block, Ritz values within EIGSH_RTOL of phase 8's K8 run, measured
-   residuals under 1e-3, no kernel of the repo launched (the local
-   product is plain torch, as it is XLA in the JAX package; counts read
-   from 0 in the rank), one `GatherShardedEll` product against the halo
+   residuals under 1e-3, no kernel of the repo launched but T1 (the
+   TSQR, as `t1_launches` counts; the local product is plain torch, as it
+   is XLA in the JAX package; counts read from 0 in the rank), one `GatherShardedEll` product against the halo
    product, and a `block_lanczos_checkpointed` run stopped after its
    first chunk and resumed, against `block_lanczos(fused=False)`; the
    eigsh's wall seconds and peak device memory;
@@ -264,6 +271,8 @@ REPLACES = {
     "apply_stencil": "lanczos_tpu/ops/pallas/stencil_kernel.py:276",
     # no Pallas kernel: the jitted jacobi_eigh + sqrtm_invsqrtm (:201)
     "jacobi_sqrtm": "lanczos_tpu/ops/smalleig.py:44",
+    # no Pallas kernel: a vmapped jnp.linalg.qr over 8 chunks
+    "tsqr": "lanczos_tpu/ops/tsqr.py:35",
 }
 # the kernels with a row of their own at p=1: K1, K2 and K3 run at p=1 in
 # every step of the vector slice and K5 in every step of its FDTD, K8 in
@@ -906,6 +915,97 @@ def phase_sqrtm(torch, build, results, failures):
                 "jacobi_sqrtm", err, ms, plain_ms,
                 3 * p * p * a.element_size(), s1_ops(p, S1_SWEEPS), "float32",
                 library_ms, key)
+
+
+# T1 against its plain version (tests/test_torch_tsqr_kernel.py's f32
+# tolerance: the same reflections, summed in another order), and the rows
+# of the shapes T1 leaves to the plain version on the card
+TSQR_RTOL = 1e-4
+TSQR_PLAIN_ROWS, TSQR_PLAIN_CASES = 1_048_576, ((32, "float32"), (8, "bfloat16"))
+
+
+def t1_ops(n, p):
+    """T1's operations on an (n, p) block, counted from its loops: the QR
+    pass's sums and updates (2 p^2 a row), the apply pass's sums over all
+    columns, updates and product (5 p^2); the levels above the leaves add
+    under 1%."""
+    return 7 * p * p * n
+
+
+def phase_tsqr(torch, build, results, failures, assembled):
+    """T1 (householder_tsqr) on a (P_ASSEMBLED, A.n128) float32 block-major
+    state, the assembled eigsh's, against tile_tree_plain on the same plan,
+    and its R alone; timed beside the plain version and the batched
+    torch.linalg.qr tree it replaced (probes.library_tsqr).  Then the
+    plain version where it runs on the card (p past MAX_P, bfloat16),
+    timed beside that tree where it takes the type."""
+    from lanczos_tpu_torch.ops.kernels.tsqr import householder_tsqr, tile_tree_plain, tsqr_plan
+    from lanczos_tpu_torch.probes import library_tsqr, qr_errors
+    from lanczos_tpu_torch.utils import tracing
+
+    n, p = assembled["A"].n128, P_ASSEMBLED
+    g = torch.Generator(device="cuda").manual_seed(19)
+    x = torch.randn((p, n), generator=g, device="cuda", dtype=torch.float32)
+    plan = tsqr_plan(n, p, x.element_size())
+    build.reset_launches()
+    q, r = householder_tsqr(x)
+    r_only = householder_tsqr(x, want_q=False)[1]
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["tsqr"]
+    qp, rp = tile_tree_plain(x, plan)
+    (eq, rel_q, ok_q), (er, rel_r, ok_r) = (compare(torch, q, qp, TSQR_RTOL),
+                                            compare(torch, r, rp, TSQR_RTOL))
+    recon, orth = qr_errors(x, q, r)
+    shape_ok = (q.shape == (p, n) and q.is_contiguous() and torch.equal(r, r_only)
+                and torch.equal(r, torch.triu(r)) and bool((torch.diagonal(r) >= 0).all()))
+    del qp, rp
+    ms = cuda_ms(torch, lambda: householder_tsqr(x))
+    r_ms = cuda_ms(torch, lambda: householder_tsqr(x, want_q=False))
+    plain_ms = cuda_ms(torch, lambda: tile_tree_plain(x, plan), iters=3, warmup=1)
+    library_ms = cuda_ms(torch, lambda: library_tsqr(x), iters=3, warmup=1)
+    nbytes = 3 * p * n * x.element_size()
+    log(f"  T1 householder_tsqr p={p} n={n} float32 (tile {plan.tile}, levels "
+        f"{plan.levels}, {launches} launches for q and R alone, plan "
+        f"{plan.launches() + plan.launches(False)}): vs plain q {eq:.3e} (rel "
+        f"{rel_q:.3e}) r {er:.3e} (rel {rel_r:.3e}), tol {TSQR_RTOL:g}; recon "
+        f"{recon:.3e} orth {orth:.3e}; {'ok' if ok_q and ok_r and shape_ok else 'FAIL'}; "
+        f"kernel {ms:.4f} ms, R alone {r_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        f"library tree {library_ms:.4f} ms")
+    if not (ok_q and ok_r and shape_ok):
+        failures.append(f"T1 disagrees with its plain version (q {rel_q:.3e}, r "
+                        f"{rel_r:.3e}) or breaks its contract (block-major q, R "
+                        f"alone the same R, triu, diag >= 0: {shape_ok})")
+    if launches != plan.launches() + plan.launches(False):
+        failures.append(f"T1 launched {launches} times, its plan "
+                        f"{plan.launches() + plan.launches(False)}")
+    results.setdefault("rows", {})["tsqr"] = kernel_row(
+        "tsqr", max(eq, er), ms, plain_ms, nbytes, t1_ops(n, p), "float32", library_ms)
+    del x, q, r, r_only
+    torch.cuda.empty_cache()
+
+    for p, dname in TSQR_PLAIN_CASES:
+        x = torch.randn((p, TSQR_PLAIN_ROWS), generator=g, device="cuda",
+                        dtype=torch.float32).to(getattr(torch, dname))
+        build.reset_launches()
+        tracing.reset()
+        q, r = householder_tsqr(x)
+        torch.cuda.synchronize()
+        counts = (build.LAUNCHES["tsqr"], tracing.counters().get("tsqr.kernel", 0))
+        recon, orth = qr_errors(x, q, r)
+        plain_ms = cuda_ms(torch, lambda: householder_tsqr(x), iters=3, warmup=1)
+        try:
+            library_ms = f"{cuda_ms(torch, lambda: library_tsqr(x), iters=3, warmup=1):.4f} ms"
+        except RuntimeError as e:
+            library_ms = f"none ({str(e).splitlines()[0][:80]})"
+        log(f"  plain route on the card, p={p} {dname} n={TSQR_PLAIN_ROWS}: "
+            f"{plain_ms:.4f} ms ({p * TSQR_PLAIN_ROWS * x.element_size() / 1e6:.1f} "
+            f"MB block), library tree {library_ms}; recon {recon:.3e} orth "
+            f"{orth:.3e}; T1 launches and tsqr.kernel {counts}")
+        if counts != (0, 0) or not (math.isfinite(recon) and math.isfinite(orth)):
+            failures.append(f"plain TSQR route p={p} {dname}: launched T1 or "
+                            f"counted it {counts}, or not finite ({recon}, {orth})")
+        del x, q, r
+    torch.cuda.empty_cache()
 
 
 def record_launches(build, results, label):
@@ -1651,6 +1751,16 @@ def assembled_eigsh(torch, A, seed=0, compute_vectors=True):
     return op, vals, vecs, bounds
 
 
+def t1_launches(n_state, sharded=False):
+    """T1's launches in the assembled eigsh on a (P_ASSEMBLED, n_state)
+    state: 24 TSQRs, the last (beta_m's) R alone; on a mesh each also QRs
+    the gathered stack of R factors (one launch at world size 1)."""
+    from lanczos_tpu_torch.ops.kernels.tsqr import tsqr_plan
+
+    plan = tsqr_plan(n_state, P_ASSEMBLED, 4)
+    return 23 * plan.launches() + plan.launches(False) + (24 if sharded else 0)
+
+
 def phase_assembled_slice(torch, build, results, failures, assembled):
     import numpy as np
 
@@ -1685,7 +1795,10 @@ def phase_assembled_slice(torch, build, results, failures, assembled):
         failures.append(f"assembled slice: K8 launched {in_recurrence} times in "
                         f"the recurrence and {launches['windowed_spmm']} in all, "
                         f"expected {M_ASSEMBLED} and {M_ASSEMBLED + 1}")
-    if any(c for k, c in launches.items() if k != "windowed_spmm"):
+    if launches["tsqr"] != t1_launches(A.n128):
+        failures.append(f"assembled slice: T1 launched {launches['tsqr']} times, "
+                        f"expected {t1_launches(A.n128)}")
+    if any(c for k, c in launches.items() if k not in ("windowed_spmm", "tsqr")):
         failures.append(f"assembled slice: another kernel launched: {launches}")
     if not (np.all(np.isfinite(vals_h)) and np.all(resid_h < RESID_BOUND)):
         failures.append(f"assembled slice: Ritz values {vals_h} / residuals "
@@ -2402,6 +2515,7 @@ def windowed_rank(mesh, ritz, tmp):
     resid = ritz_residuals(op, vals, vecs)
     torch.cuda.synchronize()
     out["launches"] = dict(build.LAUNCHES)
+    out["n_state"] = b[0].numel()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ritz = torch.tensor(ritz, dtype=torch.float64)
     out.update(vals=vals, resid=resid, bounds=bounds,
@@ -2604,11 +2718,14 @@ def phase_multidevice_windowed(torch, build, results, failures, assembled):
     log(f"  io with a mesh (windowed, auto, auto_operator): {r['io']}; dry run "
         f"{r['dryrun_s']:.2f} s, top Ritz halo ELL / windowed {r['dryrun_top']}")
     log("  nvidia-smi:", nvidia_smi_line())
-    others = {k: c for k, c in r["launches"].items() if c and k != "windowed_spmm"}
-    if r["in_recurrence"] != M_ASSEMBLED or r["launches"]["windowed_spmm"] != M_ASSEMBLED + 1 or others:
+    others = {k: c for k, c in r["launches"].items()
+              if c and k not in ("windowed_spmm", "tsqr")}
+    t1 = t1_launches(r["n_state"], sharded=True)
+    if (r["in_recurrence"] != M_ASSEMBLED or r["launches"]["windowed_spmm"] != M_ASSEMBLED + 1
+            or r["launches"]["tsqr"] != t1 or others):
         failures.append(f"multidevice windowed: launches {r['launches']} "
                         f"({r['in_recurrence']} in the recurrence), expected K8 "
-                        f"{M_ASSEMBLED} and {M_ASSEMBLED + 1} and nothing else")
+                        f"{M_ASSEMBLED} and {M_ASSEMBLED + 1}, T1 {t1} and nothing else")
     if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
             and np.all(resid < RESID_BOUND)):
         failures.append(f"multidevice windowed: Ritz {vals} (rel {r['ritz_rel']}), "
@@ -2697,6 +2814,7 @@ def ell_rank(mesh, ritz, path):
     resid = ritz_residuals(op, vals, vecs)
     torch.cuda.synchronize()
     out["launches"] = dict(build.LAUNCHES)
+    out["n_state"] = b[0].numel()
     out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     ritz = torch.tensor(ritz, dtype=torch.float64)
     out.update(vals=vals, resid=resid, bounds=bounds,
@@ -2855,8 +2973,10 @@ def phase_multidevice_ell(torch, build, results, failures, assembled):
         f"at j={r['stopped_at']} and resumed vs fused=False: bit-equal {same}, rel "
         f"{ {k: v[0][1] for k, v in r['resumed'].items()} }")
     log("  nvidia-smi:", nvidia_smi_line())
-    if any(r["launches"].values()):
-        failures.append(f"multidevice ell: a repo kernel launched: {r['launches']}")
+    t1 = t1_launches(r["n_state"], sharded=True)
+    if any(c for k, c in r["launches"].items() if k != "tsqr") or r["launches"]["tsqr"] != t1:
+        failures.append(f"multidevice ell: launches {r['launches']}, expected T1 "
+                        f"{t1} and no other repo kernel")
     if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
             and np.all(resid < RESID_BOUND)):
         failures.append(f"multidevice ell: Ritz {vals} (rel {r['ritz_rel']}), "
@@ -2927,6 +3047,7 @@ def main() -> int:
         ("native", lambda: phase_native(torch, failures, assembled)),
         ("windowed kernel",
          lambda: phase_windowed_kernel(torch, results, failures, assembled)),
+        ("tsqr", lambda: phase_tsqr(torch, build, results, failures, assembled)),
         ("block slice",
          lambda: phase_block_slice(torch, build, results, failures)),
         ("fdtd graph",

@@ -18,7 +18,9 @@
 // their f32 weights (lanczos_tpu/ops/pallas/stencil_kernel.py:193-197).
 // S1, the p x p Jacobi sqrtm of the block recurrence (no Pallas kernel in
 // the JAX package: its jitted `jacobi_eigh`), takes all three; on bf16 it
-// rounds every op to bf16, as torch's bf16 ops do (see its section).
+// rounds every op to bf16, as torch's bf16 ops do (see its section).  T1,
+// the Householder TSQR of a block (no Pallas kernel either: JAX's vmapped
+// `jnp.linalg.qr`), takes float32 and float64 (see its section).
 //
 // K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
 // (Zc, P) fields), and do a handful of flops per element, so device memory
@@ -1957,6 +1959,443 @@ __global__ void __launch_bounds__(kSqrtmMaxThreads)
 }
 
 // ---------------------------------------------------------------------------
+// T1: the tall-skinny QR of a block-major (p, n) block by a tree of
+// Householder QRs of row tiles (ops/kernels/tsqr.py; the tree is its
+// docstring's).
+//
+// Replaces no Pallas kernel: the JAX package's tsqr is a vmapped
+// jnp.linalg.qr of 8 chunks (lanczos_tpu/ops/tsqr.py), which batched
+// torch.linalg.qr ran on the card as cuSOLVER's unblocked panel QR over 8
+// panels of 1.3M rows, a few SMs walking them serially (90 ms a call at
+// n = 10,485,760, p = 8).
+//
+// What bounds it: device memory.  A call reads the block twice (for R,
+// then for Q) and writes q once, 3 * 335.5 MB at n = 10,485,760, p = 8
+// f32 (0.300 ms at 3.35 TB/s); its ~4 p^2 flops a row are far below the
+// card's rate.  What the design does about it:
+// * one block of kTsqrThreads threads takes a tile of up to `tile`
+//   consecutive rows of all p columns and holds it in registers (rows tid,
+//   tid + 256, ...), read straight from the block-major state, so each
+//   column's run is one coalesced sweep: no pad and no transpose;
+// * the p reflections of the tile work on those registers (the steps
+//   unrolled at compile time, so the tile never leaves them).  Each needs
+//   one block-wide sum of W values (for every column j, the sum over the
+//   rows below the pivot k of a[r][k] a[r][j]): a halving exchange in each
+//   warp (W - 1 + 5 - log2 W shuffles, not 5 W), the warps' sums in
+//   shared memory (two buffers, so one barrier a reflection), then each
+//   warp adds them with its lanes and broadcasts them.  The columns j < k
+//   give v_j^T v_k, which the compact WY form needs;
+// * the QR pass (APPLY false) writes only the tile's p x p R to the stack
+//   of the level above (2.6 MB at n = 10.5M in tiles of 1,024 rows).  The
+//   same kernel QRs the stacks, level by level, down to one tile; the root
+//   writes R with its signs fixed by D = sign(diag R) and takes D as its
+//   factor;
+// * each level's apply pass (APPLY true) repeats its tiles' reflections
+//   (the same code on the same input, so the same bits) and writes
+//   Q_t F_t, F_t the tile's p x p factor from the level above, by the
+//   compact WY form: T from the reflections' tau and v_i^T v_k (dlarft),
+//   M = T V_top^T F_t (p x p, V_top the tile's first p rows), then each
+//   row y = [F_t; 0] - v M from registers.  The stacks' passes write in
+//   place; the leaves' writes q block-major.
+//
+// Arithmetic: LAPACK's reflections (dlarfg: beta = -sign(x) ||x||, v[k] =
+// 1, tau = (beta - x) / beta, no reflection where the column below the
+// pivot is zero) in the block's type with sums in it, as the plain version
+// (tile_tree_plain) computes them.  A tile whose sums may under- or
+// overflow is factored again with its columns scaled by powers of two, by
+// a function the kernel calls and does not inline (W <= 8): the test costs
+// nothing beside the unscaled reflection, but scaling code inside the
+// unrolled reflections took 7-14% (f32 and f64 at p = 8) and an inlined
+// retry up to 45%.  The sums run in another order (per thread, then a fixed tree over
+// the lanes and warps), so the two differ by rounding; every thread of a
+// block gets the same bits of each sum, and a run repeats its bits.
+
+constexpr int kTsqrThreads = 256;  // ops/kernels/tsqr.py THREADS
+constexpr int kTsqrWarps = kTsqrThreads / 32;
+constexpr int kTsqrRegisters = 32;  // ops/kernels/tsqr.py REGISTERS
+constexpr int kTsqrMaxLevels = 64;
+// blocks an SM of an apply pass at W <= 8: at f32 p = 8 its 88 registers
+// a thread held two, 0.487 ms a leaf pass; held to 80 registers for three,
+// 0.388-0.409.  W = 16 spills under it (644 bytes a thread in f64); the
+// QR pass's bound is tsqr_min_blocks'
+constexpr int kTsqrApplyBlocks = 3;
+
+// rows a thread holds at width W: kTsqrRegisters 32-bit registers of
+// tile values (ops/kernels/tsqr.py tile_rows)
+template <typename T, int W>
+__host__ __device__ constexpr int tsqr_slots() {
+  return kTsqrRegisters / (W * (int)(sizeof(T) / 4));
+}
+
+// The least x^2 plus sum of squares below the pivot that a tile's
+// reflections take unscaled: the smallest normal number over eps^2 (2^-80
+// in float32), so that terms lost below the normal range cost under eps
+// of it (ops/kernels/tsqr.py _tiny)
+template <typename T>
+__host__ __device__ constexpr T tsqr_tiny() {
+  if constexpr (sizeof(T) == 4) return 0x1p-80f;
+  else return 0x1p-918;
+}
+
+// f(std::integral_constant<int, K>()) for K = 0 .. N - 1 in order: a loop
+// whose body indexes register arrays by K at compile time
+template <int K, int N, typename F>
+__device__ __forceinline__ void static_for(F&& f) {
+  if constexpr (K < N) {
+    f(std::integral_constant<int, K>());
+    static_for<K + 1, N>(f);
+  }
+}
+
+// The warp's sums of v[0..W) (W a power of two <= 32): a halving exchange
+// (W - 1 shuffles) leaves lane l the sum over its group of W lanes of
+// element l % W, then a butterfly over the groups (5 - log2 W shuffles)
+// the warp's.  Lane l returns element l % W's total; every lane holding
+// one element holds the same bits.
+template <typename T, int W>
+__device__ __forceinline__ T warp_sum_scatter(T (&v)[W], int lane) {
+#pragma unroll
+  for (int h = W / 2; h > 0; h >>= 1) {
+    const bool upper = lane & h;
+#pragma unroll
+    for (int i = 0; i < h; ++i) {
+      const T send = upper ? v[i] : v[i + h];
+      const T keep = upper ? v[i + h] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, h);
+    }
+  }
+  T s = v[0];
+#pragma unroll
+  for (int o = W; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
+}
+
+// The block's totals of the warps' sums red[w][j] (w < NW, j < W), the
+// same bits in every thread: lane l adds element l % W over its share of
+// the warps (in warp order), a butterfly over the lanes holding one
+// element adds the shares, and lane j broadcasts element j.
+template <typename T, int W, int NW>
+__device__ __forceinline__ void block_totals(const T (&red)[NW][W],
+                                             T (&sum)[W], int lane) {
+  constexpr int G = 32 / W;  // lanes an element
+  static_assert(NW % G == 0, "the warps split evenly over the lanes");
+  const int j = lane % W, g = lane / W;
+  T t = red[g][j];
+#pragma unroll
+  for (int i = 1; i < NW / G; ++i) t += red[g + i * G][j];
+#pragma unroll
+  for (int o = W; o < 32; o <<= 1) t += __shfl_xor_sync(0xffffffffu, t, o);
+#pragma unroll
+  for (int i = 0; i < W; ++i) sum[i] = __shfl_sync(0xffffffffu, t, i);
+}
+
+// The shared arrays of a block of tsqr_tile_kernel
+template <typename T, int W>
+struct TsqrShared {
+  alignas(16) T red[2][kTsqrWarps][W];
+  alignas(16) T rowk[2][W];
+  T tau[W], diag[W];
+  T g[W][W];  // v_i^T v_k, i < k
+  T vt[W][W];  // V_top, unit lower triangular
+  T f[W][W];
+  T z[W][W];  // V_top^T F
+  alignas(16) T m[W][W];  // T V_top^T F
+};
+
+// A block's tile.  SCALED false: factored unscaled; where a reflection's
+// sums may under- or overflow (x^2 plus the squares below the pivot under
+// tsqr_tiny and not all zero, or a sum not finite: the same test in every
+// thread and in both passes) it returns true before it writes anything.
+// SCALED true: factored with each column scaled by a power of two, which
+// is exact and leaves the reflections (v, tau) as they are: only R's
+// columns are scaled back.  APPLY false: QR the tile, write its R to rows
+// blockIdx.x * p.. of the stack `out` (leading dimension ld_out).  APPLY
+// true: QR the tile again, then write Q_t F_t to its rows of `out` (which
+// may be `in`): F_t from rows blockIdx.x * p.. of `f`, or, at the root (f
+// null), D, with D R written to r_out (row-major p x p) and `out` null for
+// R alone.
+template <typename T, int W, bool APPLY, bool SCALED>
+__device__ __forceinline__ bool tsqr_tile(TsqrShared<T, W>& sh, const T* in,
+                                          long long rows, T* out,
+                                          long long ld_out,
+                                          const T* __restrict__ f,
+                                          long long ld_f,
+                                          T* __restrict__ r_out, int tile,
+                                          int p) {
+  constexpr int S = tsqr_slots<T, W>();
+  constexpr int NW = kTsqrWarps;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long base = (long long)blockIdx.x * tile;
+  const int valid = rows - base < tile ? (int)(rows - base) : tile;
+
+  // SCALED: each column j scaled by 2^-e_j, its largest entry then in
+  // [0.5, 1), from the tile's column maxima
+  T scale[W];
+  if constexpr (SCALED) {
+    __syncthreads();  // the unscaled attempt's last reads of sh are done
+#pragma unroll
+    for (int j = 0; j < W; ++j) scale[j] = T(0);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = tid + s * kTsqrThreads;
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        if (j < p && r < valid)
+          scale[j] = fmax(scale[j], fabs(in[j * rows + base + r]));
+    }
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        scale[j] = fmax(scale[j], __shfl_xor_sync(0xffffffffu, scale[j], o));
+    }
+    if (lane == 0) {
+#pragma unroll
+      for (int j = 0; j < W; ++j) sh.red[0][warp][j] = scale[j];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < W; ++j) {
+      T m = T(0);
+#pragma unroll
+      for (int w = 0; w < NW; ++w) m = fmax(m, sh.red[0][w][j]);
+      int e;
+      frexp(m, &e);
+      scale[j] = m > T(0) ? ldexp(T(1), -e) : T(1);
+    }
+    __syncthreads();  // sh.red read before the first reflection writes it
+  }
+
+  T a[S][W];
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int r = tid + s * kTsqrThreads;
+#pragma unroll
+    for (int j = 0; j < W; ++j)
+      a[s][j] = !(j < p && r < valid) ? T(0)
+                : SCALED                 ? in[j * rows + base + r] * scale[j]
+                                         : in[j * rows + base + r];
+  }
+
+  bool wild = false;
+  static_for<0, W>([&](auto kc) {
+    constexpr int k = decltype(kc)::value;
+    if (k >= p) return;
+    constexpr int buf = k & 1;
+    // sums over this thread's rows below the pivot: for j >= k the
+    // reflection's, for j < k v_j^T a[:, k] (T's)
+    T acc[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) acc[j] = T(0);
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (tid + s * kTsqrThreads > k) {
+        const T ak = a[s][k];
+#pragma unroll
+        for (int j = APPLY ? 0 : k; j < W; ++j) acc[j] = fma(ak, a[s][j], acc[j]);
+      }
+    }
+    const T total = warp_sum_scatter<T, W>(acc, lane);
+    if (lane < W) sh.red[buf][warp][lane] = total;
+    if (tid == k) {  // the pivot row is slot 0 of thread k
+#pragma unroll
+      for (int j = 0; j < W; ++j) sh.rowk[buf][j] = a[0][j];
+    }
+    __syncthreads();
+    T sum[W];
+    block_totals<T, W, NW>(sh.red[buf], sum, lane);
+    // the reflection H = I - tau v v^T, v = (1, a[r][k] * inv below)
+    const T x = sh.rowk[buf][k];
+    T alpha = x, tau = T(0), inv = T(0);
+    if (sum[k] != T(0)) {
+      const T norm = sqrt(x * x + sum[k]);
+      alpha = x >= T(0) ? -norm : norm;
+      tau = (alpha - x) / alpha;
+      inv = T(1) / (x - alpha);
+    }
+    if constexpr (!SCALED) {  // the test, beside the reflection
+      T finite = x * x + sum[k];
+#pragma unroll
+      for (int j = k + 1; j < W; ++j) finite = fma(T(0), sum[j], finite);
+      const bool zero = x == T(0) && sum[k] == T(0);
+      wild = wild || (!(finite >= tsqr_tiny<T>()) && !zero) ||
+             !isfinite(finite);
+    }
+    T c[W];  // tau v^T a[:, j]
+#pragma unroll
+    for (int j = k + 1; j < W; ++j)
+      c[j] = tau * (sum[j] * inv + sh.rowk[buf][j]);
+    if (APPLY && tid == 0) {
+      sh.tau[k] = tau;
+      sh.diag[k] = alpha;
+#pragma unroll
+      for (int i = 0; i < k; ++i) sh.g[i][k] = sum[i] * inv + sh.rowk[buf][i];
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = tid + s * kTsqrThreads;
+      if (r > k) {
+        const T v = a[s][k] * inv;
+        a[s][k] = v;
+#pragma unroll
+        for (int j = k + 1; j < W; ++j) a[s][j] = fma(-c[j], v, a[s][j]);
+      } else if (r == k) {
+#pragma unroll
+        for (int j = k + 1; j < W; ++j) a[s][j] -= c[j];
+        a[s][k] = alpha;
+      }
+    }
+  });
+
+  if (wild) return true;  // the same in every thread
+
+  if constexpr (!APPLY) {
+    if (tid < p) {  // R's row tid
+#pragma unroll
+      for (int j = 0; j < W; ++j)
+        if (j < p)
+          out[j * ld_out + (long long)blockIdx.x * p + tid] =
+              j < tid  ? T(0)
+              : SCALED ? a[0][j] / scale[j]
+                       : a[0][j];
+    }
+  } else {
+    __syncthreads();  // tau_s, diag_s and g_s of the last reflection
+    if (tid < p) {  // V_top's row tid
+#pragma unroll
+      for (int c = 0; c < W; ++c)
+        if (c < p) sh.vt[tid][c] = c < tid ? a[0][c] : T(c == tid);
+    }
+    const int pp = p * p;
+    if (f == nullptr) {  // the root: R = D R, its factor D
+      if (tid < p) {
+        const T d = sh.diag[tid] < T(0) ? T(-1) : T(1);
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          if (j < p)
+            r_out[tid * p + j] = j < tid  ? T(0)
+                                 : SCALED ? d * a[0][j] / scale[j]
+                                          : d * a[0][j];
+      }
+      if (out == nullptr) return false;
+      for (int e = tid; e < pp; e += kTsqrThreads) {
+        const int i = e / p, j = e - i * p;
+        sh.f[i][j] = i != j ? T(0) : sh.diag[i] < T(0) ? T(-1) : T(1);
+      }
+    } else {
+      for (int e = tid; e < pp; e += kTsqrThreads) {
+        const int i = e / p, j = e - i * p;
+        sh.f[i][j] = f[j * ld_f + (long long)blockIdx.x * p + i];
+      }
+    }
+    __syncthreads();
+    for (int e = tid; e < pp; e += kTsqrThreads) {  // Z = V_top^T F
+      const int c = e / p, j = e - c * p;
+      T z = T(0);
+      for (int r = c; r < p; ++r) z = fma(sh.vt[r][c], sh.f[r][j], z);
+      sh.z[c][j] = z;
+    }
+    __syncthreads();
+    if (tid < W) {  // T's row tid (dlarft, forward columnwise), M = T Z's
+      const int i = tid;
+      T trow[W];
+      static_for<0, W>([&](auto kc) {
+        constexpr int k = decltype(kc)::value;
+        T acc = T(0);
+#pragma unroll
+        for (int c = 0; c < k; ++c) acc = fma(trow[c], sh.g[c][k], acc);
+        trow[k] = k >= p || k < i ? T(0)
+                  : k == i        ? sh.tau[k]
+                                  : -sh.tau[k] * acc;
+      });
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        T m = T(0);
+#pragma unroll
+        for (int k = 0; k < W; ++k)
+          if (k < p && j < p) m = fma(trow[k], sh.z[k][j], m);
+        sh.m[i][j] = m;
+      }
+    }
+    __syncthreads();
+    // y = [F; 0] - v M, v the row's reflectors (1 on the diagonal)
+    T y[S][W];
+#pragma unroll
+    for (int s = 0; s < S; ++s)
+#pragma unroll
+      for (int j = 0; j < W; ++j) y[s][j] = T(0);
+    static_for<0, W>([&](auto cc) {
+      constexpr int c = decltype(cc)::value;
+      if (c >= p) return;
+      T mrow[W];
+#pragma unroll
+      for (int j = 0; j < W; ++j) mrow[j] = sh.m[c][j];
+#pragma unroll
+      for (int s = 0; s < S; ++s) {
+        const int r = tid + s * kTsqrThreads;
+        const T v = r > c ? a[s][c] : T(r == c);
+#pragma unroll
+        for (int j = 0; j < W; ++j) y[s][j] = fma(v, mrow[j], y[s][j]);
+      }
+    });
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = tid + s * kTsqrThreads;
+      if (r < valid) {
+#pragma unroll
+        for (int j = 0; j < W; ++j)
+          if (j < p)
+            out[j * ld_out + base + r] = (r < p ? sh.f[r][j] : T(0)) - y[s][j];
+      }
+    }
+  }
+  return false;
+}
+
+// The scaled attempt, apart from the kernel's own code (at W <= 8; at W =
+// 16 the call's frame took the kernels to 2x their time, and the retry is
+// inlined there): it runs only where the unscaled one found its sums out
+// of range
+template <typename T, int W, bool APPLY>
+__device__ __noinline__ void tsqr_tile_scaled(TsqrShared<T, W>& sh,
+                                              const T* in, long long rows,
+                                              T* out, long long ld_out,
+                                              const T* f, long long ld_f,
+                                              T* r_out, int tile, int p) {
+  tsqr_tile<T, W, APPLY, true>(sh, in, rows, out, ld_out, f, ld_f, r_out,
+                               tile, p);
+}
+
+// Blocks an SM holds of each pass, which caps the registers a thread may
+// take: the unscaled code's own need (ptxas, before the scaled retry was
+// added: QR pass 55-80 registers, 108 in f64 at W = 16), so that the
+// retry's call does not raise it (uncapped, the f32 W = 8 QR pass took
+// 104 registers and ran 45% slower)
+template <typename T, int W, bool APPLY>
+constexpr int tsqr_min_blocks() {
+  if (APPLY) return W <= 8 ? kTsqrApplyBlocks : 1;
+  return sizeof(T) == 4 ? (W <= 8 ? 4 : 3) : (W <= 8 ? 3 : 2);
+}
+
+template <typename T, int W, bool APPLY>
+__global__ void __launch_bounds__(kTsqrThreads,
+                                  tsqr_min_blocks<T, W, APPLY>())
+    tsqr_tile_kernel(const T* in, long long rows, T* out, long long ld_out,
+                     const T* __restrict__ f, long long ld_f,
+                     T* __restrict__ r_out, int tile, int p) {
+  __shared__ TsqrShared<T, W> sh;
+  if (tsqr_tile<T, W, APPLY, false>(sh, in, rows, out, ld_out, f, ld_f, r_out,
+                                    tile, p)) {
+    if constexpr (W > 8)
+      tsqr_tile<T, W, APPLY, true>(sh, in, rows, out, ld_out, f, ld_f, r_out,
+                                   tile, p);
+    else
+      tsqr_tile_scaled<T, W, APPLY>(sh, in, rows, out, ld_out, f, ld_f, r_out,
+                                    tile, p);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
@@ -2549,6 +2988,69 @@ int sqrtm_invsqrtm(const void* a, void* sq, void* inv, int batch, int p,
   return finish();
 }
 
+// T1's tree (ops/kernels/tsqr.py `tsqr_plan`): levels[0] = n rows, then
+// each R stack's rows, ceil(levels[l] / tile) * p, down to the root's,
+// which one tile holds; rechecked here.  The stacks lie one after another
+// in `work`.  QR passes up the tree, the root, then (q not null) apply
+// passes down it, the last writing q.
+template <typename T, int W>
+int tsqr_tree(const T* x, T* q, T* r, T* work, const long long* levels,
+              int nlevels, int p, int tile, cudaStream_t st) {
+  constexpr int S = tsqr_slots<T, W>();
+  if (p < 1 || p > W || tile < 2 * p || tile > S * kTsqrThreads ||
+      nlevels < 1 || nlevels > kTsqrMaxLevels || levels[0] < p ||
+      levels[nlevels - 1] > tile)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l + 1 < nlevels; ++l)
+    if (levels[l] <= tile || levels[l + 1] != (levels[l] + tile - 1) / tile * p)
+      return (int)cudaErrorInvalidValue;
+  const int h = nlevels - 1;
+  T* stack[kTsqrMaxLevels];  // stack[l], l >= 1: level l's input
+  long long off = 0;
+  for (int l = 1; l <= h; ++l) {
+    stack[l] = work + off;
+    off += (long long)p * levels[l];
+  }
+  auto input = [&](int l) -> const T* { return l ? stack[l] : x; };
+  auto blocks = [&](int l) { return (unsigned)((levels[l] + tile - 1) / tile); };
+  for (int l = 0; l < h; ++l) {
+    tsqr_tile_kernel<T, W, false><<<blocks(l), kTsqrThreads, 0, st>>>(
+        input(l), levels[l], stack[l + 1], levels[l + 1], nullptr, 0, nullptr,
+        tile, p);
+    const int err = finish();
+    if (err) return err;
+  }
+  T* root_q = q == nullptr ? nullptr : h ? stack[h] : q;
+  tsqr_tile_kernel<T, W, true><<<1, kTsqrThreads, 0, st>>>(
+      input(h), levels[h], root_q, levels[h], nullptr, 0, r, tile, p);
+  int err = finish();
+  for (int l = h - 1; q != nullptr && l >= 0 && !err; --l) {
+    tsqr_tile_kernel<T, W, true><<<blocks(l), kTsqrThreads, 0, st>>>(
+        input(l), levels[l], l ? stack[l] : q, levels[l], stack[l + 1],
+        levels[l + 1], nullptr, tile, p);
+    err = finish();
+  }
+  return err;
+}
+
+template <typename T>
+int tsqr_width(const void* x, void* q, void* r, void* work,
+               const long long* levels, int nlevels, int p, int width,
+               int tile, cudaStream_t st) {
+  const T* xt = static_cast<const T*>(x);
+  T *qt = static_cast<T*>(q), *rt = static_cast<T*>(r);
+  T* wt = static_cast<T*>(work);
+  switch (width) {
+    case 4:
+      return tsqr_tree<T, 4>(xt, qt, rt, wt, levels, nlevels, p, tile, st);
+    case 8:
+      return tsqr_tree<T, 8>(xt, qt, rt, wt, levels, nlevels, p, tile, st);
+    case 16:
+      return tsqr_tree<T, 16>(xt, qt, rt, wt, levels, nlevels, p, tile, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -2706,6 +3208,26 @@ int lt_sqrtm_invsqrtm(int dtype, const void* a, void* sq, void* inv,
     case kBF16:
       return sqrtm_invsqrtm<bf16>(a, sq, inv, batch, p, sweeps,
                                   breakdown_eps, threads, smem, st);
+  }
+  return kBadType;
+}
+
+// T1: (q, r) of the block-major (p, levels[0]) block x of type dtype (0
+// or 1): q (p, n) block-major with orthonormal rows (null: R alone), r
+// (p x p, row-major) upper triangular with a non-negative diagonal;
+// `work` holds the R stacks.  width, tile and the levels are the
+// wrapper's plan, rechecked here.
+int lt_tsqr(int dtype, const void* x, void* q, void* r, void* work,
+            const long long* levels, int nlevels, int p, int width, int tile,
+            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case kF32:
+      return tsqr_width<float>(x, q, r, work, levels, nlevels, p, width,
+                               tile, st);
+    case kF64:
+      return tsqr_width<double>(x, q, r, work, levels, nlevels, p, width,
+                                tile, st);
   }
   return kBadType;
 }

@@ -47,7 +47,7 @@ import torch
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
 from lanczos_tpu_torch.ops.operator import state_trace
 from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
-from lanczos_tpu_torch.ops.tsqr import tsqr, tsqr_sharded
+from lanczos_tpu_torch.ops.tsqr import tsqr_rows, tsqr_sharded
 from lanczos_tpu_torch.utils import tracing
 
 FUSED_GATE_BYTES = 16 * 1024 * 1024  # JAX block_lanczos.py:170
@@ -219,12 +219,11 @@ def block_lanczos(
     def state_fro(x):
         return torch.sqrt(total(torch.sum(x * x)))
 
-    def qr_rows(x):
+    def qr_rows(x, want_q=True):
         """(q, r) of the block-major x: q (p, n) orthonormal rows."""
         if mesh is not None:
-            return tsqr_sharded(x.reshape(p, -1), mesh)
-        qf, r = tsqr(x.reshape(p, -1).T)
-        return qf.T, r
+            return tsqr_sharded(x.reshape(p, -1), mesh, want_q)
+        return tsqr_rows(x.reshape(p, -1), want_q)
 
     tiny = torch.finfo(dtype).tiny
     eps = torch.finfo(dtype).eps
@@ -388,7 +387,7 @@ def block_lanczos(
     # Ritz bounds): the qr path takes TSQR's R, never forming the Gram; a
     # frozen run's residual is exactly zero
     if normalize == "qr":
-        _, beta_final = qr_rows(w)
+        _, beta_final = qr_rows(w, want_q=False)
     else:
         beta_final, _ = sqrtm_invsqrtm(
             gram(w, w), backend=eig_backend,

@@ -50,6 +50,7 @@ LAUNCHES = {
     "windowed_spmm": 0,
     "apply_stencil": 0,
     "jacobi_sqrtm": 0,
+    "tsqr": 0,
     # the kernels that take bf16 states, counted apart on them
     "apply_stencil_pair bf16": 0,
     "block_mix bf16": 0,
@@ -64,6 +65,7 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _IP = ctypes.POINTER(ctypes.c_int)
+_LLP = ctypes.POINTER(ctypes.c_longlong)
 _SIGNATURES = {
     "lt_stencil_pair": (_I, _P, _P, _P, _P, _IP, _IP, _I, _I, _I, _I, _P),
     "lt_block_mix": (_I, _P, _I, _P, _I, _P, _I, _P, _P, _I, _LL, _I, _I, _I,
@@ -92,6 +94,7 @@ _SIGNATURES = {
     ),
     "lt_sqrtm_invsqrtm": (_I, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _I,
                           _P),
+    "lt_tsqr": (_I, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

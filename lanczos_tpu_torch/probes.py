@@ -9,6 +9,7 @@
     python -m lanczos_tpu_torch.probes --dist-ell
     python -m lanczos_tpu_torch.probes --dist-windowed
     python -m lanczos_tpu_torch.probes --fdtd-graph
+    python -m lanczos_tpu_torch.probes --tsqr
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -98,6 +99,18 @@ in FDTD_CHUNKS steps (`fdtd.GRAPH_CHUNK` set for the run), each timed by
 the host clock around a run that ends in a synchronise, in turns (eager,
 chunks ascending, chunks descending, eager), with the largest difference
 from the eager result (every one must read 0).
+
+With --tsqr it prints only this: T1 (`ops/kernels/tsqr.py`) on random
+(p, 10,485,760) block-major states, the assembled eigsh's (f32 p = 8),
+and f32 p = 4, p = 16, f64 p = 8: a whole call, an R-only call, T1's plain
+version and `library_tsqr` (the batched `torch.linalg.qr` tree T1
+replaced), timed by CUDA events (20 calls after 2 warm-up calls; the plain
+version and the library 3), with the bytes a call must move (3 S: the
+block read twice and q written; S for R alone), their bound at 3.35 TB/s
+and at the 2,987.6 GB/s copy rate, each launch's device time from a
+`torch.profiler` trace of one call, and the factors' errors beside the
+library's (||A - QR|| / ||A||, max |Q^T Q - I|); then at f32 p = 8 the
+tiles of 512 and 256 rows against the plan's, in turns.
 """
 
 from __future__ import annotations
@@ -779,6 +792,90 @@ def probe_fdtd_graph(dev) -> None:
         fdtd.GRAPH_CHUNK = default
 
 
+def library_tsqr(x: torch.Tensor, n_chunks: int = 8):
+    """The TSQR T1 replaced, the yardstick of its tests and timings (the
+    port never calls it): the block-major x (p, n) as a strided (n, p)
+    view, padded into n_chunks chunks, one batched `torch.linalg.qr`, a QR
+    of the stacked R factors, their product and a sign fix; q (p, n)
+    block-major after a transpose copy, as block_lanczos made it."""
+    import torch.nn.functional as F
+
+    a = x.T
+    n, p = a.shape
+    c = max(1, min(n_chunks, n // max(p, 1)))
+    rows = -(-n // c) * c
+    blocks = F.pad(a, (0, 0, 0, rows - n)).reshape(c, rows // c, p)
+    q1, r1 = torch.linalg.qr(blocks, mode="reduced")
+    q2, r = torch.linalg.qr(r1.reshape(c * p, p), mode="reduced")
+    q = torch.bmm(q1, q2.reshape(c, p, p)).reshape(rows, p)[:n]
+    d = torch.sign(torch.diagonal(r))
+    d = torch.where(d == 0, 1.0, d).to(r.dtype)
+    return (q * d).T.contiguous(), r * d[:, None]
+
+
+def qr_errors(x, q, r):
+    """(||x^T - q^T r|| / ||x||, max |q q^T - I|), in float64."""
+    x, q, r = x.double(), q.double(), r.double()
+    eye = torch.eye(x.shape[0], dtype=torch.float64, device=x.device)
+    return (float(torch.linalg.norm(x.T - q.T @ r) / torch.linalg.norm(x)),
+            float((q @ q.T - eye).abs().max()))
+
+
+TSQR_ROWS = 10_485_760
+TSQR_CASES = ((8, torch.float32), (4, torch.float32), (16, torch.float32),
+              (8, torch.float64))
+COPY_GBS = 2987.6  # PERF.md: the measured device copy rate
+
+
+def _launch_ms(fn) -> list:
+    """Device ms of each kernel one call of fn launches, in order."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [round(e.time_range.elapsed_us() / 1e3, 4) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA and "tsqr" in e.name]
+
+
+def probe_tsqr(dev) -> None:
+    from lanczos_tpu_torch.ops.kernels.tsqr import (householder_tsqr,
+                                                   tile_tree_plain, tsqr_plan)
+
+    g = torch.Generator(device=dev).manual_seed(19)
+    for p, dtype in TSQR_CASES:
+        x = torch.randn((p, TSQR_ROWS), generator=g, device=dev, dtype=dtype)
+        plan = tsqr_plan(TSQR_ROWS, p, x.element_size())
+        mb = p * TSQR_ROWS * x.element_size() / 1e6
+        full = _ms(lambda: householder_tsqr(x))
+        r_only = _ms(lambda: householder_tsqr(x, want_q=False))
+        plain = _ms(lambda: tile_tree_plain(x, plan), iters=3, warmup=1)
+        library = _ms(lambda: library_tsqr(x), iters=3, warmup=1)
+        q, r = householder_tsqr(x)
+        ql, rl = library_tsqr(x)
+        label = f"T1 p={p} {str(dtype)[6:]} n={TSQR_ROWS} (tile {plan.tile}, levels {plan.levels})"
+        print(f"{label}: {full:.4f} ms a call ({3 * mb:.1f} MB: bound "
+              f"{3 * mb / 3.35e6 * 1e3:.4f}, at copy {3 * mb / COPY_GBS:.4f} ms), "
+              f"R alone {r_only:.4f} ms ({mb:.1f} MB: bound {mb / 3.35e6 * 1e3:.4f}); "
+              f"plain {plain:.4f} ms, library {library:.4f} ms; "
+              f"launches {plan.launches()} ({_launch_ms(lambda: householder_tsqr(x))} ms), "
+              f"R alone {plan.launches(False)}", flush=True)
+        print(f"{label}: errors (recon, orth) T1 {qr_errors(x, q, r)}, library "
+              f"{qr_errors(x, ql, rl)}; |r - r_library| {float((r - rl).abs().max()):.3e}",
+              flush=True)
+        del q, r, ql, rl
+        if (p, dtype) == TSQR_CASES[0]:
+            plans = {tile: tsqr_plan(TSQR_ROWS, p, 4, TSQR_ROWS // tile) for tile in (512, 256)}
+            times = {plan.tile: [], **{tile: [] for tile in plans}}
+            for tile in [plan.tile, *plans, *reversed(plans), plan.tile]:
+                times[tile].append(_ms(lambda: householder_tsqr(x, plan=plans.get(tile))))
+            for tile, t in times.items():
+                print(f"T1 p={p} f32 tile {tile}: {', '.join(f'{v:.4f}' for v in t)} ms",
+                      flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("the probes time the CUDA card: none is available")
@@ -814,6 +911,9 @@ def main() -> None:
         return
     if "--fdtd-graph" in sys.argv[1:]:
         probe_fdtd_graph(dev)
+        return
+    if "--tsqr" in sys.argv[1:]:
+        probe_tsqr(dev)
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

@@ -19,7 +19,7 @@ only (the trace names each kernel):
   lt.lanczos.coeffs                  the fused step's p x p algebra
   lt.lanczos.reorth                  a CGS2 pass against the stored basis
   lt.smalleig.sqrtm                  a p x p sqrtm / inv-sqrtm
-  lt.tsqr                            one TSQR tree
+  lt.tsqr                            one TSQR (T1's tree)
   lt.op.apply                        one operator product
   lt.graph.capture, lt.graph.replay  a CUDA-graph recording; one replay(k)
 
@@ -33,8 +33,13 @@ The counters are always on, as `build.LAUNCHES` is:
                    port's kernels counts its kernels, a graph replay one
                    launch whatever it recorded
   graphs.captures, graphs.replays
-  tsqr.calls, lanczos.steps (the iterations after the prologue),
-  fdtd.steps
+  tsqr.calls       TSQRs (`ops/tsqr.py`)
+  tsqr.kernel      trees T1's kernel ran (`ops/kernels/tsqr.py`
+                   householder_tsqr: a CUDA float32 or float64 block,
+                   p <= 16), one a TSQR, two a sharded one (the local
+                   tree and the gathered R stack's); the rest ran its
+                   plain version
+  lanczos.steps (the iterations after the prologue), fdtd.steps
 
 `COUNTERS` holds them since the process started; `PROFILED` the part of
 them made while a torch profiler recorded, so the counts of a profiled

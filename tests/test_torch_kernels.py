@@ -20,6 +20,7 @@ from lanczos_tpu_torch.ops.kernels import (
     stencil_gram,
 )
 from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm, jacobi_sqrtm_plain
+from lanczos_tpu_torch.ops.kernels.tsqr import householder_tsqr
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
     BLOCK_SHARED_BYTES,
     GEN_ROW_WEIGHTS,
@@ -126,11 +127,12 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     spec, wz, wp, x = _k6_case("laplacian", 1, torch.float32, "cpu")
     apply_stencil(x, wz, wp, spec)
     jacobi_sqrtm(torch.eye(4) + 0.1)
+    householder_tsqr(torch.randn((3, 50)))
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
-        "windowed_spmm", "apply_stencil", "jacobi_sqrtm",
+        "windowed_spmm", "apply_stencil", "jacobi_sqrtm", "tsqr",
         "apply_stencil_pair bf16", "block_mix bf16", "block_grams bf16",
         "block_grams_compensated bf16", "jacobi_sqrtm bf16",
     }
