@@ -19,10 +19,11 @@ def profiled_counts() -> dict | None:
 
 def per_request(summary: dict, name: str):
     """Counter `name` a traced request, 0.0 where it did not move; None
-    with no traced request or no counters."""
+    with no traced request or no counters.  The counts are this process's,
+    or those the summary carries (a rank's, read on rank 0)."""
     if not summary.get("requests"):
         return None
-    counts = profiled_counts()
+    counts = summary["counts"] if "counts" in summary else profiled_counts()
     if counts is None:
         return None
     return counts.get(name, 0) / summary["requests"]

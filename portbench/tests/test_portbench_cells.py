@@ -6,7 +6,9 @@ underneath comes out not correct, once for each fault the cell can have:
 a step that returns its state unchanged, half of the batch left out with
 the mean of the rest in its place, an answer altered where it is made,
 and an operator 1% off.
-(No cell spans chips, so none can leave out an exchange.)"""
+(No cell spans chips yet.  The multi-chip counterpart, one rank that
+leaves out its exchange, is `test_portbench_ranks.py`'s, on a test-only
+SPMD probe.)"""
 
 from __future__ import annotations
 

@@ -6,12 +6,13 @@ result without a card or with JAX loaded."""
 from __future__ import annotations
 
 import ast
+import subprocess
 import sys
 
 import pytest
 
 from portbench import run
-from portbench.run import BENCH_DIR, FORBIDDEN
+from portbench.run import BENCH_DIR, FORBIDDEN, ROOT
 
 SOURCES = sorted(BENCH_DIR.rglob("*.py"))
 
@@ -43,11 +44,17 @@ def test_only_drivers_import_the_port():
     assert importers <= {"drivers", "tests"}
 
 
-def test_forbidden_modules_compares_whole_names(monkeypatch):
-    monkeypatch.setitem(sys.modules, "lanczos_tpu_torch_fake", object())
-    assert run.forbidden_modules() == []
-    monkeypatch.setitem(sys.modules, "lanczos_tpu.fake", object())
-    assert run.forbidden_modules() == ["lanczos_tpu"]
+def test_forbidden_modules_compares_whole_names():
+    """In a fresh process: a test worker's sys.modules holds what other
+    tests loaded (the repository's JAX tests load jax)."""
+    code = ("import sys; from portbench import run; "
+            "sys.modules['lanczos_tpu_torch_fake'] = object(); "
+            "print(run.forbidden_modules()); "
+            "sys.modules['lanczos_tpu.fake'] = object(); "
+            "print(run.forbidden_modules())")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.split("\n")[:2] == ["[]", "['lanczos_tpu']"]
 
 
 def test_no_card_no_result(monkeypatch, capsys):

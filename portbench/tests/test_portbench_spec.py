@@ -5,12 +5,13 @@ name, unit and text keeps to the contract's characters and lengths."""
 from __future__ import annotations
 
 import importlib
+import inspect
 import json
 import re
 
 import pytest
 
-from portbench.run import BENCH_DIR, ROOT, load_cell, reader
+from portbench.run import BENCH_DIR, ROOT, cell_module, load_cell, reader
 
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
@@ -44,7 +45,10 @@ def test_names_units_and_texts():
         assert NAME.match(name), name
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["traffic"]) and _text(w["why"]) and w["chips"] == 1
+        assert NAME.match(w["traffic"]) and _text(w["why"]) and w["chips"] in (1, 4)
+    # at most a quarter of the cells, rounded down, on four chips; one always may
+    four = sum(1 for w in BENCH["workloads"] if w["chips"] == 4)
+    assert four <= max(1, len(CELLS) // 4)
     for c in BENCH["configs"]:
         assert set(c) == {"name", "source", "file", "reduced", "why"}
         assert _text(c["source"]) and _text(c["why"]) and len(c["reduced"]) <= 16
@@ -70,17 +74,38 @@ def test_metrics_keys_and_bounds():
         assert reader(m["name"]).read({}) is None  # nothing to read: no number
 
 
+BASE_PER_LAYER = {"device_idle_pct", "library_share_pct", "peak_mem_gib", "roofline_pct"}
+
+
 def test_each_cell_reports_one_per_layer_set_and_its_metrics_have_a_reader():
-    """Every cell reports setup_s, one solve time and the four per-layer
-    metrics that move it; a dotted name is read by its stem's reader."""
+    """Every cell reports setup_s, one solve time, and one per-layer set
+    that moves it: the four base metrics and any metric added since, each
+    once and each with a reader; a dotted name is read by its stem's."""
     for cell in CELLS:
         c = load_cell(cell)
-        solve = [m["name"] for m in c["end_to_end"] if m["name"] != "setup_s"]
-        assert len(solve) == 1
-        assert sorted(m["name"].split(".")[0] for m in c["per_layer"]) == [
-            "device_idle_pct", "library_share_pct", "peak_mem_gib", "roofline_pct"]
+        e2e = [m["name"] for m in c["end_to_end"]]
+        solve = [name for name in e2e if name != "setup_s"]
+        assert "setup_s" in e2e and len(solve) == 1
+        stems = [m["name"].split(".")[0] for m in c["per_layer"]]
+        assert len(stems) == len(set(stems)) and BASE_PER_LAYER <= set(stems)
         assert {m["moves"] for m in c["per_layer"]} == set(solve)
+        for m in c["per_layer"]:
+            assert callable(reader(m["name"]).read)
     assert reader("solve_ms.eigsh") is importlib.import_module("portbench.metrics.solve_ms")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_multi_chip_cells_driver_and_reference_take_a_group(cell):
+    """A cell on four chips runs as four ranks: its driver is built with
+    the group and its reference judges over it; a one-chip cell's are
+    called as they always were."""
+    c = load_cell(cell)
+    driver = inspect.signature(cell_module(c, "drivers").Driver).parameters
+    judge = inspect.signature(cell_module(c, "reference").judge).parameters
+    if c["chips"] > 1:
+        assert "group" in driver and "group" in judge
+    else:
+        assert list(driver) == ["cfg", "tr", "seed", "device", "phases"]
 
 
 @pytest.mark.parametrize("cell", CELLS)
