@@ -2573,7 +2573,7 @@ def windowed_shards_by_hand(torch, a, n_dev, X, **kw):
     this process on the card (a `Mesh` with no process group), the ranks'
     state strips of the natural-order (p, n) X, and their work strips:
     each strip's halo slots filled by hand from its neighbours' rows (what
-    `Mesh.halo_strips` moves between cards).  (ops, strips, works, build
+    `Mesh.halo_strip` moves between cards).  (ops, strips, works, build
     seconds)."""
     from lanczos_tpu_torch.parallel import halo_sharded_windowed
     from lanczos_tpu_torch.parallel.mesh import Mesh

@@ -15,7 +15,7 @@ for index.
 
 The halo slots of a persisted state stay zero, so Grams over the strips
 are exact.  A product copies the state once into a work strip, writes
-the neighbours' rows into its halo slots (`Mesh.halo_strips`, JAX's k-hop
+the neighbours' rows into its halo slots (`Mesh.halo_strip`, JAX's k-hop
 exchange), and runs K8 on it; K8's output rows outside ``[halo, halo +
 rows_loc)`` are zero, so the output is the next state as it stands.  At
 halo 0 (always on one rank) K8 runs on the state itself, as
@@ -23,14 +23,19 @@ halo 0 (always on one rank) K8 runs on the state itself, as
 
 Every shard's plan has the same row and column counts, so n128 is the
 same on every rank and each rank computes it alone (asserted in
-`windowed_shard`).  JAX must also force one window size (`force_wsz`) and
+`windowed_shard_rows`).  JAX must also force one window size (`force_wsz`) and
 pad every shard's planes per chunk to the largest, and pad p to 8,
 because one SPMD program has one static shape and Mosaic tiles sublanes
 by 8; a rank's K8 launch here reads its own plan's ppc, needs no window
 size and takes any p, so each rank keeps its own ppc and wsz, and p is
 not padded.  `windowed_shard` is a pure host function of the scipy
 matrix, the mesh size and a rank, so one process can build every rank's
-shard (the tests, `chip_smoke.py`); a rank builds only its own.
+shard (the tests, `chip_smoke.py`); a rank builds only its own.  It
+slices the rank's rows out of the whole matrix and packs them with
+`windowed_shard_rows`, the one packing path, which a deployment calls
+through `halo_sharded_windowed_rows` with only its own rows: there the
+ranks agree on the halo and the nonzero count in one all-gather, and no
+rank ever holds the whole matrix (natural order only).
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lanczos_tpu_torch.ops.formats import np_dtype
+from lanczos_tpu_torch.ops.formats import _as_2d_scipy, np_dtype
 from lanczos_tpu_torch.ops.window_ell import (
     LANES,
     PlanError,
@@ -47,8 +52,14 @@ from lanczos_tpu_torch.ops.window_ell import (
     _pack_planes,
     padded_length,
 )
-from lanczos_tpu_torch.parallel.dist_operator import _RowSharded, halo_layout
+from lanczos_tpu_torch.parallel.dist_operator import (
+    _RowSharded,
+    halo_hops,
+    halo_layout,
+    shard_rows,
+)
 from lanczos_tpu_torch.parallel.mesh import Mesh
+from lanczos_tpu_torch.utils import tracing
 
 
 def windowed_shard(a, n_dev: int, rank: int, dtype=np.float32,
@@ -57,33 +68,75 @@ def windowed_shard(a, n_dev: int, rank: int, dtype=np.float32,
                    packer: str = "native"):
     """Rank `rank`'s windowed-ELL shard on an n_dev-rank mesh, as NumPy:
     (arrays, geometry, halo, rows_loc, perm or None), arrays and geometry
-    as `WindowedEllMatrix` takes them.  The plan has halo + rows_loc rows
-    (the first halo empty) and rows_loc + 2 halo columns (the window).
-    Only this rank's rows of the CSR are sliced and packed.  The per-k
-    planner only, as JAX's builder packs: PlanError where a chunk needs
-    more than ppc_cap planes or a group's band exceeds wsz_cap, and
+    as `WindowedEllMatrix` takes them.  The whole matrix sets the order
+    (`halo_layout`: RCM where `reorder` asks for it) and the halo; then
+    this rank's rows are sliced out and packed by `windowed_shard_rows`.
     `halo_layout`'s ValueError where the halo needs n_dev or more hops."""
     if not 0 <= rank < n_dev:
         raise ValueError(f"rank {rank} is not in a mesh of {n_dev}")
     a, perm, halo, rows_loc = halo_layout(a, n_dev, reorder, LANES)
-    n = a.shape[0]
-    lo = rank * rows_loc
-    first = min(lo, n)
-    n_loc = min(n, lo + rows_loc) - first
+    lo, hi = shard_bounds(a.shape[0], n_dev, rank)
+    arrays, geometry = windowed_shard_rows(
+        a[lo:hi], a.shape[0], n_dev, rank, halo, int(a.nnz), dtype, cpb, spg,
+        ppc_cap, wsz_cap, packer)
+    return arrays, geometry, halo, rows_loc, perm
+
+
+def shard_bounds(n: int, n_dev: int, rank: int) -> tuple[int, int]:
+    """[lo, hi): the rows of the n-row matrix that rank `rank` of n_dev
+    holds, lo = rank rows_loc (hi - lo < rows_loc on a short last shard,
+    0 past the end)."""
+    rows_loc = shard_rows(n, n_dev, LANES)
+    lo = min(rank * rows_loc, n)
+    return lo, min(lo + rows_loc, n)
+
+
+def rows_reach(rows, lo: int, rows_loc: int) -> int:
+    """The farthest a column of the rows [lo, lo + rows_loc) (a scipy CSR
+    with global columns) reaches outside them: `shard_halo`'s rule for
+    one shard, whose maximum over the shards is the matrix's halo."""
+    if rows.nnz == 0:
+        return 0
+    return max(lo - int(rows.indices.min()),
+               int(rows.indices.max()) - (lo + rows_loc - 1), 0)
+
+
+def windowed_shard_rows(rows, n: int, n_dev: int, rank: int, halo: int, nnz: int,
+                        dtype=np.float32, cpb: int = 16, spg: int = 16,
+                        ppc_cap: int = 48, wsz_cap: int = 1 << 20,
+                        packer: str = "native"):
+    """Rank `rank`'s windowed-ELL shard from its own rows alone, as NumPy:
+    (arrays, geometry) as `WindowedEllMatrix` takes them.  `rows`: the
+    rows `shard_bounds(n, n_dev, rank)` of an n x n matrix in its natural
+    order, as a scipy CSR with global columns; `halo`: the matrix's halo
+    (the largest `rows_reach` of any shard); `nnz`: its nonzeros.  The
+    plan has halo + rows_loc rows (the first halo empty) and rows_loc + 2
+    halo columns (the window).  The per-k planner only, as JAX's
+    `halo_sharded_windowed` packs: PlanError where a chunk needs more than
+    ppc_cap planes or a group's band exceeds wsz_cap; `halo_hops`'s
+    ValueError where the halo needs n_dev or more hops."""
+    if not 0 <= rank < n_dev:
+        raise ValueError(f"rank {rank} is not in a mesh of {n_dev}")
+    rows_loc = shard_rows(n, n_dev, LANES)
+    lo, hi = shard_bounds(n, n_dev, rank)
+    rows = _as_2d_scipy(rows).tocsr()
+    if rows.shape != (hi - lo, n):
+        raise ValueError(f"rank {rank}'s rows are {(hi - lo, n)}, not {rows.shape}")
+    halo_hops(halo, rows_loc, n_dev)
+    n_loc = hi - lo
     n_rows, n_cols = halo + rows_loc, rows_loc + 2 * halo
-    p0, p1 = int(a.indptr[first]), int(a.indptr[first + n_loc])
     indptr = np.zeros(n_rows + 1, np.int64)
-    indptr[halo : halo + n_loc + 1] = a.indptr[first : first + n_loc + 1] - p0
-    indptr[halo + n_loc + 1 :] = p1 - p0
-    indices = a.indices[p0:p1].astype(np.int64) - (lo - halo)
+    indptr[halo : halo + n_loc + 1] = rows.indptr
+    indptr[halo + n_loc + 1 :] = rows.indptr[-1]
+    indices = rows.indices.astype(np.int64) - (lo - halo)
     assert indices.size == 0 or (indices.min() >= 0 and indices.max() < n_cols)
-    data = a.data[p0:p1].astype(np_dtype(dtype))
+    data = rows.data.astype(np_dtype(dtype))
     planes = _pack_planes(indptr, indices, data, n_rows, ppc_cap, packer)
-    arrays, geometry = _assemble(*planes, n_rows, n_cols, int(a.nnz), cpb, spg,
+    arrays, geometry = _assemble(*planes, n_rows, n_cols, int(nnz), cpb, spg,
                                  wsz_cap)
     # every rank's plan has these row and column counts: one strip length
     assert geometry["n128"] == padded_length(n_rows, n_cols, cpb, spg)
-    return arrays, geometry, halo, rows_loc, perm
+    return arrays, geometry
 
 
 class HaloShardedWindowed(_RowSharded):
@@ -144,16 +197,14 @@ class HaloShardedWindowed(_RowSharded):
         """The matrix's nonzeros (JAX's nnz_true)."""
         return self.local.nnz_true
 
+    @tracing.spanned("lt.op.apply")
     def mm(self, X: torch.Tensor) -> torch.Tensor:
         """This rank's strip of A X: (p, n128) -> a new (p, n128) (a
         collective when halo > 0)."""
-        h, rl = self.halo, self.rows_loc
-        if h == 0:
+        if self.halo == 0:
             return self.local.padded_mm(X.contiguous())
-        work = X.clone(memory_format=torch.contiguous_format)
-        work[:, :h], work[:, h + rl : rl + 2 * h] = self.mesh.halo_strips(
-            X[:, h : h + rl], h)
-        return self.local.padded_mm(work)
+        return self.local.padded_mm(
+            self.mesh.halo_strip(X, self.halo, self.rows_loc, self.halo))
 
 
 def halo_sharded_windowed(a, mesh: Mesh, dtype=torch.float32, reorder: str = "auto",
@@ -164,16 +215,61 @@ def halo_sharded_windowed(a, mesh: Mesh, dtype=torch.float32, reorder: str = "au
     `mesh.device` (see `windowed_shard`).  A shard that cannot be planned
     raises PlanError on every rank of a mesh with a process group (one
     `Mesh.any`), so that every rank takes the same fallback."""
-    try:
+    def plan():
         arrays, geometry, halo, rows_loc, perm = windowed_shard(
             a, mesh.size, mesh.rank, np_dtype(dtype), reorder, cpb, spg, ppc_cap,
             wsz_cap, packer)
+        return arrays, geometry, halo, perm
+
+    return _planned(plan, mesh, mesh.group is not None, a.shape[0])
+
+
+def halo_sharded_windowed_rows(rows, n: int, mesh: Mesh, dtype=torch.float32,
+                               reorder: str = "none", cpb: int = 16,
+                               spg: int = 16) -> HaloShardedWindowed:
+    """This rank's `HaloShardedWindowed` of an n x n matrix from this
+    rank's rows alone (`shard_bounds(n, mesh.size, mesh.rank)`, a scipy
+    CSR with global columns), as a deployment builds it: no rank holds
+    the whole matrix.  Each rank's `rows_reach` and nonzeros meet in one
+    all-gather, which gives every rank the matrix's halo and nnz; the plan
+    is then `windowed_shard_rows`', bit for bit the one `windowed_shard`
+    packs from the whole matrix with reorder "none".  Only "none": a
+    reordering (RCM) needs the whole graph.  A PlanError on any rank is
+    every rank's, as in `halo_sharded_windowed`."""
+    if reorder != "none":
+        raise ValueError(
+            f"reorder={reorder!r}: a rank that builds from its own rows keeps the "
+            "natural order (RCM needs the whole graph); use halo_sharded_windowed")
+    rows = _as_2d_scipy(rows).tocsr()
+    lo, _ = shard_bounds(n, mesh.size, mesh.rank)
+    rows_loc = shard_rows(n, mesh.size, LANES)
+    halo, nnz = rows_reach(rows, lo, rows_loc), rows.nnz
+    if mesh.size > 1:
+        mine = torch.tensor([halo, nnz], dtype=torch.int64, device=mesh.device)
+        every = mesh.all_gather(mine).cpu()
+        halo, nnz = int(every[:, 0].max()), int(every[:, 1].sum())
+
+    def plan():
+        arrays, geometry = windowed_shard_rows(
+            rows, n, mesh.size, mesh.rank, halo, nnz, np_dtype(dtype), cpb, spg)
+        return arrays, geometry, halo, None
+
+    return _planned(plan, mesh, mesh.size > 1, n)
+
+
+def _planned(plan, mesh: Mesh, agree: bool, n: int) -> HaloShardedWindowed:
+    """The operator of `plan()` ((arrays, geometry, halo, perm)) on this
+    rank; with `agree`, a PlanError on any rank is raised on every rank
+    (one `Mesh.any`)."""
+    try:
+        arrays, geometry, halo, perm = plan()
         error = None
     except PlanError as e:
         error = e
-    if mesh.group is not None and mesh.any(error is not None) and error is None:
+    if agree and mesh.any(error is not None) and error is None:
         error = PlanError("another rank's shard exceeds the plan's caps")
     if error is not None:
         raise error
     local = WindowedEllMatrix(*arrays, None, **geometry, device=mesh.device)
-    return HaloShardedWindowed(local, mesh, a.shape[0], rows_loc, halo, perm)
+    rows_loc = geometry["n_rows_true"] - halo
+    return HaloShardedWindowed(local, mesh, n, rows_loc, halo, perm)

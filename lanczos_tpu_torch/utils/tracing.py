@@ -22,6 +22,12 @@ only (the trace names each kernel):
   lt.tsqr                            one TSQR (T1's tree)
   lt.op.apply                        one operator product
   lt.graph.capture, lt.graph.replay  a CUDA-graph recording; one replay(k)
+  lt.mesh.halo                       a halo exchange of a sharded operator
+                                     (`parallel/mesh.py`), with the
+                                     windowed shard's work copy
+  lt.mesh.reduce, lt.mesh.gather     an all-reduce, an all-gather
+  lt.mesh.any                        a flag agreed over the ranks: the
+                                     all-reduce and its host read
 
 A device op belongs to the innermost span around the host call that
 launched it (the trace ties the two by their `correlation` id; a graph's
@@ -40,6 +46,13 @@ The counters are always on, as `build.LAUNCHES` is:
                    tree and the gathered R stack's); the rest ran its
                    plain version
   lanczos.steps (the iterations after the prologue), fdtd.steps
+  mesh.halo        halo exchanges; mesh.halo_bytes the bytes this rank
+                   sent in them
+  mesh.reduce, mesh.gather, mesh.any
+                   the mesh's other collectives, one a call
+
+One device has no mesh, so its paths make none of the `mesh` spans or
+counts.
 
 `COUNTERS` holds them since the process started; `PROFILED` the part of
 them made while a torch profiler recorded, so the counts of a profiled

@@ -6,7 +6,7 @@ dist_windowed.py`) in one process: every rank's shard built with a
 tests/test_dist_windowed.py's fixtures (`torch_parallel_cases.
 windowed_matrices`), with JAX's cpb=2, spg=2.  Each rank's product runs on
 a work strip whose halo slots are filled by hand from the neighbours'
-rows (what `Mesh.halo_strips` moves between ranks); the exchange itself,
+rows (what `Mesh.halo_strip` moves between ranks); the exchange itself,
 Lanczos, eigsh, io and the checkpoint run on gloo ranks in
 tests/test_torch_parallel.py's one spawn per world size.
 
