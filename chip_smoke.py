@@ -52,6 +52,10 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    timed beside the plain version and the batched torch.linalg.qr tree
    it replaced.  Then the plain version where it runs on the card (p=32
    float32, p=8 bfloat16, 1,048,576 rows), timed, with no T1 launch;
+4c. cgs2: C1, the CGS2 kernels, on that (8, n128) float32 state against
+   12 stored blocks (the eigsh's largest call) against its plain version
+   (CGS2_RTOL), its launches the plan's, two calls bit-equal; timed
+   beside the plain version (the two torch.mm passes it replaced);
 5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
    through K1-K5 and S1 (the stencil_gram count equals m - 2: the fused
@@ -273,6 +277,8 @@ REPLACES = {
     "jacobi_sqrtm": "lanczos_tpu/ops/smalleig.py:44",
     # no Pallas kernel: a vmapped jnp.linalg.qr over 8 chunks
     "tsqr": "lanczos_tpu/ops/tsqr.py:35",
+    # no Pallas kernel: two pairs of jnp.einsum
+    "cgs2": "lanczos_tpu/methods/block_lanczos.py:339",
 }
 # the kernels with a row of their own at p=1: K1, K2 and K3 run at p=1 in
 # every step of the vector slice and K5 in every step of its FDTD, K8 in
@@ -930,6 +936,72 @@ def t1_ops(n, p):
     columns, updates and product (5 p^2); the levels above the leaves add
     under 1%."""
     return 7 * p * p * n
+
+
+# C1 against its plain version: the same CGS2 with its sums in another
+# order (tests/test_torch_cgs2_kernel.py's f32 tolerance, of max |w|), on
+# the eigsh's largest call: 12 stored blocks of (8, n128)
+CGS2_RTOL, CGS2_BLOCKS = 1e-5, 12
+
+
+def c1_ops(b, p, n):
+    """C1's operations a call: two Grams and two updates of b p rows
+    against p columns, 2 b p^2 each a row."""
+    return 8 * b * p * p * n
+
+
+def c1_launches(sharded=False):
+    """C1's launches in the assembled eigsh (reorth full with breakdown_eps
+    > 0: the q-side cleanup against j blocks and the residual's pass
+    against j + 1, j = 1..m-1), each call its plan's."""
+    from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2_plan
+
+    return sum(cgs2_plan(j, P_ASSEMBLED, 4).launches()
+               + cgs2_plan(j + 1, P_ASSEMBLED, 4).launches()
+               for j in range(1, M_ASSEMBLED))
+
+
+def phase_cgs2(torch, build, results, failures, assembled):
+    """C1 (ops/kernels/cgs2.py cgs2) on a (P_ASSEMBLED, A.n128) float32
+    block against CGS2_BLOCKS near-orthonormal stored blocks, against
+    cgs2_plain, the two torch.mm passes it replaced, op for op; timed
+    beside it."""
+    from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2, cgs2_plain, cgs2_plan
+
+    n, p, b = assembled["A"].n128, P_ASSEMBLED, CGS2_BLOCKS
+    g = torch.Generator(device="cuda").manual_seed(29)
+    w = torch.randn((p, n), generator=g, device="cuda", dtype=torch.float32)
+    basis = torch.randn((b, p, n), generator=g, device="cuda",
+                        dtype=torch.float32) / n ** 0.5
+    plan = cgs2_plan(b, p, w.element_size())
+    build.reset_launches()
+    got = cgs2(w, basis)
+    again = cgs2(w, basis)
+    torch.cuda.synchronize()
+    launches = build.LAUNCHES["cgs2"]
+    err = compare(torch, got, cgs2_plain(w, basis), CGS2_RTOL)[0]
+    rel = err / float(w.abs().max())
+    ok = math.isfinite(err) and rel <= CGS2_RTOL and torch.equal(got, again)
+    ms = cuda_ms(torch, lambda: cgs2(w, basis))
+    # the plain version is the two torch.mm passes C1 replaced, op for op:
+    # its time is the library's
+    plain_ms = library_ms = cuda_ms(torch, lambda: cgs2_plain(w, basis), iters=5)
+    nbytes = (3 * b + 5) * p * n * w.element_size()
+    log(f"  C1 cgs2 p={p} b={b} n={n} float32 (stages {plan.stages}, chunks "
+        f"{plan.chunks}, {launches} launches for two calls): vs plain {err:.3e} "
+        f"({rel:.3e} of max |w|, tol {CGS2_RTOL:g}), two calls bit-equal "
+        f"{torch.equal(got, again)}; {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
+        f"plain (the two torch.mm passes) {plain_ms:.4f} ms")
+    if not ok:
+        failures.append(f"C1 disagrees with its plain version ({rel:.3e} of "
+                        f"max |w|) or repeats other bits")
+    if launches != 2 * plan.launches():
+        failures.append(f"C1 launched {launches} times for two calls, its plan "
+                        f"{2 * plan.launches()}")
+    results.setdefault("rows", {})["cgs2"] = kernel_row(
+        "cgs2", err, ms, plain_ms, nbytes, c1_ops(b, p, n), "float32", library_ms)
+    del w, basis, got, again
+    torch.cuda.empty_cache()
 
 
 def phase_tsqr(torch, build, results, failures, assembled):
@@ -1798,7 +1870,10 @@ def phase_assembled_slice(torch, build, results, failures, assembled):
     if launches["tsqr"] != t1_launches(A.n128):
         failures.append(f"assembled slice: T1 launched {launches['tsqr']} times, "
                         f"expected {t1_launches(A.n128)}")
-    if any(c for k, c in launches.items() if k not in ("windowed_spmm", "tsqr")):
+    if launches["cgs2"] != c1_launches():
+        failures.append(f"assembled slice: C1 launched {launches['cgs2']} times, "
+                        f"expected {c1_launches()}")
+    if any(c for k, c in launches.items() if k not in ("windowed_spmm", "tsqr", "cgs2")):
         failures.append(f"assembled slice: another kernel launched: {launches}")
     if not (np.all(np.isfinite(vals_h)) and np.all(resid_h < RESID_BOUND)):
         failures.append(f"assembled slice: Ritz values {vals_h} / residuals "
@@ -2719,13 +2794,15 @@ def phase_multidevice_windowed(torch, build, results, failures, assembled):
         f"{r['dryrun_s']:.2f} s, top Ritz halo ELL / windowed {r['dryrun_top']}")
     log("  nvidia-smi:", nvidia_smi_line())
     others = {k: c for k, c in r["launches"].items()
-              if c and k not in ("windowed_spmm", "tsqr")}
+              if c and k not in ("windowed_spmm", "tsqr", "cgs2")}
     t1 = t1_launches(r["n_state"], sharded=True)
     if (r["in_recurrence"] != M_ASSEMBLED or r["launches"]["windowed_spmm"] != M_ASSEMBLED + 1
-            or r["launches"]["tsqr"] != t1 or others):
+            or r["launches"]["tsqr"] != t1 or r["launches"]["cgs2"] != c1_launches()
+            or others):
         failures.append(f"multidevice windowed: launches {r['launches']} "
                         f"({r['in_recurrence']} in the recurrence), expected K8 "
-                        f"{M_ASSEMBLED} and {M_ASSEMBLED + 1}, T1 {t1} and nothing else")
+                        f"{M_ASSEMBLED} and {M_ASSEMBLED + 1}, T1 {t1}, C1 "
+                        f"{c1_launches()} and nothing else")
     if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
             and np.all(resid < RESID_BOUND)):
         failures.append(f"multidevice windowed: Ritz {vals} (rel {r['ritz_rel']}), "
@@ -2974,9 +3051,10 @@ def phase_multidevice_ell(torch, build, results, failures, assembled):
         f"{ {k: v[0][1] for k, v in r['resumed'].items()} }")
     log("  nvidia-smi:", nvidia_smi_line())
     t1 = t1_launches(r["n_state"], sharded=True)
-    if any(c for k, c in r["launches"].items() if k != "tsqr") or r["launches"]["tsqr"] != t1:
+    if (any(c for k, c in r["launches"].items() if k not in ("tsqr", "cgs2"))
+            or r["launches"]["tsqr"] != t1 or r["launches"]["cgs2"] != c1_launches()):
         failures.append(f"multidevice ell: launches {r['launches']}, expected T1 "
-                        f"{t1} and no other repo kernel")
+                        f"{t1}, C1 {c1_launches()} and no other repo kernel")
     if not (np.all(np.isfinite(vals)) and r["ritz_rel"] <= EIGSH_RTOL
             and np.all(resid < RESID_BOUND)):
         failures.append(f"multidevice ell: Ritz {vals} (rel {r['ritz_rel']}), "
@@ -3048,6 +3126,7 @@ def main() -> int:
         ("windowed kernel",
          lambda: phase_windowed_kernel(torch, results, failures, assembled)),
         ("tsqr", lambda: phase_tsqr(torch, build, results, failures, assembled)),
+        ("cgs2", lambda: phase_cgs2(torch, build, results, failures, assembled)),
         ("block slice",
          lambda: phase_block_slice(torch, build, results, failures)),
         ("fdtd graph",

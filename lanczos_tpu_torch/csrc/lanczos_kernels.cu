@@ -20,7 +20,9 @@
 // the JAX package: its jitted `jacobi_eigh`), takes all three; on bf16 it
 // rounds every op to bf16, as torch's bf16 ops do (see its section).  T1,
 // the Householder TSQR of a block (no Pallas kernel either: JAX's vmapped
-// `jnp.linalg.qr`), takes float32 and float64 (see its section).
+// `jnp.linalg.qr`), takes float32 and float64 (see its section); so does
+// C1, the CGS2 of a block against the stored Krylov basis (none either:
+// JAX's two pairs of jnp.einsum).
 //
 // K1-K7 stream the block state, (p, 6, Zc, P) per block (K6 any number of
 // (Zc, P) fields), and do a handful of flops per element, so device memory
@@ -2396,6 +2398,396 @@ __global__ void __launch_bounds__(kTsqrThreads,
 }
 
 // ---------------------------------------------------------------------------
+// C1: CGS2 of a block-major (p, S) block w against b stored blocks of the
+// Krylov basis, Q (K = b p rows of S), as one schedule of three passes
+// (ops/kernels/cgs2.py; the caller sums c1 and c2 over the ranks between
+// them):
+//   A  cgs2_kernel<GRAM>:         c1 = Q w^T (K x p)
+//   B  cgs2_kernel<UPDATE_GRAM>:  w' = w - c1^T Q, and c2 = Q w'^T summed
+//                                 from the same staged tile of Q
+//   C  cgs2_kernel<UPDATE>:       w'' = w' - c2^T Q, in place on w'
+//
+// Replaces no Pallas kernel: the JAX package's block_cgs2 is two pairs of
+// jnp.einsum (lanczos_tpu/methods/block_lanczos.py:339), which the port
+// ran as two torch.mm passes: a library SGEMM for the Gram, another for
+// Q^T c, and a block-sized subtract, (4b + 10) blocks of traffic a call
+// (a block S: p rows of the state).
+//
+// Bound: device memory.  Each pass reads Q once: A moves (b + 1) S, B
+// (b + 2) S (Q and w read, w' written), C (b + 2) S, so a call (3b + 5) S:
+// at p = 8, b = 12 and 10,485,760 rows in f32, 41 x 335.5 MB (4.11 ms at
+// 3.35 TB/s).  The Gram of pass B saves a fourth pass, a whole read of Q
+// and of w' ((b + 1) S), against an unfused A / C / A / C; its 2 K p
+// flops an element of w are far below the card's f32 rate.  Design:
+// * persistent blocks of kCgs2Threads threads, one an SM, each owning a
+//   contiguous run of tiles of kCgs2Vectors 16-byte vectors of every row
+//   (128 positions in f32, 64 in f64);
+// * a tile's K + p rows are staged in shared memory by cp.async in a ring
+//   of `stages` (2..4) slots, stages - 1 tiles in flight ahead of the one
+//   computed; copies past S fill zeros, so a ragged tail adds nothing;
+// * a thread is (vector v = lane, column quad jq, k-slice ks), its warp
+//   (jq, ks).  The update sums c[k][4 jq .. 4 jq + 3] Q[k][v] over its
+//   slice's rows k = ks, ks + slices, ... (each coefficient a shared-memory
+//   broadcast); the slices' partials meet in shared memory and are added
+//   in slice order.  Pass B writes w' to device memory and over the
+//   tile's w rows, and its Gram then reads Q from the same slot, so Q
+//   leaves shared memory once;
+// * the Gram sums Q[k][v] w[4 jq + j][v] over the same rows into registers
+//   (kCgs2SliceRows<T> rows a slice at most, so K <= slices x that; more
+//   rows take chunks of blocks, the wrapper's plan), held over the block's
+//   whole run and reduced once: the lanes by a fixed shuffle tree, then the
+//   blocks' partials in block order by the grid's last block (a ticket, as
+//   K3's).
+// Sums in the block's own type (f32 or f64), no float atomics: the same
+// input gives the same bits.  Against two torch.mm passes only the order
+// of the sums differs.
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 4.92 ms a call at
+// b = 12, p = 8, 10,518,528 rows f32, 84% of its bound, against 12.00 ms for
+// the two torch.mm passes.  Pass B is the slowest (76% of its bound: its
+// shared-memory traffic, not its bytes, sets it), and a call against b <= 4
+// blocks runs at 40-65% (a tile's fixed cost of barriers and short sums).
+
+constexpr int kCgs2Threads = 512;  // ops/kernels/cgs2.py THREADS
+constexpr int kCgs2Warps = kCgs2Threads / 32;
+constexpr int kCgs2Vectors = 32;  // ops/kernels/cgs2.py VECTORS
+constexpr int kCgs2Cols = 4;      // ops/kernels/cgs2.py COLS
+constexpr int kCgs2MaxP = 16;     // ops/kernels/cgs2.py MAX_P
+// ops/kernels/cgs2.py MAX_STAGES: deeper rings ran no faster (H100, p = 8,
+// b = 1 and 4: 6 stages took 2.040 and 2.696 ms a call, 8 stages 2.088 and
+// 2.743; PERF.md)
+constexpr int kCgs2MaxStages = 6;
+enum { kCgs2Gram = 0, kCgs2Update = 1, kCgs2UpdateGram = 2 };
+
+// Basis rows a k-slice takes: kCgs2Cols x that Gram accumulators a thread,
+// 64 registers (ops/kernels/cgs2.py slice_rows)
+template <typename T>
+__host__ __device__ constexpr int cgs2_slice_rows() {
+  return sizeof(T) == 4 ? 16 : 8;
+}
+
+// Dynamic shared memory of a launch (ops/kernels/cgs2.py smem_bytes): the
+// ring of rows + pw staged rows of kCgs2Vectors 16-byte vectors, the
+// update's partials (a row a warp and column) and the coefficients (rows x
+// pw).
+__host__ __device__ inline long long cgs2_smem_bytes(int rows, int pw,
+                                                     int stages,
+                                                     int itemsize) {
+  const long long row = kCgs2Vectors * 16;
+  return stages * (rows + pw) * row + kCgs2Warps * kCgs2Cols * row +
+         (long long)rows * pw * itemsize;
+}
+
+// cp.async of BYTES (16: .cg, 4 or 8: .ca), zero-filled where `in` is
+// false (nothing is read then).
+template <int BYTES>
+__device__ __forceinline__ void cp_async_zfill(void* smem, const void* gmem,
+                                               bool in) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  const int n = in ? BYTES : 0;
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+                 "l"(gmem), "n"(BYTES), "r"(n)
+                 : "memory");
+}
+
+// Waits until at most n of this thread's cp.async groups are open (n <=
+// kCgs2MaxStages - 2).
+__device__ __forceinline__ void cp_async_wait_open(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    default: cp_async_wait<4>(); break;
+  }
+}
+
+// One 16-byte vector (VEC = 16 / sizeof(T) elements) of shared memory.
+template <typename T>
+struct Cgs2Vec {
+  static constexpr int VEC = 16 / sizeof(T);
+  T v[VEC];
+
+  __device__ __forceinline__ void load(const T* p) {
+    if constexpr (sizeof(T) == 4) {
+      const float4 f = *reinterpret_cast<const float4*>(p);
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
+    } else {
+      const double2 d = *reinterpret_cast<const double2*>(p);
+      v[0] = d.x;
+      v[1] = d.y;
+    }
+  }
+
+  __device__ __forceinline__ void store(T* p) const {
+    if constexpr (sizeof(T) == 4)
+      *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+    else
+      *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+  }
+};
+
+// Half of a warp's M sums of a[0..M-1] over the lane pairs lane, lane ^ o:
+// a lane with bit o keeps the upper half, the other the lower, each adding
+// its partner's copy, into a[0..M/2-1].  Five folds (o = 16 .. 1) leave
+// lane L the warp's totals of entries (M / 32) L .. (M / 32) (L + 1) - 1.
+template <typename T, int M>
+__device__ __forceinline__ void cgs2_fold(T* a, int lane, int o) {
+#pragma unroll
+  for (int i = 0; i < M / 2; ++i) {
+    const bool up = lane & o;
+    const T send = up ? a[i] : a[i + M / 2];
+    const T keep = up ? a[i + M / 2] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+  }
+}
+
+// One pass of the schedule over `rows` basis rows q (rows, S) and w (p,
+// S).  UPDATE kinds: out = w - coeff^T q (coeff rows x p; out may be w).
+// GRAM kinds: gram = q x^T (rows x p), x = w, or out for UPDATE_GRAM;
+// partial holds gridDim.x * rows * p, and ticket is 0 at launch and again
+// when the kernel ends.  pw = p rounded up to kCgs2Cols, slices =
+// kCgs2Warps / (pw / kCgs2Cols), rows <= slices x cgs2_slice_rows<T>().
+// Shared memory holds 16-byte vectors either way; ALIGNED (every row
+// 16-byte aligned) copies a vector at once, else element by element.
+template <typename T, bool ALIGNED, int KIND>
+__global__ void __launch_bounds__(kCgs2Threads, 1)
+    cgs2_kernel(const T* __restrict__ q, int rows, const T* w, int p, int pw,
+                int slices, long long S, int stages,
+                const T* __restrict__ coeff, T* out,
+                T* __restrict__ partial, unsigned* __restrict__ ticket,
+                T* __restrict__ gram) {
+  constexpr bool kUpdate = KIND != kCgs2Gram, kGram = KIND != kCgs2Update;
+  constexpr int VEC = Cgs2Vec<T>::VEC;
+  constexpr int RS = kCgs2Vectors * VEC;  // elements of a staged row
+  constexpr int SR = cgs2_slice_rows<T>();
+  // all of it dynamic: a static byte would exceed the opt-in maximum that
+  // allow_shared_memory grants the dynamic part
+  extern __shared__ __align__(16) unsigned char cgs2_smem[];
+  T* ring = reinterpret_cast<T*>(cgs2_smem);
+  const int slot_elems = (rows + pw) * RS;
+  T* red = ring + stages * slot_elems;  // [slice][pw][RS]
+  T* cf = red + kCgs2Warps * kCgs2Cols * RS;  // [rows][pw]
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int quads = pw / kCgs2Cols;
+  // warp (jq, ks); at three quads (p = 9..12) the last warp only stages
+  const int jq = warp % quads, ks = warp / quads;
+  const int kps = ks < slices && ks < rows ? (rows - ks + slices - 1) / slices : 0;
+
+  // this block's tiles: a contiguous run of n from t0 (handing them out
+  // block by block in turn ran no faster; PERF.md)
+  const long long ntiles = (S + RS - 1) / RS;
+  const long long t0 = ntiles * blockIdx.x / gridDim.x;
+  const int n = (int)(ntiles * (blockIdx.x + 1) / gridDim.x - t0);
+
+  // rows p..pw-1 of every slot stay zero; the coefficients, zero past p
+  for (int s = 0; s < stages; ++s)
+    for (int i = threadIdx.x; i < (pw - p) * RS; i += kCgs2Threads)
+      ring[s * slot_elems + (rows + p) * RS + i] = T(0);
+  if constexpr (kUpdate)
+    for (int i = threadIdx.x; i < rows * pw; i += kCgs2Threads) {
+      const int k = i / pw, j = i % pw;
+      cf[i] = j < p ? coeff[k * p + j] : T(0);
+    }
+
+  // tile t into slot s: this thread copies vector `lane` of rows warp,
+  // warp + kCgs2Warps, ... of q, and of w's row `warp`
+  auto stage = [&](long long t, int s) {
+    T* dst = ring + s * slot_elems + warp * RS + lane * VEC;
+    const long long e = t * RS + lane * VEC;
+    auto copy = [&](T* d, const T* src) {
+      if constexpr (ALIGNED) {
+        cp_async_zfill<16>(d, src + (e < S ? e : 0), e < S);
+      } else {
+#pragma unroll
+        for (int i = 0; i < VEC; ++i)
+          cp_async_zfill<sizeof(T)>(d + i, src + (e + i < S ? e + i : 0),
+                                    e + i < S);
+      }
+    };
+    const T* src = q + warp * S;
+    for (int r = warp; r < rows; r += kCgs2Warps) {
+      copy(dst, src);
+      dst += kCgs2Warps * RS;
+      src += kCgs2Warps * S;
+    }
+    if (warp < p) copy(ring + s * slot_elems + (rows + warp) * RS + lane * VEC, w + warp * S);
+  };
+
+  // the Gram: each thread's sums over its vector of 32 tiles at most
+  // (acc), folded over the warp's lanes into the lanes' totals (tot, entry
+  // (NA / 32) lane + r of acc), so no sum runs over more than 32 tiles
+  constexpr int NA = SR * kCgs2Cols;
+  T acc[SR][kCgs2Cols], tot[NA / 32];
+#pragma unroll
+  for (int kk = 0; kk < SR; ++kk)
+#pragma unroll
+    for (int j = 0; j < kCgs2Cols; ++j) acc[kk][j] = T(0);
+#pragma unroll
+  for (int r = 0; r < NA / 32; ++r) tot[r] = T(0);
+  auto fold = [&] {
+    T* a = &acc[0][0];
+    cgs2_fold<T, NA>(a, lane, 16);
+    cgs2_fold<T, NA / 2>(a, lane, 8);
+    cgs2_fold<T, NA / 4>(a, lane, 4);
+    cgs2_fold<T, NA / 8>(a, lane, 2);
+    cgs2_fold<T, NA / 16>(a, lane, 1);
+#pragma unroll
+    for (int r = 0; r < NA / 32; ++r) tot[r] += a[r];
+#pragma unroll
+    for (int i = 0; i < NA; ++i) a[i] = T(0);
+  };
+
+  for (int s = 0; s + 1 < stages; ++s) {
+    if (s < n) stage(t0 + s, s);
+    cp_async_commit();  // one group a tile, empty past the run
+  }
+  for (int i = 0; i < n; ++i) {
+    cp_async_wait_open(stages - 2);  // tile i's copies have landed
+    // every thread is done with tile i - 1: its slot takes tile i +
+    // stages - 1, and the partials are free
+    __syncthreads();
+    if (i + stages - 1 < n) stage(t0 + i + stages - 1, (i + stages - 1) % stages);
+    cp_async_commit();
+    const T* slot = ring + (i % stages) * slot_elems;
+    T* ws = ring + (i % stages) * slot_elems + rows * RS;
+    const T* qk = slot + ks * RS + lane * VEC;  // row ks + kk slices: + kk * qstep
+    const int qstep = slices * RS;
+    if constexpr (kUpdate) {
+      T part[kCgs2Cols][VEC];
+#pragma unroll
+      for (int j = 0; j < kCgs2Cols; ++j)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) part[j][e] = T(0);
+#pragma unroll
+      for (int kk = 0; kk < SR; ++kk) {
+        if (kk == kps) break;  // a warp-uniform exit: no test past kps
+        Cgs2Vec<T> qv;
+        qv.load(qk + kk * qstep);
+        T c[kCgs2Cols];
+        lds4(cf + (ks + kk * slices) * pw + jq * kCgs2Cols, c);
+#pragma unroll
+        for (int j = 0; j < kCgs2Cols; ++j)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) part[j][e] = fma(c[j], qv.v[e], part[j][e]);
+      }
+      if (ks < slices) {
+#pragma unroll
+        for (int j = 0; j < kCgs2Cols; ++j) {
+          Cgs2Vec<T> pv;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) pv.v[e] = part[j][e];
+          pv.store(red + (ks * pw + jq * kCgs2Cols + j) * RS + lane * VEC);
+        }
+      }
+      __syncthreads();
+      // the slices' partials in slice order; w - their sum, out and (B)
+      // the tile's w rows
+      const long long tile = t0 + i;
+      for (int o = threadIdx.x; o < p * kCgs2Vectors; o += kCgs2Threads) {
+        const int j = o / kCgs2Vectors, v = o % kCgs2Vectors;
+        Cgs2Vec<T> sum, x;
+        sum.load(red + j * RS + v * VEC);
+        for (int z0 = 1; z0 < slices; z0 += 4) {
+          Cgs2Vec<T> y[4];  // four loads in flight, then added in order
+#pragma unroll
+          for (int z = 0; z < 4; ++z)
+            if (z0 + z < slices) y[z].load(red + ((z0 + z) * pw + j) * RS + v * VEC);
+#pragma unroll
+          for (int z = 0; z < 4; ++z)
+            if (z0 + z < slices)
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) sum.v[e] += y[z].v[e];
+        }
+        x.load(ws + j * RS + v * VEC);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x.v[e] -= sum.v[e];
+        const long long e0 = tile * RS + v * VEC;
+        T* dst = out + j * S + e0;
+        if constexpr (ALIGNED) {
+          if (e0 < S) x.store(dst);
+        } else {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e)
+            if (e0 + e < S) dst[e] = x.v[e];
+        }
+        if constexpr (kGram) x.store(ws + j * RS + v * VEC);
+      }
+      if constexpr (kGram) __syncthreads();
+    }
+    if constexpr (kGram) {
+      T x[kCgs2Cols][VEC];
+#pragma unroll
+      for (int j = 0; j < kCgs2Cols; ++j) {
+        Cgs2Vec<T> xv;
+        xv.load(ws + (jq * kCgs2Cols + j) * RS + lane * VEC);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x[j][e] = xv.v[e];
+      }
+#pragma unroll
+      for (int kk = 0; kk < SR; ++kk) {
+        if (kk == kps) break;
+        Cgs2Vec<T> qv;
+        qv.load(qk + kk * qstep);
+        // the vector's products summed apart, then added: the running sum
+        // takes one add a tile
+#pragma unroll
+        for (int j = 0; j < kCgs2Cols; ++j) {
+          T t = qv.v[0] * x[j][0];
+#pragma unroll
+          for (int e = 1; e < VEC; ++e) t = fma(qv.v[e], x[j][e], t);
+          acc[kk][j] += t;
+        }
+      }
+      if ((i & 31) == 31) fold();
+    }
+  }
+  cp_async_wait<0>();  // only empty groups can still be open
+  if constexpr (kGram) {
+    fold();  // the last tiles; lane L holds entries (NA / 32) L + r
+    const int nout = rows * p;
+    T* part = partial + (long long)blockIdx.x * nout;
+#pragma unroll
+    for (int r = 0; r < NA / 32; ++r) {
+      const int f = NA / 32 * lane + r, kk = f / kCgs2Cols;
+      const int j = jq * kCgs2Cols + f % kCgs2Cols;
+      if (kk < kps && j < p) part[(ks + kk * slices) * p + j] = tot[r];
+    }
+    // the last block to finish adds every block's partials in block order,
+    // sixteen blocks at a time (its flag in the partials' shared memory,
+    // which no thread reads any more)
+    unsigned* last = reinterpret_cast<unsigned*>(red);
+    __threadfence();
+    __syncthreads();
+    if (threadIdx.x == 0) *last = atomicAdd(ticket, 1u) == gridDim.x - 1;
+    __syncthreads();
+    if (!*last) return;
+    for (int o = threadIdx.x; o < nout; o += kCgs2Threads) {
+      T s = T(0);
+      for (unsigned b0 = 0; b0 < gridDim.x; b0 += 16) {
+        T y[16];  // sixteen loads in flight, then their sum in order
+#pragma unroll
+        for (int b = 0; b < 16; ++b)
+          y[b] = b0 + b < gridDim.x ? __ldcg(partial + (long long)(b0 + b) * nout + o) : T(0);
+        T t = y[0];
+#pragma unroll
+        for (int b = 1; b < 16; ++b) t += y[b];
+        s += t;
+      }
+      gram[o] = s;
+    }
+    if (threadIdx.x == 0) *ticket = 0u;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // Launchers.
 
 inline int finish() { return (int)cudaGetLastError(); }
@@ -3051,6 +3443,62 @@ int tsqr_width(const void* x, void* q, void* r, void* work,
   return (int)cudaErrorInvalidValue;
 }
 
+// One C1 pass: its shared-memory attributes set once per device, then the
+// launch.
+template <typename T, bool ALIGNED, int KIND>
+int cgs2_go(const T* q, int rows, const T* w, int p, int pw, int slices,
+            long long S, int stages, long long smem, const T* coeff, T* out,
+            T* partial, int nblocks, unsigned* ticket, T* gram,
+            cudaStream_t st) {
+  static unsigned long long prepared = 0;
+  const auto kernel = cgs2_kernel<T, ALIGNED, KIND>;
+  const int err = allow_shared_memory(kernel, prepared);
+  if (err) return err;
+  kernel<<<nblocks, kCgs2Threads, (size_t)smem, st>>>(
+      q, rows, w, p, pw, slices, S, stages, coeff, out, partial, ticket, gram);
+  return finish();
+}
+
+// C1's plan (ops/kernels/cgs2.py cgs2_plan), rechecked: pw is p rounded
+// up to kCgs2Cols, slices = kCgs2Warps / (pw / kCgs2Cols), at most slices
+// x cgs2_slice_rows<T>() rows, 2..kCgs2MaxStages stages, and `smem` holds
+// the ring, the partials and the coefficients.
+template <typename T, bool ALIGNED>
+int cgs2_pass(int kind, const void* q, int rows, const void* w, int p,
+              void* out, const void* coeff, void* gram, void* partial,
+              int nblocks, void* ticket, long long S, int pw, int slices,
+              int stages, long long smem, cudaStream_t st) {
+  if (p < 1 || p > kCgs2MaxP ||
+      pw != (p + kCgs2Cols - 1) / kCgs2Cols * kCgs2Cols ||
+      slices != kCgs2Warps / (pw / kCgs2Cols) || rows < 1 ||
+      rows > slices * cgs2_slice_rows<T>() || S < 1 ||
+      (ALIGNED && S % (16 / (long long)sizeof(T))) || stages < 2 ||
+      stages > kCgs2MaxStages || nblocks < 1 ||
+      cgs2_smem_bytes(rows, pw, stages, sizeof(T)) > smem)
+    return (int)cudaErrorInvalidValue;
+  const T* qt = static_cast<const T*>(q);
+  const T* wt = static_cast<const T*>(w);
+  const T* ct = static_cast<const T*>(coeff);
+  T *ot = static_cast<T*>(out), *gt = static_cast<T*>(gram);
+  T* pt = static_cast<T*>(partial);
+  unsigned* tk = static_cast<unsigned*>(ticket);
+  switch (kind) {
+    case kCgs2Gram:
+      return cgs2_go<T, ALIGNED, kCgs2Gram>(qt, rows, wt, p, pw, slices, S,
+                                            stages, smem, ct, ot, pt, nblocks,
+                                            tk, gt, st);
+    case kCgs2Update:
+      return cgs2_go<T, ALIGNED, kCgs2Update>(qt, rows, wt, p, pw, slices, S,
+                                              stages, smem, ct, ot, pt,
+                                              nblocks, tk, gt, st);
+    case kCgs2UpdateGram:
+      return cgs2_go<T, ALIGNED, kCgs2UpdateGram>(qt, rows, wt, p, pw, slices,
+                                                  S, stages, smem, ct, ot, pt,
+                                                  nblocks, tk, gt, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -3229,6 +3677,37 @@ int lt_tsqr(int dtype, const void* x, void* q, void* r, void* work,
       return tsqr_width<double>(x, q, r, work, levels, nlevels, p, width,
                                 tile, st);
   }
+  return kBadType;
+}
+
+// C1: one pass of CGS2 (kind 0 the Gram, 1 the update, 2 both) over the
+// `rows` basis rows q (rows, S) and the block w (p, S) of type dtype (0
+// or 1): gram = q w^T (rows x p); out = w - coeff^T q (out may be w);
+// kind 2 writes out and gram = q out^T.  aligned (every row starts on a
+// 16-byte boundary), pw, slices, stages, smem and the grid (nblocks, with
+// partial's nblocks x rows x p) are the wrapper's plan, rechecked here;
+// ticket is K3's word for this stream.
+int lt_cgs2(int dtype, int kind, const void* q, int rows, const void* w,
+            int p, void* out, const void* coeff, void* gram, void* partial,
+            int nblocks, void* ticket, long long S, int aligned, int pw,
+            int slices, int stages, long long smem, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32 && aligned)
+    return cgs2_pass<float, true>(kind, q, rows, w, p, out, coeff, gram,
+                                  partial, nblocks, ticket, S, pw, slices,
+                                  stages, smem, st);
+  if (dtype == kF32)
+    return cgs2_pass<float, false>(kind, q, rows, w, p, out, coeff, gram,
+                                   partial, nblocks, ticket, S, pw, slices,
+                                   stages, smem, st);
+  if (dtype == kF64 && aligned)
+    return cgs2_pass<double, true>(kind, q, rows, w, p, out, coeff, gram,
+                                   partial, nblocks, ticket, S, pw, slices,
+                                   stages, smem, st);
+  if (dtype == kF64)
+    return cgs2_pass<double, false>(kind, q, rows, w, p, out, coeff, gram,
+                                    partial, nblocks, ticket, S, pw, slices,
+                                    stages, smem, st);
   return kBadType;
 }
 

@@ -45,6 +45,7 @@ import dataclasses
 import torch
 
 from lanczos_tpu_torch.ops import precision  # noqa: F401  (full-f32 matmuls)
+from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2
 from lanczos_tpu_torch.ops.operator import state_trace
 from lanczos_tpu_torch.ops.smalleig import sqrtm_invsqrtm
 from lanczos_tpu_torch.ops.tsqr import tsqr_rows, tsqr_sharded
@@ -97,15 +98,15 @@ def _local(t):
 
 @tracing.spanned("lt.lanczos.reorth")
 def _cgs2(wv, basis, total=_local):
-    """W -= Q (Q^T W) over the given basis blocks (k, p, *state), twice;
-    `total` sums the coefficients over the ranks of a distributed state."""
+    """W -= Q (Q^T W) over the given basis blocks (k, p, *state), twice
+    (`ops/kernels/cgs2.py`: C1's three passes over the basis on a CUDA
+    float32/float64 state with p <= 16, else the same schedule in torch
+    ops); `total` sums the coefficients over the ranks of a distributed
+    state."""
     if basis.shape[0] == 0:
         return wv
-    qf = basis.reshape(-1, basis[0, 0].numel())
-    w = wv.reshape(wv.shape[0], -1)
-    for _ in range(2):
-        w = w - total(qf @ w.T).T @ qf
-    return w.reshape(wv.shape)
+    tracing.count("cgs2.calls")
+    return cgs2(wv, basis, total)
 
 
 def block_lanczos(

@@ -51,6 +51,7 @@ LAUNCHES = {
     "apply_stencil": 0,
     "jacobi_sqrtm": 0,
     "tsqr": 0,
+    "cgs2": 0,
     # the kernels that take bf16 states, counted apart on them
     "apply_stencil_pair bf16": 0,
     "block_mix bf16": 0,
@@ -95,6 +96,8 @@ _SIGNATURES = {
     "lt_sqrtm_invsqrtm": (_I, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _I,
                           _P),
     "lt_tsqr": (_I, _P, _P, _P, _P, _LLP, _I, _I, _I, _I, _P),
+    "lt_cgs2": (_I, _I, _P, _I, _P, _I, _P, _P, _P, _P, _I, _P, _LL, _I, _I, _I,
+                _I, _LL, _P),
 }
 
 _lib: ctypes.CDLL | None = None

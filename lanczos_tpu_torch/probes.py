@@ -10,6 +10,7 @@
     python -m lanczos_tpu_torch.probes --dist-windowed
     python -m lanczos_tpu_torch.probes --fdtd-graph
     python -m lanczos_tpu_torch.probes --tsqr
+    python -m lanczos_tpu_torch.probes --cgs2
 
 At the slice of `chip_smoke.py` (Maxwell N=160, m=6, p=4, receiver 20,
 f32), prints the card's name and power limit, then:
@@ -111,6 +112,17 @@ and at the 2,987.6 GB/s copy rate, each launch's device time from a
 `torch.profiler` trace of one call, and the factors' errors beside the
 library's (||A - QR|| / ||A||, max |Q^T Q - I|); then at f32 p = 8 the
 tiles of 512 and 256 rows against the plan's, in turns.
+
+With --cgs2 it prints only this: C1 (`ops/kernels/cgs2.py`) on random
+(p, 10,485,760) blocks against b stored blocks, at the assembled eigsh's
+f32 p = 8 for every b its request runs (1..12) and at b = 12 in f32 p =
+4, p = 16 and f64 p = 8: a call and its plain version `cgs2_plain` (the
+two torch.mm passes it replaced, op for op), timed by CUDA events in turns
+(kernel, plain, plain, kernel; 10 calls after 2 warm-up calls), with
+the bytes a call must move ((3b + 5) S, S one block), their bound at
+3.35 TB/s and at the 2,987.6 GB/s copy rate and each launch's device
+time from a `torch.profiler` trace of one call; then the sums over the
+eigsh request's 22 calls (b = 1..11 and 2..12).
 """
 
 from __future__ import annotations
@@ -827,15 +839,15 @@ TSQR_CASES = ((8, torch.float32), (4, torch.float32), (16, torch.float32),
 COPY_GBS = 2987.6  # PERF.md: the measured device copy rate
 
 
-def _launch_ms(fn) -> list:
-    """Device ms of each kernel one call of fn launches, in order."""
+def _launch_ms(fn, kernel: str = "tsqr") -> list:
+    """Device ms of each `kernel` launch one call of fn makes, in order."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     return [round(e.time_range.elapsed_us() / 1e3, 4) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA and "tsqr" in e.name]
+            if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.name]
 
 
 def probe_tsqr(dev) -> None:
@@ -873,6 +885,51 @@ def probe_tsqr(dev) -> None:
                 print(f"T1 p={p} f32 tile {tile}: {', '.join(f'{v:.4f}' for v in t)} ms",
                       flush=True)
         del x
+        torch.cuda.empty_cache()
+
+
+CGS2_ROWS = 10_485_760
+CGS2_CASES = ((8, torch.float32, tuple(range(1, 13))), (4, torch.float32, (12,)),
+              (16, torch.float32, (12,)), (8, torch.float64, (12,)))
+
+
+def probe_cgs2(dev) -> None:
+    from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2, cgs2_plain, cgs2_plan
+
+    g = torch.Generator(device=dev).manual_seed(23)
+    for p, dtype, bs in CGS2_CASES:
+        w = torch.randn((p, CGS2_ROWS), generator=g, device=dev, dtype=dtype)
+        basis = torch.randn((max(bs), p, CGS2_ROWS), generator=g, device=dev,
+                            dtype=dtype) / CGS2_ROWS ** 0.5
+        block_mb = p * CGS2_ROWS * w.element_size() / 1e6
+        ms, lib_ms = {}, {}
+        for b in bs:
+            q = basis[:b]
+            t = {"kernel": [], "plain": []}
+            for name in ("kernel", "plain", "plain", "kernel"):
+                fn = (lambda: cgs2(w, q)) if name == "kernel" else (lambda: cgs2_plain(w, q))
+                t[name].append(_ms(fn, iters=10))
+            ms[b], lib_ms[b] = min(t["kernel"]), min(t["plain"])
+            mb = (3 * b + 5) * block_mb
+            got, want = cgs2(w, q), cgs2_plain(w, q)
+            err = float((got - want).abs().max()) / float(w.abs().max())
+            plan = cgs2_plan(b, p, w.element_size())
+            print(f"C1 p={p} {str(dtype)[6:]} b={b} n={CGS2_ROWS} (stages {plan.stages}, "
+                  f"chunks {plan.chunks}): kernel {', '.join(f'{v:.4f}' for v in t['kernel'])} ms, "
+                  f"plain {', '.join(f'{v:.4f}' for v in t['plain'])} ms; "
+                  f"{mb:.1f} MB: bound {mb / 3.35e6 * 1e3:.4f}, at copy "
+                  f"{mb / COPY_GBS:.4f} ms, kernel at {mb / 3.35e6 * 1e3 / ms[b]:.1%} of the "
+                  f"bound; launches {plan.launches()} "
+                  f"({_launch_ms(lambda: cgs2(w, q), 'cgs2')} ms); vs plain {err:.2e} of scale",
+                  flush=True)
+        if len(bs) > 1:
+            calls = list(range(1, 12)) + list(range(2, 13))
+            print(f"C1 p={p} eigsh request (22 calls, b = 1..11 and 2..12): kernel "
+                  f"{sum(ms[b] for b in calls):.2f} ms, plain "
+                  f"{sum(lib_ms[b] for b in calls):.2f} ms, bound "
+                  f"{sum(3 * b + 5 for b in calls) * block_mb / 3.35e6 * 1e3:.2f} ms",
+                  flush=True)
+        del w, basis
         torch.cuda.empty_cache()
 
 
@@ -914,6 +971,9 @@ def main() -> None:
         return
     if "--tsqr" in sys.argv[1:]:
         probe_tsqr(dev)
+        return
+    if "--cgs2" in sys.argv[1:]:
+        probe_cgs2(dev)
         return
     probe_sqrtm(dev)
     op = PallasMaxwellOperator.create(N, N, N, device=dev)

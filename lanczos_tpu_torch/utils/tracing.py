@@ -17,7 +17,7 @@ only (the trace names each kernel):
   lt.lanczos.prologue                the first half-iteration
   lt.lanczos.step                    each later iteration
   lt.lanczos.coeffs                  the fused step's p x p algebra
-  lt.lanczos.reorth                  a CGS2 pass against the stored basis
+  lt.lanczos.reorth                  a CGS2 call against the stored basis
   lt.smalleig.sqrtm                  a p x p sqrtm / inv-sqrtm
   lt.tsqr                            one TSQR (T1's tree)
   lt.op.apply                        one operator product
@@ -45,6 +45,12 @@ The counters are always on, as `build.LAUNCHES` is:
                    p <= 16), one a TSQR, two a sharded one (the local
                    tree and the gathered R stack's); the rest ran its
                    plain version
+  cgs2.calls       CGS2 passes of the block recurrence against a non-empty
+                   stored basis (`methods/block_lanczos.py` _cgs2)
+  cgs2.kernel      the calls C1's kernels ran (`ops/kernels/cgs2.py` cgs2:
+                   a CUDA float32 or float64 block, p <= 16), three launches
+                   a call (more where the basis comes in chunks); the rest
+                   ran its plain version
   lanczos.steps (the iterations after the prologue), fdtd.steps
   mesh.halo        halo exchanges; mesh.halo_bytes the bytes this rank
                    sent in them

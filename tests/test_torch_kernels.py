@@ -19,6 +19,7 @@ from lanczos_tpu_torch.ops.kernels import (
     stencil_fdtd,
     stencil_gram,
 )
+from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2
 from lanczos_tpu_torch.ops.kernels.smalleig import jacobi_sqrtm, jacobi_sqrtm_plain
 from lanczos_tpu_torch.ops.kernels.tsqr import householder_tsqr
 from lanczos_tpu_torch.ops.kernels.stencil_kernel import (
@@ -128,11 +129,12 @@ def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
     apply_stencil(x, wz, wp, spec)
     jacobi_sqrtm(torch.eye(4) + 0.1)
     householder_tsqr(torch.randn((3, 50)))
+    cgs2(torch.randn((3, 50)), torch.randn((2, 3, 50)))
     assert all(v == 0 for v in build.LAUNCHES.values())
     assert set(build.LAUNCHES) == {
         "apply_stencil_pair", "block_mix", "block_grams",
         "apply_stencil_pair_gram", "fdtd_step", "block_grams_compensated",
-        "windowed_spmm", "apply_stencil", "jacobi_sqrtm", "tsqr",
+        "windowed_spmm", "apply_stencil", "jacobi_sqrtm", "tsqr", "cgs2",
         "apply_stencil_pair bf16", "block_mix bf16", "block_grams bf16",
         "block_grams_compensated bf16", "jacobi_sqrtm bf16",
     }

@@ -169,6 +169,9 @@ def test_eigsh_spans_and_tsqr_count(opts, tsqrs):
     # the products: the prologue's, one a step, the residuals' one
     assert names["lt.op.apply"] == M + 1
     assert names.get("lt.lanczos.reorth", 0) == (2 * (M - 1) if opts is QR_FULL else 0)
+    # each CGS2 call counted; the CPU runs its plain version
+    assert tracing.COUNTERS.get("cgs2.calls", 0) == names.get("lt.lanczos.reorth", 0)
+    assert "cgs2.kernel" not in tracing.COUNTERS
     for name, parents in spans:
         if name == "lt.tsqr":
             assert "lt.eigsh.block" in parents
@@ -282,10 +285,13 @@ def test_fdtd_host_launches_on_the_card(card):
 @pytest.mark.cuda
 def test_eigsh_host_launches_on_the_card(card):
     """p = 8, m = 12 with the benchmark's options: 12 products (K8) and
-    the residuals' one; 24 TSQRs on T1, the last (beta_m's) R alone."""
+    the residuals' one; 24 TSQRs on T1, the last (beta_m's) R alone; 22
+    CGS2 calls on C1 (the q-side cleanup against j blocks and the
+    residual's pass against j + 1, j = 1..11), three launches each."""
     op, b = _banded(8, n=20_000, device=card, dtype=torch.float32)
     got = _host_counts(lambda: _eigsh(op, b, m=12, **QR_FULL))
     plan = tsqr_plan(b[0].numel(), 8, 4)
     t1 = 23 * plan.launches() + plan.launches(False)
-    assert got["launches.host"] == 13 + t1
+    assert got["launches.host"] == 13 + t1 + 22 * 3
     assert got["tsqr.calls"] == got["tsqr.kernel"] == 24
+    assert got["cgs2.calls"] == got["cgs2.kernel"] == 22
