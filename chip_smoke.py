@@ -54,7 +54,8 @@ and PyTorch built for CUDA.  Phases, each of which must pass:
    float32, p=8 bfloat16, 1,048,576 rows), timed, with no T1 launch;
 4c. cgs2: C1, the CGS2 kernels, on that (8, n128) float32 state against
    12 stored blocks (the eigsh's largest call) against its plain version
-   (CGS2_RTOL), its launches the plan's, two calls bit-equal; timed
+   (CGS2_RTOL) and in max |Q w''^T| (at most twice the plain
+   version's), its launches the plan's, two calls bit-equal; timed
    beside the plain version (the two torch.mm passes it replaced);
 5. the block slice end to end through the CLI's `run`: N=160, m=6, p=4,
    --operator pallas, 2000 FDTD steps.  It checks that the path went
@@ -938,16 +939,36 @@ def t1_ops(n, p):
     return 7 * p * p * n
 
 
-# C1 against its plain version: the same CGS2 with its sums in another
-# order (tests/test_torch_cgs2_kernel.py's f32 tolerance, of max |w|), on
-# the eigsh's largest call: 12 stored blocks of (8, n128)
-CGS2_RTOL, CGS2_BLOCKS = 1e-5, 12
+# C1 against its plain version, on the eigsh's largest call: 12 stored
+# blocks of (8, n128), rows randn / sqrt(n), so K = 96 rows whose Gram is I
+# + E, E ~ n^-1/2.  The second pass's whole correction c2^T Q is then about
+# K / n ~ 9.1e-6 of max |w| (its largest entry as w's), so a C1 that skipped
+# it would differ from the plain version by that much; the two differ only
+# in the order of the sums, 8.3e-8 of max |w| (H100, 700 W).  CGS2_RTOL
+# lies between, 12x above the one and 9x below the other.  The
+# orthogonality max |Q w''^T| (tree sums in f64) is held to twice the plain
+# version's: one pass leaves max |E c1| ~ (K / n)^1/2, two |E E c1| ~ K / n,
+# so a missing second pass reads some 300x the plain version's
+CGS2_RTOL, CGS2_BLOCKS = 1e-6, 12
 
 
 def c1_ops(b, p, n):
     """C1's operations a call: two Grams and two updates of b p rows
     against p columns, 2 b p^2 each a row."""
     return 8 * b * p * p * n
+
+
+def c1_orthogonality(torch, qf, x):
+    """max |qf x^T| in float64, each entry a tree sum (torch.sum) of the
+    elementwise products, 16 rows of qf at a time: a matrix product's own
+    rounding over n would favour the path that sums in its order."""
+    worst = 0.0
+    for j in range(x.shape[0]):
+        xj = x[j].double()
+        for k0 in range(0, qf.shape[0], 16):
+            dots = (qf[k0:k0 + 16].double() * xj).sum(dim=1)
+            worst = max(worst, float(dots.abs().max()))
+    return worst
 
 
 def c1_launches(sharded=False):
@@ -964,8 +985,10 @@ def c1_launches(sharded=False):
 def phase_cgs2(torch, build, results, failures, assembled):
     """C1 (ops/kernels/cgs2.py cgs2) on a (P_ASSEMBLED, A.n128) float32
     block against CGS2_BLOCKS near-orthonormal stored blocks, against
-    cgs2_plain, the two torch.mm passes it replaced, op for op; timed
-    beside it."""
+    cgs2_plain, the two torch.mm passes it replaced, op for op, and in
+    orthogonality to the basis; timed beside it.  The bound counts (3b +
+    4) S a call, the least a CGS2 moves (C1's pass B writes w' for pass C
+    to read, (3b + 5) S; PERF.md)."""
     from lanczos_tpu_torch.ops.kernels.cgs2 import cgs2, cgs2_plain, cgs2_plan
 
     n, p, b = assembled["A"].n128, P_ASSEMBLED, CGS2_BLOCKS
@@ -981,26 +1004,32 @@ def phase_cgs2(torch, build, results, failures, assembled):
     launches = build.LAUNCHES["cgs2"]
     err = compare(torch, got, cgs2_plain(w, basis), CGS2_RTOL)[0]
     rel = err / float(w.abs().max())
-    ok = math.isfinite(err) and rel <= CGS2_RTOL and torch.equal(got, again)
+    qf = basis.reshape(b * p, n)
+    orth, orth_plain = c1_orthogonality(torch, qf, got), c1_orthogonality(
+        torch, qf, cgs2_plain(w, basis))
+    ok = (math.isfinite(err) and rel <= CGS2_RTOL and torch.equal(got, again)
+          and orth <= 2 * orth_plain)
     ms = cuda_ms(torch, lambda: cgs2(w, basis))
     # the plain version is the two torch.mm passes C1 replaced, op for op:
     # its time is the library's
     plain_ms = library_ms = cuda_ms(torch, lambda: cgs2_plain(w, basis), iters=5)
-    nbytes = (3 * b + 5) * p * n * w.element_size()
+    nbytes = (3 * b + 4) * p * n * w.element_size()
     log(f"  C1 cgs2 p={p} b={b} n={n} float32 (stages {plan.stages}, chunks "
         f"{plan.chunks}, {launches} launches for two calls): vs plain {err:.3e} "
-        f"({rel:.3e} of max |w|, tol {CGS2_RTOL:g}), two calls bit-equal "
+        f"({rel:.3e} of max |w|, tol {CGS2_RTOL:g}), max |Q w''^T| {orth:.3e} "
+        f"(plain {orth_plain:.3e}, tol twice it), two calls bit-equal "
         f"{torch.equal(got, again)}; {'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, "
         f"plain (the two torch.mm passes) {plain_ms:.4f} ms")
     if not ok:
         failures.append(f"C1 disagrees with its plain version ({rel:.3e} of "
-                        f"max |w|) or repeats other bits")
+                        f"max |w|), leaves max |Q w''^T| {orth:.3e} against "
+                        f"{orth_plain:.3e}, or repeats other bits")
     if launches != 2 * plan.launches():
         failures.append(f"C1 launched {launches} times for two calls, its plan "
                         f"{2 * plan.launches()}")
     results.setdefault("rows", {})["cgs2"] = kernel_row(
         "cgs2", err, ms, plain_ms, nbytes, c1_ops(b, p, n), "float32", library_ms)
-    del w, basis, got, again
+    del w, basis, qf, got, again
     torch.cuda.empty_cache()
 
 

@@ -2414,17 +2414,23 @@ __global__ void __launch_bounds__(kTsqrThreads,
 // (a block S: p rows of the state).
 //
 // Bound: device memory.  Each pass reads Q once: A moves (b + 1) S, B
-// (b + 2) S (Q and w read, w' written), C (b + 2) S, so a call (3b + 5) S:
-// at p = 8, b = 12 and 10,485,760 rows in f32, 41 x 335.5 MB (4.11 ms at
-// 3.35 TB/s).  The Gram of pass B saves a fourth pass, a whole read of Q
-// and of w' ((b + 1) S), against an unfused A / C / A / C; its 2 K p
-// flops an element of w are far below the card's f32 rate.  Design:
+// (b + 2) S (Q and w read, w' written), C (b + 2) S, so a call (3b + 5) S.
+// The least a CGS2 can move is (3b + 4) S: pass C could read w and redo
+// B's update on chip in B's order (the same bits), so that B writes
+// nothing; that doubles C's shared-memory sums, and on an H100 B ran no
+// faster and C 15% slower (PERF.md).
+// At p = 8, b = 12 and 10,485,760 rows in f32 that least is 40 x 335.5 MB
+// (4.01 ms at 3.35 TB/s).  The Gram of pass B saves a fourth pass, a whole
+// read of Q and of w' ((b + 1) S), against an unfused A / C / A / C (the
+// chunked schedule, (4b + 6 chunks) S); its 2 K p flops an element of w
+// are far below the card's f32 rate.  Design:
 // * persistent blocks of kCgs2Threads threads, one an SM, each owning a
 //   contiguous run of tiles of kCgs2Vectors 16-byte vectors of every row
 //   (128 positions in f32, 64 in f64);
 // * a tile's K + p rows are staged in shared memory by cp.async in a ring
-//   of `stages` (2..4) slots, stages - 1 tiles in flight ahead of the one
-//   computed; copies past S fill zeros, so a ragged tail adds nothing;
+//   of `stages` (2..kCgs2MaxStages) slots, stages - 1 tiles in flight
+//   ahead of the one computed; copies past S fill zeros, so a ragged tail
+//   adds nothing;
 // * a thread is (vector v = lane, column quad jq, k-slice ks), its warp
 //   (jq, ks).  The update sums c[k][4 jq .. 4 jq + 3] Q[k][v] over its
 //   slice's rows k = ks, ks + slices, ... (each coefficient a shared-memory
@@ -2433,7 +2439,7 @@ __global__ void __launch_bounds__(kTsqrThreads,
 //   tile's w rows, and its Gram then reads Q from the same slot, so Q
 //   leaves shared memory once;
 // * the Gram sums Q[k][v] w[4 jq + j][v] over the same rows into registers
-//   (kCgs2SliceRows<T> rows a slice at most, so K <= slices x that; more
+//   (cgs2_slice_rows<T>() rows a slice at most, so K <= slices x that; more
 //   rows take chunks of blocks, the wrapper's plan), held over the block's
 //   whole run and reduced once: the lanes by a fixed shuffle tree, then the
 //   blocks' partials in block order by the grid's last block (a ticket, as
@@ -2441,11 +2447,12 @@ __global__ void __launch_bounds__(kTsqrThreads,
 // Sums in the block's own type (f32 or f64), no float atomics: the same
 // input gives the same bits.  Against two torch.mm passes only the order
 // of the sums differs.
-// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 4.92 ms a call at
-// b = 12, p = 8, 10,518,528 rows f32, 84% of its bound, against 12.00 ms for
-// the two torch.mm passes.  Pass B is the slowest (76% of its bound: its
-// shared-memory traffic, not its bytes, sets it), and a call against b <= 4
-// blocks runs at 40-65% (a tile's fixed cost of barriers and short sums).
+// Measured (chip_smoke.py, NVIDIA H100 80GB HBM3, 700 W): 4.83 ms a call at
+// b = 12, p = 8, 10,518,528 rows f32, 83% of the least (3b + 4) S, against
+// 11.98 ms for the two torch.mm passes.  Pass B is the slowest (76% of its
+// (b + 2) S: its shared-memory traffic, not its bytes, sets it), and a call
+// against b <= 4 blocks runs at 35-61% of that least (a tile's fixed cost
+// of barriers and short sums).
 
 constexpr int kCgs2Threads = 512;  // ops/kernels/cgs2.py THREADS
 constexpr int kCgs2Warps = kCgs2Threads / 32;

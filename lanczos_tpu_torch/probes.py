@@ -119,10 +119,12 @@ f32 p = 8 for every b its request runs (1..12) and at b = 12 in f32 p =
 4, p = 16 and f64 p = 8: a call and its plain version `cgs2_plain` (the
 two torch.mm passes it replaced, op for op), timed by CUDA events in turns
 (kernel, plain, plain, kernel; 10 calls after 2 warm-up calls), with
-the bytes a call must move ((3b + 5) S, S one block), their bound at
-3.35 TB/s and at the 2,987.6 GB/s copy rate and each launch's device
-time from a `torch.profiler` trace of one call; then the sums over the
-eigsh request's 22 calls (b = 1..11 and 2..12).
+the least bytes a CGS2 call moves ((3b + 4) S, S one block), their bound
+at 3.35 TB/s and at the 2,987.6 GB/s copy rate, the bytes C1's schedule
+moves ((3b + 5) S; A / C / A / C in chunks (4b + 6 chunks) S) and the
+plain version's ((4b + 10) S), and each launch's device time from a
+`torch.profiler` trace of one call; then the sums over the eigsh
+request's 22 calls (b = 1..11 and 2..12).
 """
 
 from __future__ import annotations
@@ -910,16 +912,18 @@ def probe_cgs2(dev) -> None:
                 fn = (lambda: cgs2(w, q)) if name == "kernel" else (lambda: cgs2_plain(w, q))
                 t[name].append(_ms(fn, iters=10))
             ms[b], lib_ms[b] = min(t["kernel"]), min(t["plain"])
-            mb = (3 * b + 5) * block_mb
+            mb = (3 * b + 4) * block_mb
             got, want = cgs2(w, q), cgs2_plain(w, q)
             err = float((got - want).abs().max()) / float(w.abs().max())
             plan = cgs2_plan(b, p, w.element_size())
+            moved = (3 * b + 5 if plan.chunks == 1 else 4 * b + 6 * plan.chunks) * block_mb
             print(f"C1 p={p} {str(dtype)[6:]} b={b} n={CGS2_ROWS} (stages {plan.stages}, "
                   f"chunks {plan.chunks}): kernel {', '.join(f'{v:.4f}' for v in t['kernel'])} ms, "
                   f"plain {', '.join(f'{v:.4f}' for v in t['plain'])} ms; "
                   f"{mb:.1f} MB: bound {mb / 3.35e6 * 1e3:.4f}, at copy "
                   f"{mb / COPY_GBS:.4f} ms, kernel at {mb / 3.35e6 * 1e3 / ms[b]:.1%} of the "
-                  f"bound; launches {plan.launches()} "
+                  f"bound; C1 moves {moved:.1f} MB, the plain version "
+                  f"{(4 * b + 10) * block_mb:.1f}; launches {plan.launches()} "
                   f"({_launch_ms(lambda: cgs2(w, q), 'cgs2')} ms); vs plain {err:.2e} of scale",
                   flush=True)
         if len(bs) > 1:
@@ -927,7 +931,7 @@ def probe_cgs2(dev) -> None:
             print(f"C1 p={p} eigsh request (22 calls, b = 1..11 and 2..12): kernel "
                   f"{sum(ms[b] for b in calls):.2f} ms, plain "
                   f"{sum(lib_ms[b] for b in calls):.2f} ms, bound "
-                  f"{sum(3 * b + 5 for b in calls) * block_mb / 3.35e6 * 1e3:.2f} ms",
+                  f"{sum(3 * b + 4 for b in calls) * block_mb / 3.35e6 * 1e3:.2f} ms",
                   flush=True)
         del w, basis
         torch.cuda.empty_cache()

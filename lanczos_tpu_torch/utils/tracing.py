@@ -46,7 +46,10 @@ The counters are always on, as `build.LAUNCHES` is:
                    tree and the gathered R stack's); the rest ran its
                    plain version
   cgs2.calls       CGS2 passes of the block recurrence against a non-empty
-                   stored basis (`methods/block_lanczos.py` _cgs2)
+                   stored basis (`methods/block_lanczos.py` _cgs2): the
+                   `lt.lanczos.reorth` spans' count, kept while nobody
+                   profiles too, so that cgs2.calls - cgs2.kernel says how
+                   many ran the plain version in any run
   cgs2.kernel      the calls C1's kernels ran (`ops/kernels/cgs2.py` cgs2:
                    a CUDA float32 or float64 block, p <= 16), three launches
                    a call (more where the basis comes in chunks); the rest
